@@ -24,7 +24,9 @@
 //       are contiguous.  No atomics: deterministic.
 // Atomic sums reorder additions from run to run; compare with tolerances.
 // Indices outside [0, s) contribute nothing (knn never produces them; the
-// guard keeps a bad input from writing out of bounds).
+// guard keeps a bad input from writing out of bounds), nor do zero weights.
+// The row normalization (normalized_point) is shared with K6-K8 in
+// common.cuh.
 
 #include <cuda_runtime.h>
 
@@ -44,27 +46,6 @@ __global__ void ell_colsum_kernel(const float* __restrict__ vals, const int* __r
   }
 }
 
-// Row-normalized weights of one row; an out-of-range entry gets weight 0
-// and index -1.
-template <int R>
-__device__ __forceinline__ void normalized_row(const float* __restrict__ vals,
-                                               const int* __restrict__ idx,
-                                               const float* __restrict__ cscale, int row, int s,
-                                               float eps, int (&c)[R], float (&w)[R]) {
-  float rs = 0.0f;
-#pragma unroll
-  for (int a = 0; a < R; ++a) {
-    c[a] = idx[static_cast<size_t>(row) * R + a];
-    const bool ok = c[a] >= 0 && c[a] < s;
-    w[a] = ok ? vals[static_cast<size_t>(row) * R + a] * cscale[c[a]] : 0.0f;
-    if (!ok) c[a] = -1;
-    rs += w[a];
-  }
-  const float rinv = 1.0f / (rs + eps);
-#pragma unroll
-  for (int a = 0; a < R; ++a) w[a] *= rinv;
-}
-
 template <int R>
 __global__ void ell_norm_gram_kernel(const float* __restrict__ vals, const int* __restrict__ idx,
                                      const float* __restrict__ cscale, int n, int s, float eps,
@@ -73,7 +54,7 @@ __global__ void ell_norm_gram_kernel(const float* __restrict__ vals, const int* 
   if (row >= n) return;
   int c[R];
   float w[R];
-  normalized_row<R>(vals, idx, cscale, row, s, eps, c, w);
+  normalized_point<R>(vals, idx, cscale, static_cast<size_t>(row) * R, 1, s, eps, c, w);
 #pragma unroll
   for (int a = 0; a < R; ++a) {
     if (c[a] < 0) continue;
@@ -98,7 +79,7 @@ __global__ void ell_norm_matmat_kernel(const float* __restrict__ vals,
   const int row = static_cast<int>(warp);
   int c[R];
   float w[R];
-  normalized_row<R>(vals, idx, cscale, row, s, eps, c, w);
+  normalized_point<R>(vals, idx, cscale, static_cast<size_t>(row) * R, 1, s, eps, c, w);
   for (int k = lane; k < K; k += 32) {
     float acc = 0.0f;
 #pragma unroll

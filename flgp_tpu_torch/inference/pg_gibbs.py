@@ -86,8 +86,9 @@ def pg_gibbs_chain(generator, C, Y, n_sweeps: int = 100, N=None, max_count: int 
     return state, f_trace
 
 
-def collapsed_predict(C, Cnv, Y, omega, N=None) -> torch.Tensor:
-    """Collapsed posterior-mean probabilities at the rows of Cnv under ω.
+def collapsed_adjoints(C, Y, omega, N=None) -> torch.Tensor:
+    """Dual weights adj = κ − √ω B⁻¹√ω (Cκ) of the collapsed mean under ω, so
+    that the latent mean at any row x is C[x, train]·adj.
 
     ω may carry leading batch dimensions (several states at once); the
     result then has the same leading dimensions."""
@@ -98,8 +99,13 @@ def collapsed_predict(C, Cnv, Y, omega, N=None) -> torch.Tensor:
     sqrt_om = torch.sqrt(omega)
     L_B = linalg.cholesky(linalg.add_diag(sqrt_om[..., :, None] * C * sqrt_om[..., None, :], 1.0))
     Ck = linalg.pdot(C, kappa[:, None])[:, 0]
-    adj = kappa - sqrt_om * linalg.chol_solve(L_B, (sqrt_om * Ck)[..., None])[..., 0]
-    return torch.sigmoid(linalg.pdot(adj, Cnv.T))
+    return kappa - sqrt_om * linalg.chol_solve(L_B, (sqrt_om * Ck)[..., None])[..., 0]
+
+
+def collapsed_predict(C, Cnv, Y, omega, N=None) -> torch.Tensor:
+    """Collapsed posterior-mean probabilities at the rows of Cnv under ω
+    (batched over leading dimensions of ω, as ``collapsed_adjoints``)."""
+    return torch.sigmoid(linalg.pdot(collapsed_adjoints(C, Y, omega, N), Cnv.T))
 
 
 def test_pgbinary(

@@ -36,6 +36,9 @@ _SIGNATURES = {
     "flgp_ell_colsum": [_P, _P, ctypes.c_longlong, _I, _P, _P],
     "flgp_ell_norm_gram": [_P, _P, _P, _I, _I, _I, ctypes.c_float, _P, _P, _P],
     "flgp_ell_norm_matmat": [_P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_float, _P, _P],
+    "flgp_ell_colsum_t": [_P, _P, ctypes.c_longlong, _I, _P, _P],
+    "flgp_ell_norm_gram_t": [_P, _P, _P, _I, _I, _I, _I, ctypes.c_float, _P, _P, _P],
+    "flgp_ell_norm_matmat_t": [_P, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_float, _P, _P],
 }
 
 _lib = None

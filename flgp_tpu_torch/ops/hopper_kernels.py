@@ -1,9 +1,11 @@
-"""Wrappers of the hand-written Hopper kernels K1–K5, with their plain versions.
+"""Wrappers of the hand-written Hopper kernels K1–K8, with their plain versions.
 
-K1 ``knn`` (csrc/knn.cu), K2 ``lae_weights`` (csrc/lae.cu) and K3–K5
-``ell_colsum``, ``ell_norm_gram``, ``ell_norm_matmat`` (csrc/ell.cu) replace
-the TPU kernels of the same names in flgp_tpu/ops/pallas_kernels.py (K2:
-``fused_lae_tiles``, with the Gram assembly that feeds it).
+K1 ``knn`` (csrc/knn.cu), K2 ``lae_weights`` (csrc/lae.cu), K3–K5
+``ell_colsum``, ``ell_norm_gram``, ``ell_norm_matmat`` (csrc/ell.cu) and their
+chunked feature-major variants K6–K8 ``ell_colsum_t``, ``ell_norm_gram_t``,
+``ell_norm_matmat_t`` (csrc/ell_t.cu) replace the TPU kernels of the same
+names in flgp_tpu/ops/pallas_kernels.py (K2: ``fused_lae_tiles``, with the
+Gram assembly that feeds it).
 
 Each wrapper takes its plain PyTorch version for tensors on the CPU, and only
 then.  For CUDA tensors it checks device, dtype (float32 values, int32
@@ -28,7 +30,8 @@ from .lae import lae_weights_plain
 
 # Launches of each kernel since the last reset_launches().
 LAUNCHES = {"knn": 0, "lae_weights": 0, "ell_colsum": 0, "ell_norm_gram": 0,
-            "ell_norm_matmat": 0}
+            "ell_norm_matmat": 0, "ell_colsum_t": 0, "ell_norm_gram_t": 0,
+            "ell_norm_matmat_t": 0}
 
 
 def reset_launches() -> None:
@@ -183,4 +186,102 @@ def ell_norm_matmat(values: torch.Tensor, indices: torch.Tensor, cscale: torch.T
     _launch("ell_norm_matmat", values.device, _build.load().flgp_ell_norm_matmat,
             values.data_ptr(), indices.data_ptr(), cscale.data_ptr(), W.data_ptr(), n, r, s, K,
             float(eps), out.data_ptr())
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K6–K8: the same tail on the chunked feature-major (nch, r, c) layout
+# ---------------------------------------------------------------------------
+# Entry (i, k, j) is the k-th neighbour of point i·c + j.  Pad points (past
+# the real n) must carry zero weights: a zero row normalizes to 0·(1/eps) = 0
+# and adds nothing to any sum.
+
+
+def _check_t(values: torch.Tensor, indices: torch.Tensor) -> Tuple[int, int, int]:
+    if values.dim() != 3:
+        raise ValueError(f"values must be (nch, r, c), got shape {tuple(values.shape)}")
+    nch, r, c = values.shape
+    _check("values", values, torch.float32, (nch, r, c), values.device)
+    _check("indices", indices, torch.int32, (nch, r, c), values.device)
+    return nch, r, c
+
+
+def _normalized_t(values: torch.Tensor, indices: torch.Tensor, cscale: torch.Tensor,
+                  eps: float) -> torch.Tensor:
+    w1 = values * cscale[indices.long()]
+    return w1 / (torch.sum(w1, dim=1, keepdim=True) + eps)
+
+
+def ell_colsum_t_plain(values: torch.Tensor, indices: torch.Tensor, s: int) -> torch.Tensor:
+    return EllMatrix(values, indices, s).colsum()
+
+
+def ell_colsum_t(values: torch.Tensor, indices: torch.Tensor, s: int) -> torch.Tensor:
+    """Column sums C = 1ᵀZ of a chunked (nch, r, c) ELL graph (K6), shape (s,)."""
+    if values.device.type == "cpu":
+        return ell_colsum_t_plain(values, indices, s)
+    nch, r, c = _check_t(values, indices)
+    out = torch.zeros((s,), dtype=torch.float32, device=values.device)
+    _launch("ell_colsum_t", values.device, _build.load().flgp_ell_colsum_t,
+            values.data_ptr(), indices.data_ptr(), nch * r * c, s, out.data_ptr())
+    return out
+
+
+def ell_norm_gram_t_plain(values: torch.Tensor, indices: torch.Tensor, cscale: torch.Tensor,
+                          eps: float = EPS) -> Tuple[torch.Tensor, torch.Tensor]:
+    """D by scatter-add, Ĝ by a scatter-add of all r² pairs of each point."""
+    s = cscale.shape[0]
+    wn = _normalized_t(values, indices, cscale, eps)
+    idx = indices.long()
+    D = EllMatrix(wn, indices, s).colsum()
+    pairs = (wn[:, :, None, :] * wn[:, None, :, :]).reshape(-1)
+    flat = (idx[:, :, None, :] * s + idx[:, None, :, :]).reshape(-1)
+    G = values.new_zeros((s * s,)).index_add_(0, flat, pairs).reshape(s, s)
+    return G, D
+
+
+def ell_norm_gram_t(values: torch.Tensor, indices: torch.Tensor, cscale: torch.Tensor,
+                    eps: float = EPS) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(Ĝ = ZₙᵀZₙ (s, s), D = colsum(Zₙ) (s,)) on the chunked layout (K7)."""
+    if values.device.type == "cpu":
+        return ell_norm_gram_t_plain(values, indices, cscale, eps)
+    nch, r, c = _check_t(values, indices)
+    s = cscale.shape[0]
+    _check_fan_in(r)
+    _check("cscale", cscale, torch.float32, (s,), values.device)
+    # float64 accumulators, rounded to float32 once (see csrc/ell_t.cu)
+    G = torch.zeros((s, s), dtype=torch.float64, device=values.device)
+    D = torch.zeros((s,), dtype=torch.float64, device=values.device)
+    _launch("ell_norm_gram_t", values.device, _build.load().flgp_ell_norm_gram_t,
+            values.data_ptr(), indices.data_ptr(), cscale.data_ptr(), nch, r, c, s, float(eps),
+            G.data_ptr(), D.data_ptr())
+    return G.to(torch.float32), D.to(torch.float32)
+
+
+def ell_norm_matmat_t_plain(values: torch.Tensor, indices: torch.Tensor, cscale: torch.Tensor,
+                            W: torch.Tensor, eps: float = EPS) -> torch.Tensor:
+    """Chunk by chunk, so the (r, c, K) gather of W stays one chunk's size."""
+    nch, _, c = values.shape
+    wn = _normalized_t(values, indices, cscale, eps)
+    out = W.new_empty((nch * c, W.shape[1]))
+    for i in range(nch):
+        out[i * c:(i + 1) * c] = torch.einsum("rc,rck->ck", wn[i], W[indices[i].long()])
+    return out
+
+
+def ell_norm_matmat_t(values: torch.Tensor, indices: torch.Tensor, cscale: torch.Tensor,
+                      W: torch.Tensor, eps: float = EPS) -> torch.Tensor:
+    """rownorm(Z·diag(cscale)) @ W on the chunked layout (K8), point-major
+    (nch·c, K); the caller slices off the pad rows."""
+    if values.device.type == "cpu":
+        return ell_norm_matmat_t_plain(values, indices, cscale, W, eps)
+    nch, r, c = _check_t(values, indices)
+    s, K = W.shape
+    _check_fan_in(r)
+    _check("cscale", cscale, torch.float32, (s,), values.device)
+    _check("W", W, torch.float32, (s, K), values.device)
+    out = torch.empty((nch * c, K), dtype=torch.float32, device=values.device)
+    _launch("ell_norm_matmat_t", values.device, _build.load().flgp_ell_norm_matmat_t,
+            values.data_ptr(), indices.data_ptr(), cscale.data_ptr(), W.data_ptr(), nch, r, c, s,
+            K, float(eps), out.data_ptr())
     return out

@@ -238,9 +238,14 @@ def test_wrappers_take_plain_version_on_cpu_without_counting(rng):
     hk.ell_norm_gram(T(w, torch.float32), T(idx, torch.int32), T(cs, torch.float32))
     hk.ell_norm_matmat(T(w, torch.float32), T(idx, torch.int32), T(cs, torch.float32),
                        torch.ones((s, 2)))
+    wt, it = T(w.T[None], torch.float32), T(idx.T[None], torch.int32)   # (1, r, n) chunked
+    hk.ell_colsum_t(wt, it, s)
+    hk.ell_norm_gram_t(wt, it, T(cs, torch.float32))
+    hk.ell_norm_matmat_t(wt, it, T(cs, torch.float32), torch.ones((s, 2)))
     assert all(v == 0 for v in hk.LAUNCHES.values())
     assert set(hk.LAUNCHES) == {"knn", "lae_weights", "ell_colsum", "ell_norm_gram",
-                                "ell_norm_matmat"}
+                                "ell_norm_matmat", "ell_colsum_t", "ell_norm_gram_t",
+                                "ell_norm_matmat_t"}
 
 
 # ---------------------------------------------------------------------------
