@@ -7,7 +7,8 @@ Phases, each of which ends the script with a non-zero exit if it fails:
 
 1. the card: name and power limit from nvidia-smi; a CUDA device is required
    (there is no CPU path) and TF32 is switched off;
-2. build: nvcc compiles the kernels K1–K8 from flgp_tpu_torch/csrc for sm_90a;
+2. build: nvcc compiles the kernels K1–K9 from flgp_tpu_torch/csrc for sm_90a
+   (one nvcc process per source, all at once);
 3. kernels vs their plain PyTorch versions, on the card, at the shapes the
    main path gives them: the torus config (n=4800, d=2, s=600, r=3, K=100)
    and the large config (n=1e6, d=2, s=1024, r=3, K=128), with both times;
@@ -22,10 +23,33 @@ Phases, each of which ends the script with a non-zero exit if it fails:
 7. the n=1e7 fit of the huge-n path (k-means anchors on a column sample,
    full-n cluster sizes, chunked graph, fused K6–K8 spectrum tail, training,
    O(n·K) predict tail) on two anchor draws (error ≤ 0.03 on each; K1, K2
-   and K6–K8 must be launched by it), with stage times and peak memory.
+   and K6–K8 must be launched by it), with stage times and peak memory;
+8. K1 as the GLGP graph calls it (self-kNN, s = n = 1e5, d = 3, r = 8) vs
+   its plain version: differing rows near-ties only, d² within 1e-5, every
+   point its own nearest neighbour at d² ≈ 0; then
+   K9 ``ell_matmat`` vs its plain version at the LOBPCG block's shape
+   (n = s = 1e5, r = 8, K = 384), the spectrum_from_Z shape (n = 1e6,
+   s = 1024, r = 3, K = 128) and the torus GLGP shape (n = s = 4800, r = 48,
+   K = 300), with the times of ``torch.sparse.mm`` on the same matrix as CSR
+   and of the operator's transposed half (``EllMatrix.rmatmat``);
+9. the sparse GLGP spectrum of a Gaussian cloud (n = 1e5, d = 3, r = 8,
+   K = 128, 60 LOBPCG iterations, float32): wall time, largest residual, 61
+   K9 launches, eigenvalues against the same solve through the plain
+   operator from the same start block; then the device time of each piece
+   of one LOBPCG iteration at that shape and at the torus GLGP fit's;
+10. fits through the entry points, f32 graph and f64 tail, cold and warm:
+    ``fit_gl_logit_gp`` (sparse LOBPCG; K9 must be launched) and
+    ``fit_se_logit_gp`` on the torus, ``fit_lae_regression_gp``,
+    ``fit_se_regression_gp`` and ``fit_nystrom_regression_gp`` on the spiral.
+
+Beside each kernel's time stand its bound (the least time the card could
+take: compulsory bytes at 3.35 TB/s or operations at the 67 TFLOP/s float32
+peak, whichever is larger, from this run's shapes and data) and, where one
+PyTorch call computes the same function, that call's time (``index_add_``,
+``torch.sparse.mm``); the port never calls those on a fit's path.
 
 The line before the last is one JSON object with the kernels' launches,
-errors and times; the last line is ``{"ok": true, "device": {...}}``.
+errors, times and bounds; the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -55,17 +79,19 @@ import torch  # noqa: E402
 
 import flgp_tpu_torch as ft  # noqa: E402
 from flgp_tpu_torch.config import EPS, LaplacianType, pin_full_precision  # noqa: E402
-from flgp_tpu_torch.datasets import torus_rings  # noqa: E402
+from flgp_tpu_torch.datasets import spiral, torus_rings  # noqa: E402
 from flgp_tpu_torch.fit.drivers import _solve_cast, _train_gpc  # noqa: E402
 from flgp_tpu_torch.fit.spectral import build_spectrum  # noqa: E402
 from flgp_tpu_torch.fit.streaming import _gpc_lowrank_tail  # noqa: E402
 from flgp_tpu_torch.ops import _build  # noqa: E402
 from flgp_tpu_torch.ops import colmajor as col  # noqa: E402
 from flgp_tpu_torch.ops import hopper_kernels as hk  # noqa: E402
-from flgp_tpu_torch.ops.knn import knn_plain  # noqa: E402
+from flgp_tpu_torch.ops.knn import knn, knn_plain  # noqa: E402
 from flgp_tpu_torch.ops.lae import lae_weights_plain  # noqa: E402
+from flgp_tpu_torch.ops.lobpcg import _chol_qr, lobpcg_standard  # noqa: E402
+from flgp_tpu_torch.ops.sparse_graph import glgp_operator, symmetrize_knn  # noqa: E402
 from flgp_tpu_torch.ops.spectrum import spectrum_fused  # noqa: E402
-from flgp_tpu_torch.types import EigenPair  # noqa: E402
+from flgp_tpu_torch.types import EigenPair, EllMatrix  # noqa: E402
 
 # name -> (CUDA source, TPU kernel it replaces: the pallas_call line)
 KERNELS = {
@@ -77,6 +103,7 @@ KERNELS = {
     "ell_colsum_t": ("flgp_tpu_torch/csrc/ell_t.cu", "flgp_tpu/ops/pallas_kernels.py:550"),
     "ell_norm_gram_t": ("flgp_tpu_torch/csrc/ell_t.cu", "flgp_tpu/ops/pallas_kernels.py:626"),
     "ell_norm_matmat_t": ("flgp_tpu_torch/csrc/ell_t.cu", "flgp_tpu/ops/pallas_kernels.py:689"),
+    "ell_matmat": ("flgp_tpu_torch/csrc/ell_matmat.cu", "flgp_tpu/ops/pallas_kernels.py:740"),
 }
 # the kernels each path must launch
 MAIN_PATH = ("knn", "lae_weights", "ell_colsum", "ell_norm_gram", "ell_norm_matmat")
@@ -87,6 +114,58 @@ SHAPES = {  # the configurations of the main path and of the huge-n path
     "huge": dict(n=10_000_000, m=1000, seed=4, s=1024, r=3, K=128, chunk=1 << 16),
 }
 ERR_GATE = 0.03
+# the sparse GLGP spectrum's shape (a Gaussian cloud) and the README-size fits
+LOBPCG = dict(n=100_000, d=3, r=8, K=128, iters=60)
+SPIRAL = dict(n=4000, m=200, s=500, r=3, K=100)
+RMSE_GATES = {"fit_lae_regression_gp": 0.60, "fit_se_regression_gp": 0.61,
+              "fit_nystrom_regression_gp": 2.5}
+HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
+F32_FLOP_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
+
+
+def work(name: str, n: int, r: int, s: int, K: int = 0, d: int = 0, distinct=None) -> dict:
+    """Compulsory bytes (each input read once, each output written once) and
+    float32 operations of one call of a kernel, from its shapes; for the
+    chunked kernels n counts the pad points too (they are stored and read).
+    K9 reads only the ``distinct`` rows of W that the graph names."""
+    graph = 8 * n * r                                   # f32 values + i32 indices
+    if name == "knn":           # d²: 2d for the dot product, 2 to add the norms
+        return dict(bytes=4 * (n * d + s * d) + 8 * n * r, flops=n * s * (2 * d + 2))
+    if name == "lae_weights":
+        # counted from the body of csrc/lae.cu, every add, multiply, divide,
+        # min/max, compare and sqrt as one operation.  Set-up: G and b
+        # (2d−1)(r²+r), the step bound L 2r²+2.  One of the 150 FISTA steps:
+        # momentum 3r+2, gradient step 2r²+2r, simplex projection (sorting
+        # network r(r−1), running sums r−1, ρ 4r, θ 2, clip 2r), next d 6
+        step = 3 * r * r + 11 * r + 9
+        return dict(bytes=4 * (n * d + s * d) + 8 * n * r,
+                    flops=n * ((2 * d - 1) * (r * r + r) + 2 * r * r + 2 + 150 * step))
+    if name.startswith("ell_colsum"):
+        return dict(bytes=graph + 4 * s, flops=n * r)
+    if name.startswith("ell_norm_gram"):
+        return dict(bytes=graph + 4 * s + 4 * s * s + 4 * s, flops=n * (2 * r * r + 4 * r))
+    if name.startswith("ell_norm_matmat"):
+        return dict(bytes=graph + 4 * s + 4 * s * K + 4 * n * K, flops=n * (2 * r * K + 4 * r))
+    if name == "ell_matmat":
+        return dict(bytes=graph + 4 * K * (s if distinct is None else distinct) + 4 * n * K,
+                    flops=2 * n * r * K)
+    raise KeyError(name)
+
+
+def bound(w: dict) -> tuple:
+    """(least ms the card could take, which of the two terms sets it)."""
+    by_bytes, by_ops = w["bytes"] / HBM_BYTES_PER_S, w["flops"] / F32_FLOP_PER_S
+    return 1e3 * max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations"
+
+
+def ell_to_csr(values: torch.Tensor, indices: torch.Tensor, s: int) -> torch.Tensor:
+    """The (n, s) matrix of an (n, r) ELL graph as CSR, columns sorted
+    within each row; the yardstick ``torch.sparse.mm`` multiplies this."""
+    n, r = values.shape
+    cols, order = torch.sort(indices.long(), dim=1)
+    crow = torch.arange(0, n * r + 1, r, dtype=torch.int64, device=values.device)
+    return torch.sparse_csr_tensor(crow, cols.reshape(-1), torch.gather(values, 1, order).reshape(-1),
+                                   size=(n, s))
 
 
 def card_line() -> str:
@@ -141,12 +220,18 @@ def check_kernels(label: str, cfg: dict, dev, results: dict) -> None:
     reps_k, reps_p = (20, 5) if n < 100_000 else (10, 3)
     rows = []
 
-    def record(name, err, ms, plain_ms):
+    d = X.shape[1]
+
+    def record(name, err, ms, plain_ms, library_ms=None):
         ent = results.setdefault(name, dict(max_abs_err=0.0))
         ent["max_abs_err"] = max(ent["max_abs_err"], err)
         ent[f"ms_{label}"], ent[f"plain_ms_{label}"] = ms, plain_ms
+        ent[f"library_ms_{label}"] = library_ms
+        ent[f"work_{label}"] = work(name, n=n, r=r, s=s, K=K, d=d)
+        b_ms, b_by = bound(ent[f"work_{label}"])
+        lib = "" if library_ms is None else f"  library {library_ms:9.4f} ms"
         rows.append(f"  {label:5s} {name:16s} kernel {ms:9.4f} ms  plain {plain_ms:9.4f} ms  "
-                    f"max_abs_err {err:.3e}")
+                    f"bound {b_ms:.4f} ms ({b_by}){lib}  max_abs_err {err:.3e}")
 
     # K1 at the graph's r and at k-means‖'s r = 1 over the candidate set
     x2 = torch.sum(X * X, dim=1)
@@ -193,8 +278,10 @@ def check_kernels(label: str, cfg: dict, dev, results: dict) -> None:
     torch.cuda.synchronize()
     ref = hk.ell_colsum_plain(w, idx, s)
     _allclose(f"ell_colsum {label}", got, ref, 1e-5, 0.0)
+    flat_i, flat_w = idx.reshape(-1).long(), w.reshape(-1)
     record("ell_colsum", _maxabs(got, ref), cuda_ms(lambda: hk.ell_colsum(w, idx, s), reps_k),
-           cuda_ms(lambda: hk.ell_colsum_plain(w, idx, s), reps_p))
+           cuda_ms(lambda: hk.ell_colsum_plain(w, idx, s), reps_p),
+           cuda_ms(lambda: w.new_zeros((s,)).index_add_(0, flat_i, flat_w), reps_k))
 
     # K4, with the cluster-normalized column scale of the main path
     counts = torch.bincount(idx[:, 0].long(), minlength=s).to(torch.float32)
@@ -216,9 +303,14 @@ def check_kernels(label: str, cfg: dict, dev, results: dict) -> None:
     torch.cuda.synchronize()
     ref = hk.ell_norm_matmat_plain(w, idx, cscale, W)
     _allclose(f"ell_norm_matmat {label}", got, ref, 1e-5, 1e-5)
+    csr = ell_to_csr(hk._normalized(w, idx, cscale, EPS).values, idx, s)
+    lib_err = _maxabs(torch.sparse.mm(csr, W), ref)
     record("ell_norm_matmat", _maxabs(got, ref),
            cuda_ms(lambda: hk.ell_norm_matmat(w, idx, cscale, W), reps_k),
-           cuda_ms(lambda: hk.ell_norm_matmat_plain(w, idx, cscale, W), reps_p))
+           cuda_ms(lambda: hk.ell_norm_matmat_plain(w, idx, cscale, W), reps_p),
+           cuda_ms(lambda: torch.sparse.mm(csr, W), reps_k))
+    rows.append(f"  {label:5s} torch.sparse.mm (CSR of the normalized graph) vs plain: "
+                f"max abs diff {lib_err:.3e}")
     print(f"kernels vs plain, {label} shape (n={n}, s={s}, r={r}, K={K}), ms per call:")
     print("\n".join(rows), flush=True)
 
@@ -305,10 +397,14 @@ def check_kernels_t(Xt7, dev, results: dict) -> None:
     rows = [f"kernels vs plain, chunked shape (nch={nch}, r={r}, c={c}, s={s}, K={K}; "
             f"{n_pad} pad points), ms per call:"]
 
-    def record(name, err, ms, plain_ms, note=""):
-        results[name] = dict(max_abs_err=err, ms_huge=ms, plain_ms_huge=plain_ms)
+    def record(name, err, ms, plain_ms, note="", library_ms=None):
+        results[name] = dict(max_abs_err=err, ms_huge=ms, plain_ms_huge=plain_ms,
+                             library_ms_huge=library_ms,
+                             work_huge=work(name, n=nch * c, r=r, s=s, K=K))
+        b_ms, b_by = bound(results[name]["work_huge"])
+        lib = "" if library_ms is None else f"  library {library_ms:9.4f} ms"
         rows.append(f"  huge  {name:18s} kernel {ms:9.4f} ms  plain {plain_ms:9.4f} ms  "
-                    f"max_abs_err {err:.3e}{note}")
+                    f"bound {b_ms:.4f} ms ({b_by}){lib}  max_abs_err {err:.3e}{note}")
 
     # K6 and K7 sum 3.1e7 and 9.2e7 terms with float atomics; the float32
     # plain versions (index_add_) are atomic sums too, and their own rounding
@@ -323,9 +419,12 @@ def check_kernels_t(Xt7, dev, results: dict) -> None:
     err, err32 = _maxabs(got, ref), _maxabs(hk.ell_colsum_t_plain(w, idx, s), ref)
     if err > 1e-5 * float(torch.max(torch.abs(ref))):
         _fail(f"ell_colsum_t: max abs err {err:.3e} > 1e-5·max|C| (f64 plain)")
+    flat_i, flat_w = idx.reshape(-1).long(), w.reshape(-1)
     record("ell_colsum_t", err, cuda_ms(lambda: hk.ell_colsum_t(w, idx, s), 10),
            cuda_ms(lambda: hk.ell_colsum_t_plain(w, idx, s), 3),
-           f"  (f32 plain {err32:.3e}, of max|C| {float(torch.max(ref)):.4g})")
+           f"  (f32 plain {err32:.3e}, of max|C| {float(torch.max(ref)):.4g})",
+           library_ms=cuda_ms(lambda: w.new_zeros((s,)).index_add_(0, flat_i, flat_w), 10))
+    del flat_i, flat_w
     cscale = (1.0 / (got + EPS) * counts).contiguous()
 
     G, D = hk.ell_norm_gram_t(w, idx, cscale)
@@ -352,10 +451,16 @@ def check_kernels_t(Xt7, dev, results: dict) -> None:
     if float(torch.max(torch.abs(got[n:]))) != 0.0:
         _fail("ell_norm_matmat_t: a pad row is not zero")
     err = _maxabs(got, ref)
-    del got, ref
+    del got
+    csr = ell_to_csr(col.point_major(hk._normalized_t(w, idx, cscale, EPS), nch * c),
+                     col.point_major(idx, nch * c), s)
+    lib_err = _maxabs(torch.sparse.mm(csr, W), ref)
+    del ref
     record("ell_norm_matmat_t", err, cuda_ms(lambda: hk.ell_norm_matmat_t(w, idx, cscale, W), 10),
-           cuda_ms(lambda: hk.ell_norm_matmat_t_plain(w, idx, cscale, W), 3))
-    del idx, w
+           cuda_ms(lambda: hk.ell_norm_matmat_t_plain(w, idx, cscale, W), 3),
+           f"  (torch.sparse.mm vs plain: max abs diff {lib_err:.3e})",
+           library_ms=cuda_ms(lambda: torch.sparse.mm(csr, W), 10))
+    del idx, w, csr
     print("\n".join(rows), flush=True)
 
     # the chunked spectrum (K6–K8) vs the point-major one (K3–K5), one graph
@@ -468,6 +573,273 @@ def huge_phase(dev, results: dict) -> dict:
     return launches
 
 
+def check_self_knn(X: torch.Tensor, r: int, results: dict):
+    """K1 as the GLGP graph calls it, anchors = the points themselves (s = n),
+    against its plain version: rows may differ only on near-ties, d² within
+    1e-5, and each point's nearest neighbour is the point itself at d² ≈ 0
+    unless another point lies within the expanded form's rounding of it."""
+    n, d = X.shape
+    got = hk.knn(X, X, r)
+    torch.cuda.synchronize()
+    ref = knn_plain(X, X, r)
+    x2 = torch.sum(X * X, dim=1)
+    differ = torch.any(got.indices != ref.indices, dim=1)
+    gap = torch.abs(got.sqdists[differ] - ref.sqdists[differ])
+    n_far = int(torch.sum(torch.any(gap > 2e-5 * x2.max(), dim=1)))
+    me = torch.arange(n, device=X.device, dtype=got.indices.dtype)
+    not_self = got.indices[:, 0] != me
+    # a point that is not its own nearest neighbour must sit in its own list
+    # at a d² within rounding of the first (a twin closer than f32 resolves)
+    twin_ok = torch.any(got.indices[not_self] == me[not_self, None], dim=1) & (
+        got.sqdists[not_self, min(1, r - 1)] <= 2e-5 * x2[not_self])
+    ms = cuda_ms(lambda: hk.knn(X, X, r), 5)
+    plain_ms = cuda_ms(lambda: knn_plain(X, X, r), 2)
+    ent = results["knn"]
+    ent["max_abs_err"] = max(ent["max_abs_err"], _maxabs(got.sqdists, ref.sqdists))
+    ent.update(ms_lobpcg=ms, plain_ms_lobpcg=plain_ms,
+               work_lobpcg=work("knn", n=n, r=r, s=n, d=d))
+    print(f"self-kNN (K1, s = n = {n}, d = {d}, r = {r}) vs plain: {int(differ.sum())} rows "
+          f"differ (largest d² gap on them {float(gap.max()) if gap.numel() else 0.0:.3e}), "
+          f"{n_far} of them not near-ties; {int(not_self.sum())} points are not their "
+          f"own nearest neighbour; self d² in [{float(got.sqdists[:, 0].min()):.3e}, "
+          f"{float(got.sqdists[:, 0].max()):.3e}]; max_abs_err "
+          f"{_maxabs(got.sqdists, ref.sqdists):.3e}; kernel {ms:.3f} ms  plain {plain_ms:.3f} ms  "
+          f"bound {bound(ent['work_lobpcg'])[0]:.4f} ms ({bound(ent['work_lobpcg'])[1]})",
+          flush=True)
+    # 1e10 pairs at d = 3: the kernel's fmaf chain and the plain version's
+    # matmul round x·u differently, so more rows than at s = 1024 swap two
+    # neighbours whose d² agree to the last bits; up to 0.1% may, near-ties all
+    if int(differ.sum()) > 1e-3 * n or n_far:
+        _fail(f"self-kNN: {int(differ.sum())} of {n} rows differ, {n_far} not near-ties")
+    _allclose("self-kNN d²", got.sqdists, ref.sqdists, 1e-5, 1e-5)
+    if int(not_self.sum()) > 1e-4 * n or not bool(torch.all(twin_ok)):
+        _fail(f"self-kNN: {int(not_self.sum())} points are not their own nearest neighbour")
+    if float(torch.max(torch.abs(got.sqdists[:, 0]))) > 2e-5 * float(x2.max()):
+        _fail("self-kNN: a point's distance to itself is not ≈ 0")
+
+
+def gaussian_graph(dev, seed: int, results=None):
+    """The doubly-normalized sparse GLGP operator of a Gaussian cloud at the
+    LOBPCG shape: self-kNN (K1), weights exp(−d²/d̄), glgp_operator.  With
+    ``results``, the self-kNN is first held against its plain version."""
+    n, d, r = LOBPCG["n"], LOBPCG["d"], LOBPCG["r"]
+    X = torch.randn((n, d), generator=torch.Generator(device=dev).manual_seed(seed), device=dev,
+                    dtype=torch.float32)
+    if results is not None:
+        check_self_knn(X, r, results)
+    res = knn(X, X, r)
+    vals = torch.exp(-res.sqdists / torch.mean(res.sqdists))
+    return glgp_operator(symmetrize_knn(res.indices, vals, n))[0]
+
+
+def check_ell_matmat(dev, results: dict):
+    """Phase 8: the self-kNN (K1) that builds the LOBPCG-shape graph against
+    its plain version, then K9 against its plain version, with the library
+    call and the operator's transposed half beside it.  Returns the LOBPCG-shape operator
+    and a torus-GLGP-shaped one (n = 4800, r = 48)."""
+    g = torch.Generator(device=dev).manual_seed(11)
+    op = gaussian_graph(dev, seed=12, results=results)
+    big = SHAPES["large"]
+    ds = torus_rings(n=big["n"], m_train=big["m"], seed=big["seed"])
+    X6 = torch.as_tensor(np.concatenate([ds.x_train, ds.x_test]), dtype=torch.float32, device=dev)
+    U6 = X6[torch.randperm(X6.shape[0], generator=g, device=dev)[:big["s"]]].contiguous()
+    res6 = hk.knn(X6, U6, big["r"])
+    tor = SHAPES["torus"]
+    Xt = torch.randn((tor["n"], 2), generator=g, device=dev, dtype=torch.float32)
+    rest = knn_plain(Xt, Xt, 48)
+    op_t = glgp_operator(symmetrize_knn(
+        rest.indices, torch.exp(-rest.sqdists / torch.mean(rest.sqdists)), tor["n"]))[0]
+    cases = {   # label: (values, indices, s, K)
+        "lobpcg": (op.values.contiguous(), op.indices.contiguous(), LOBPCG["n"], 3 * LOBPCG["K"]),
+        "large": (torch.exp(-res6.sqdists / torch.mean(res6.sqdists)), res6.indices, big["s"],
+                  big["K"]),
+        "gl-torus": (op_t.values.contiguous(), op_t.indices.contiguous(), tor["n"], 3 * tor["K"]),
+    }
+    rows = ["ell_matmat (K9) vs plain, ms per call:"]
+    ent = results.setdefault("ell_matmat", dict(max_abs_err=0.0))
+    for label, (vals, idx, s, K) in cases.items():
+        n, r = vals.shape
+        W = torch.randn((s, K), generator=g, device=dev, dtype=torch.float32)
+        got = hk.ell_matmat(vals, idx, W)
+        torch.cuda.synchronize()
+        ref = hk.ell_matmat_plain(vals, idx, W)
+        _allclose(f"ell_matmat {label}", got, ref, 1e-5, 1e-5)
+        err = _maxabs(got, ref)
+        csr = ell_to_csr(vals, idx, s)
+        lib_err = _maxabs(torch.sparse.mm(csr, W), ref)
+        del got, ref
+        Z = EllMatrix(vals, idx, s)
+        M = torch.randn((n, K), generator=g, device=dev, dtype=torch.float32)
+        ms = cuda_ms(lambda: hk.ell_matmat(vals, idx, W), 20)
+        plain_ms = cuda_ms(lambda: hk.ell_matmat_plain(vals, idx, W), 3)
+        lib_ms = cuda_ms(lambda: torch.sparse.mm(csr, W), 10)
+        t_ms = cuda_ms(lambda: Z.rmatmat(M), 5)
+        w = work("ell_matmat", n=n, r=r, s=s, K=K, distinct=int(torch.unique(idx).numel()))
+        no_reuse = 1e3 * (8 * n * r + 4 * K * n * r + 4 * n * K) / HBM_BYTES_PER_S
+        ent["max_abs_err"] = max(ent["max_abs_err"], err)
+        ent.update({f"ms_{label}": ms, f"plain_ms_{label}": plain_ms,
+                    f"library_ms_{label}": lib_ms, f"work_{label}": w})
+        rows.append(f"  {label:8s} (n={n}, s={s}, r={r}, K={K}) kernel {ms:9.4f} ms  plain "
+                    f"{plain_ms:9.4f} ms  torch.sparse.mm {lib_ms:9.4f} ms  bound "
+                    f"{bound(w)[0]:.4f} ms ({bound(w)[1]}; {no_reuse:.4f} ms with no reuse of "
+                    f"gathered rows)  transposed half (rmatmat, index_add_) {t_ms:9.4f} ms  "
+                    f"max_abs_err {err:.3e}  sparse.mm vs plain {lib_err:.3e}")
+        del csr, W, M
+    print("\n".join(rows), flush=True)
+    return op, op_t
+
+
+def lobpcg_iteration(dev, op, K: int, label: str) -> None:
+    """Device time of the pieces of one LOBPCG iteration on a (n, 3K) search
+    block, each timed alone (CUDA events; the host's launch overhead between
+    the pieces is not in these numbers)."""
+    n = op.n
+    g = torch.Generator(device=dev).manual_seed(31)
+    S = _chol_qr(torch.randn((n, 3 * K), generator=g, device=dev, dtype=torch.float32))[0]
+    Z = EllMatrix(op.values, op.indices, n)
+    AS = op.matvec(S)
+    H = S.T @ AS
+    H = 0.5 * (H + H.T)
+    C = torch.linalg.eigh(H)[1][:, :K].contiguous()
+    X = S[:, :K].contiguous()
+    parts = {
+        "Cholesky-QR (Gram, Cholesky, triangular solve; twice)": lambda: _chol_qr(S),
+        "operator, forward half (K9)": lambda: Z.matmat(S),
+        "operator, transposed half (index_add_)": lambda: Z.rmatmat(S),
+        "H = S'AS": lambda: S.T @ AS,
+        f"eigh ({3 * K}, {3 * K})": lambda: torch.linalg.eigh(H),
+        "X = S C, AX = AS C, P = X - X0 (X0' X)": lambda: (S @ C, AS @ C, X - X @ (X.T @ X)),
+    }
+    ms = {k: cuda_ms(fn, 5) for k, fn in parts.items()}
+    print(f"one LOBPCG iteration, {label} (n={n}, r={op.values.shape[1]}, block {3 * K}), device "
+          f"ms: " + "; ".join(f"{k} {v:.3f}" for k, v in ms.items())
+          + f"; sum {sum(ms.values()):.3f}", flush=True)
+
+
+def lobpcg_spectrum(dev, op) -> None:
+    """Phase 9: the sparse GLGP spectrum at n = 1e5 through the kernel
+    operator (timed from the point cloud on, on a second cloud), and on the
+    first cloud against the same solve through the plain operator."""
+    n, K, iters = LOBPCG["n"], LOBPCG["K"], LOBPCG["iters"]
+    X0 = torch.randn((n, K), generator=torch.Generator(device=dev).manual_seed(21), device=dev,
+                     dtype=torch.float32)
+    hk.reset_launches()
+    got = lobpcg_standard(op.matvec, X0, iters=iters)
+    torch.cuda.synchronize()
+    n_launch = hk.LAUNCHES["ell_matmat"]
+    Z = EllMatrix(op.values, op.indices, n)
+    ref = lobpcg_standard(lambda S: Z.matmat_plain(S) + Z.rmatmat(S), X0, iters=iters)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    timed = lobpcg_standard(gaussian_graph(dev, seed=22).matvec, X0, iters=iters)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    diff = torch.abs(got.eigenvalues.double() - ref.eigenvalues.double())
+    lead = K // 4
+    print(f"sparse GLGP spectrum, Gaussian cloud n={n}, r={LOBPCG['r']}, K={K}, {iters} LOBPCG "
+          f"iterations, f32: wall {wall:.3f} s (self-kNN, operator and solve; second cloud), "
+          f"max residual {float(got.residual_norms.max()):.3e} (timed cloud "
+          f"{float(timed.residual_norms.max()):.3e}), leading {lead} residuals at most "
+          f"{float(got.residual_norms[:lead].max()):.3e}, ell_matmat launches {n_launch}; "
+          f"eigenvalues {float(got.eigenvalues[0]):.6f} .. {float(got.eigenvalues[-1]):.6f}; "
+          f"kernel vs plain operator from the same X0: leading {lead} eigenvalues max abs diff "
+          f"{float(diff[:lead].max()):.3e}, all {K} {float(diff.max()):.3e}", flush=True)
+    if n_launch != iters + 1:
+        _fail(f"the LOBPCG solve launched ell_matmat {n_launch} times, expected {iters + 1}")
+    for nm, r in (("kernel", got), ("plain", ref), ("timed", timed)):
+        if not bool(torch.all(torch.isfinite(r.eigenvalues) & torch.isfinite(r.residual_norms))):
+            _fail(f"sparse GLGP spectrum ({nm} operator): non-finite eigenvalues or residuals")
+    # The two solves round the forward half differently (an fmaf chain vs an
+    # einsum) and both scatter with float atomics in an order that changes
+    # from run to run, so after 60 Rayleigh-Ritz steps only the converged
+    # leading pairs must agree: 1e-4 absolute on eigenvalues ≤ 1, a
+    # thousand float32 roundings.
+    if float(diff[:lead].max()) > 1e-4:
+        _fail(f"kernel vs plain operator: leading eigenvalues differ by {float(diff[:lead].max())}")
+
+
+def entry_fit(name: str, ds, cfg, dev, seed: int, cold_and_warm: bool = True) -> dict:
+    """One driver through its entry point, on the card by default (no
+    ``device=`` argument), cold then warm; launches are the cold fit's."""
+    out = {}
+    for label in ("cold", "warm") if cold_and_warm else ("cold",):
+        hk.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = getattr(ft, name)(torch.Generator(device=dev).manual_seed(seed), ds.x_train,
+                                ds.y_train, ds.x_test, cfg=cfg)
+        torch.cuda.synchronize()
+        out[f"{label}_s"] = time.perf_counter() - t0
+        if label == "cold":
+            out["launches"] = {k: v for k, v in hk.LAUNCHES.items() if v}
+    n_test = ds.x_test.shape[0]
+    for nm in ("y_test", "posterior_mean", "posterior_cov"):
+        arr = getattr(res, nm)
+        if arr.shape != (n_test,) or not np.all(np.isfinite(arr)):
+            _fail(f"{name} {nm}: shape {arr.shape} or non-finite values")
+    if res.eigenpair.vectors.device.type != "cuda":
+        _fail(f"{name} ran on {res.eigenpair.vectors.device}, not on the card")
+    out["res"] = res
+    if name.endswith("logit_gp"):
+        out["score"] = float(np.mean(res.y_test != ds.y_test))
+    else:
+        out["score"] = float(np.sqrt(np.mean((res.y_test - ds.y_test) ** 2)))
+    return out
+
+
+def _report_fit(name: str, what: str, f: dict) -> None:
+    pars = {k: float(v) if np.ndim(v) == 0 else f"({np.size(v)},)" for k, v in f["res"].pars.items()}
+    metrics = "" if f["res"].metrics is None else f"  metrics {f['res'].metrics}"
+    warm = f"  warm {f['warm_s']:.3f} s" if "warm_s" in f else ""
+    print(f"{name} ({what}): {'err' if name.endswith('logit_gp') else 'rmse'} {f['score']:.6f}  "
+          f"cold {f['cold_s']:.3f} s{warm}  pars {pars}{metrics}  launches {f['launches']}",
+          flush=True)
+
+
+def grid_fits(dev) -> dict:
+    """Phase 10; returns the kernel launches of the GLGP sparse-LOBPCG fit."""
+    tor = SHAPES["torus"]
+    ds = torus_rings(n=tor["n"], m_train=tor["m"], seed=tor["seed"])
+    graph = ft.GraphConfig(s=tor["s"], r=tor["r"], K=tor["K"])
+    f32 = dict(dtype=torch.float32, solve_dtype=torch.float64)
+
+    gl_cfg = ft.FitConfig(graph=graph, sigma=1e-3, gl_sparse=True, gl_solver="lobpcg", **f32)
+    gl = entry_fit("fit_gl_logit_gp", ds, gl_cfg, dev, seed=0)
+    _report_fit("fit_gl_logit_gp", "torus, sparse LOBPCG, r=48, 10 bandwidths x 80 iterations", gl)
+    resid = gl["res"].metrics["gl_eigensolve_max_residual"]
+    if gl["launches"].get("ell_matmat", 0) == 0 or not np.isfinite(resid):
+        _fail(f"fit_gl_logit_gp: ell_matmat launches {gl['launches']}, residual {resid}")
+    gate = ERR_GATE
+    if gl["score"] > ERR_GATE:
+        # GLGP on this data is honestly worse than the anchor-graph kernels:
+        # hold the card's f32 fit to the port's own float64 plain run
+        # (float64 reaches no kernel) on the same card, plus 0.01
+        f64 = entry_fit("fit_gl_logit_gp", ds, ft.FitConfig(
+            graph=graph, sigma=1e-3, gl_sparse=True, gl_solver="lobpcg", dtype=torch.float64),
+            dev, seed=0, cold_and_warm=False)
+        _report_fit("fit_gl_logit_gp", "the same in float64, plain versions only", f64)
+        gate = f64["score"] + 0.01
+    print(f"fit_gl_logit_gp gate: err {gl['score']:.6f} <= {gate:.6f}", flush=True)
+    if gl["score"] > gate:
+        _fail(f"fit_gl_logit_gp torus test error {gl['score']} > {gate}")
+
+    se = entry_fit("fit_se_logit_gp", ds, ft.FitConfig(graph=graph, sigma=1e-3, **f32), dev, seed=0)
+    _report_fit("fit_se_logit_gp", "torus, 10 bandwidths", se)
+    if se["score"] > ERR_GATE:
+        _fail(f"fit_se_logit_gp torus test error {se['score']} > {ERR_GATE}")
+
+    sp = spiral(n=SPIRAL["n"], m_train=SPIRAL["m"])
+    for name, rmse_gate in RMSE_GATES.items():
+        rcond = 1e-3 if "nystrom" in name else 0.0
+        cfg = ft.FitConfig(graph=ft.GraphConfig(s=SPIRAL["s"], r=SPIRAL["r"], K=SPIRAL["K"],
+                                                nystrom_rcond=rcond), sigma=1e-5, **f32)
+        f = entry_fit(name, sp, cfg, dev, seed=0)
+        _report_fit(name, "spiral n=4000, m=200", f)
+        if not f["score"] <= rmse_gate:
+            _fail(f"{name} spiral rmse {f['score']} > {rmse_gate}")
+    return gl["launches"]
+
+
 def main() -> None:
     # 1. the card
     if not torch.cuda.is_available():
@@ -521,16 +893,35 @@ def main() -> None:
 
     # 6. and 7. the huge-n path: K6–K8, then the n=1e7 fit
     launches.update({k: v for k, v in huge_phase(dev, results).items() if k.endswith("_t")})
+    torch.cuda.empty_cache()
+
+    # 8. and 9. K9 and the sparse GLGP spectrum it serves
+    op, op_torus = check_ell_matmat(dev, results)
+    lobpcg_spectrum(dev, op)
+    lobpcg_iteration(dev, op, LOBPCG["K"], "Gaussian cloud")
+    lobpcg_iteration(dev, op_torus, SHAPES["torus"]["K"], "torus GLGP shape")
+    del op, op_torus
+    torch.cuda.empty_cache()
+
+    # 10. the bandwidth-grid and regression drivers through their entry points
+    launches["ell_matmat"] = grid_fits(dev)["ell_matmat"]
 
     # K1–K5: launches of the torus fit, times at the n=1e6 shape; K6–K8:
-    # launches of the first n=1e7 fit, times at the n=1e7 shape
+    # launches of the first n=1e7 fit, times at the n=1e7 shape; K9: launches
+    # of the sparse-LOBPCG GLGP fit, times at the LOBPCG block's shape
     kernels = []
     for name, (src, replaces) in KERNELS.items():
         r = results[name]
-        shape = "huge" if name.endswith("_t") else "large"
+        shape = "huge" if name.endswith("_t") else "lobpcg" if name == "ell_matmat" else "large"
+        bound_ms, bound_by = bound(r[f"work_{shape}"])
         kernels.append(dict(name=name, route="cuda", source=src, replaces=replaces,
                             launches=launches[name], max_abs_err=r["max_abs_err"],
-                            ms=r[f"ms_{shape}"], plain_ms=r[f"plain_ms_{shape}"]))
+                            ms=r[f"ms_{shape}"], plain_ms=r[f"plain_ms_{shape}"],
+                            bound_ms=bound_ms, bound_by=bound_by,
+                            library_ms=r[f"library_ms_{shape}"]))
+    ratios = sorted(((k["ms"] / k["bound_ms"], k["name"]) for k in kernels), reverse=True)
+    print("kernel ms over bound ms: " + ", ".join(f"{nm} {x:.1f}x" for x, nm in ratios),
+          flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

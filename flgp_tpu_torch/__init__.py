@@ -2,7 +2,7 @@
 
 Heat-kernel Gaussian processes on graph-Laplacian spectra, with the
 graph-stage kernels (kNN, LAE weights, ELL column sums, normalized Gram,
-eigenvector extension) hand-written in CUDA for ``sm_90a``.  Same public
+eigenvector extension, raw ELL product) hand-written in CUDA for ``sm_90a``.  Same public
 names as ``flgp_tpu``; imports neither JAX nor ``flgp_tpu``.
 """
 
@@ -16,7 +16,17 @@ from .config import (
     Subsample,
     TrainConfig,
 )
-from .fit.drivers import FitResult, fit_lae_logit_gp
+from .fit.drivers import (
+    FitResult,
+    fit_gl_logit_gp,
+    fit_gl_regression_gp,
+    fit_lae_logit_gp,
+    fit_lae_regression_gp,
+    fit_nystrom_logit_gp,
+    fit_nystrom_regression_gp,
+    fit_se_logit_gp,
+    fit_se_regression_gp,
+)
 from .types import EigenPair, EllMatrix
 
 __all__ = [
@@ -31,5 +41,12 @@ __all__ = [
     "NoiseModel",
     "Subsample",
     "TrainConfig",
+    "fit_gl_logit_gp",
+    "fit_gl_regression_gp",
     "fit_lae_logit_gp",
+    "fit_lae_regression_gp",
+    "fit_nystrom_logit_gp",
+    "fit_nystrom_regression_gp",
+    "fit_se_logit_gp",
+    "fit_se_regression_gp",
 ]

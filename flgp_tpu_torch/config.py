@@ -11,6 +11,7 @@ import dataclasses
 import enum
 from typing import Optional, Sequence
 
+import numpy as np
 import torch
 
 
@@ -216,3 +217,9 @@ class FitConfig:
                 raise ValueError(
                     f"FitConfig.{field} must be torch.float32 or torch.float64, got {v!r}"
                 )
+
+
+def default_a2s() -> np.ndarray:
+    """Default bandwidth-squared grid of the SE, Nyström and GLGP drivers:
+    exp(linspace(log 0.1, log 10, 10)), float64."""
+    return np.exp(np.linspace(np.log(0.1), np.log(10.0), 10))

@@ -1,15 +1,22 @@
-"""Empirical-Bayes optimization of the 1-D GPC diffusion time.
+"""Empirical-Bayes hyperparameter optimization.
 
-A log-spaced grid evaluated as one batch, window expansion while the optimum
-pins to the top of the window, then batched refinement rounds of the
-bracketing cell.  The objective takes a 1-D tensor of x values and returns
-one value per x (the batch dimension written out where the JAX package
-vmaps).
+1-D objectives (the GPC diffusion time): a log-spaced grid evaluated as one
+batch, window expansion while the optimum pins to the top of the window,
+then batched refinement rounds of the bracketing cell.  The objective takes
+a 1-D tensor of x values and returns one value per x (the batch dimension
+written out where the JAX package vmaps).
+
+Multi-D objectives (GPR's t and noise): a coarse log-grid evaluated as one
+batch picks the seed, then a hand-written Adam runs in log-transformed
+(bound-respecting) coordinates on ``torch.autograd`` gradients and keeps the
+best iterate.  It is deterministic, so in float64 it lands on the JAX
+package's result.
 """
 
 from __future__ import annotations
 
-from typing import Callable, NamedTuple, Optional
+import math
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -94,3 +101,172 @@ def minimize_1d_log(
         h = (b - a) / (w - 1)
         a, b = torch.clamp(uu[j] - h, wa, wb), torch.clamp(uu[j] + h, wa, wb)
     return Scalar1DResult(torch.exp(best_u), best_f, b - a, n_exp)
+
+
+class AdamResult(NamedTuple):
+    x: torch.Tensor
+    obj: torch.Tensor
+    grad_norm: torch.Tensor  # ‖∇fn‖ at the returned iterate (convergence status)
+
+
+def _value_and_grad(fn, x: torch.Tensor):
+    x = x.detach().requires_grad_(True)
+    f = fn(x)
+    (g,) = torch.autograd.grad(f.sum(), x)
+    return f.detach(), g
+
+
+def adam_minimize(
+    fn: Callable[[torch.Tensor], torch.Tensor],
+    x0: torch.Tensor,
+    steps: int = 200,
+    lr: float = 0.05,
+    b1: float = 0.9,
+    b2: float = 0.999,
+    eps: float = 1e-8,
+) -> AdamResult:
+    """Adam on a flat parameter vector, returning the best iterate seen.
+
+    ``fn`` maps (..., P) to (...): leading axes of ``x0`` are independent
+    lanes (the gradient of the lanes' sum holds each lane's own gradient).
+    Non-finite gradient entries count as 0; nothing in the loop reads a
+    value back to the host."""
+    x = x0.detach()
+    m = torch.zeros_like(x)
+    v = torch.zeros_like(x)
+    best_x = x
+    best_f = torch.full(x.shape[:-1], float("inf"), dtype=x.dtype, device=x.device)
+    for i in range(steps):
+        f, g = _value_and_grad(fn, x)
+        g = torch.where(torch.isfinite(g), g, torch.zeros_like(g))
+        m = b1 * m + (1 - b1) * g
+        v = b2 * v + (1 - b2) * g * g
+        mhat = m / (1 - b1 ** (i + 1.0))
+        vhat = v / (1 - b2 ** (i + 1.0))
+        improved = torch.isfinite(f) & (f < best_f)
+        best_x = torch.where(improved[..., None], x, best_x)
+        best_f = torch.where(improved, f, best_f)
+        x = x - lr * mhat / (torch.sqrt(vhat) + eps)
+    with torch.no_grad():
+        f_final = fn(x)
+    take_final = torch.isfinite(f_final) & (f_final < best_f)
+    x_out = torch.where(take_final[..., None], x, best_x)
+    f_out = torch.where(take_final, f_final, best_f)
+    g_out = _value_and_grad(fn, x_out)[1]
+    return AdamResult(x_out, f_out, torch.linalg.norm(g_out, dim=-1))
+
+
+class GprOptResult(NamedTuple):
+    t: torch.Tensor
+    noise: torch.Tensor
+    obj: torch.Tensor        # minimized objective value
+    grad_norm: torch.Tensor  # ‖∇obj‖ (log-coords) at the RETURNED point (status)
+
+
+def _log_grid(lo_hi: Tuple[float, float], n: int, dtype, device) -> torch.Tensor:
+    return torch.logspace(math.log10(lo_hi[0]), math.log10(lo_hi[1]), n, dtype=dtype,
+                          device=device)
+
+
+def _to_log(v: torch.Tensor, lb: float) -> torch.Tensor:
+    return torch.log(torch.clamp(v - lb, min=1e-6))
+
+
+def _coarse_seeds(fn, flatT: torch.Tensor, flatN: torch.Tensor, lanes: int):
+    """The best cell of the coarse grid for each lane: (t, noise, value),
+    each of shape (lanes,).  Non-finite cells count as +inf."""
+    with torch.no_grad():
+        vals = _finite(fn(flatT.expand(lanes, -1), flatN.expand(lanes, -1)))
+    i = torch.argmin(vals, dim=1)
+    return flatT[i], flatN[i], torch.gather(vals, 1, i[:, None])[:, 0]
+
+
+def minimize_t_noise(
+    fn: Callable[[torch.Tensor, torch.Tensor], torch.Tensor],
+    t_lb: float = 1e-3,
+    noise_lb: float = 1e-4,
+    t_range: Tuple[float, float] = (1e-2, 1e3),
+    noise_range: Tuple[float, float] = (1e-3, 1e1),
+    n_grid: int = 8,
+    adam_steps: int = 200,
+    adam_lr: float = 0.05,
+    dtype: torch.dtype = torch.float32,
+    device=None,
+    lanes: int = 1,
+) -> GprOptResult:
+    """Minimize fn(t, noise) with bounds t ≥ t_lb, noise ≥ noise_lb, for
+    ``lanes`` independent problems at once (the lanes of a bandwidth grid).
+
+    ``fn`` takes t and noise of shape (lanes, G), row a holding G candidate
+    points of lane a, and returns a value per entry.  The coarse log-grid is
+    one such call (non-finite cells, such as a failed Cholesky at an extreme
+    corner, count as +inf); Adam then runs in (log t, log noise) from each
+    lane's best cell, one run of ``adam_steps`` steps with G = 1 serving all
+    lanes, and the better of the Adam iterate and the grid seed is returned,
+    with the gradient norm taken at the returned point.  Every field of the
+    result has shape (lanes,)."""
+    ts = _log_grid(t_range, n_grid, dtype, device)
+    ns = _log_grid(noise_range, n_grid, dtype, device)
+    T, Nz = torch.meshgrid(ts, ns, indexing="ij")
+    t0, n0, f0 = _coarse_seeds(fn, T.reshape(-1), Nz.reshape(-1), lanes)
+
+    def obj_flat(x):
+        return fn(t_lb + torch.exp(x[:, :1]), noise_lb + torch.exp(x[:, 1:]))[:, 0]
+
+    res = adam_minimize(obj_flat, torch.stack([_to_log(t0, t_lb), _to_log(n0, noise_lb)], dim=-1),
+                        steps=adam_steps, lr=adam_lr)
+    better = res.obj < f0
+    t_out = torch.where(better, t_lb + torch.exp(res.x[:, 0]), t0)
+    n_out = torch.where(better, noise_lb + torch.exp(res.x[:, 1]), n0)
+    x_out = torch.stack([_to_log(t_out, t_lb), _to_log(n_out, noise_lb)], dim=-1)
+    g_out = _value_and_grad(obj_flat, x_out)[1]
+    return GprOptResult(t_out, n_out, torch.minimum(res.obj, f0), torch.linalg.norm(g_out, dim=-1))
+
+
+def minimize_t_noisevec(
+    fn: Callable[[torch.Tensor, torch.Tensor], torch.Tensor],
+    m: int,
+    t_lb: float = 1e-3,
+    noise_lb: float = 1e-4,
+    t0: float = 10.0,
+    noise0: float = 1.0,
+    t_range: Tuple[float, float] = (1e-2, 1e3),
+    noise_range: Tuple[float, float] = (1e-3, 1e1),
+    n_grid: int = 8,
+    adam_steps: int = 400,
+    adam_lr: float = 0.05,
+    dtype: torch.dtype = torch.float32,
+    device=None,
+    lanes: int = 1,
+) -> GprOptResult:
+    """Per-point-noise variant: minimize fn(t, noise_vec) over m+1
+    parameters a lane; ``fn`` takes t of shape (lanes, G) and noise of shape
+    (lanes, G, m).
+
+    Seeding as in :func:`minimize_t_noise`: a coarse log-grid over (t,
+    homoscedastic noise), joined by the point (t0, noise0), picks the
+    starting basin; Adam then runs over the full (t, noise-vector) space.
+    The result's noise has shape (lanes, m), its other fields (lanes,)."""
+    ts = _log_grid(t_range, n_grid, dtype, device)
+    ns = _log_grid(noise_range, n_grid, dtype, device)
+    T, Nz = torch.meshgrid(ts, ns, indexing="ij")
+    flatT = torch.cat([T.reshape(-1), torch.full((1,), t0, dtype=dtype, device=device)])
+    flatN = torch.cat([Nz.reshape(-1), torch.full((1,), noise0, dtype=dtype, device=device)])
+    ts0, ns0, f0 = _coarse_seeds(lambda t, nz: fn(t, nz[..., None].expand(*nz.shape, m)),
+                                 flatT, flatN, lanes)
+
+    def obj_flat(x):
+        return fn(t_lb + torch.exp(x[:, :1]), noise_lb + torch.exp(x[:, None, 1:]))[:, 0]
+
+    def to_x(t, noise):
+        return torch.cat([_to_log(t, t_lb)[:, None], _to_log(noise, noise_lb)], dim=-1)
+
+    res = adam_minimize(obj_flat, to_x(ts0, ns0[:, None].expand(lanes, m)), steps=adam_steps,
+                        lr=adam_lr)
+    # keep the better of (Adam iterate, grid seed), like the scalar variant
+    better = res.obj < f0
+    t_out = torch.where(better, t_lb + torch.exp(res.x[:, 0]), ts0)
+    n_out = torch.where(better[:, None], noise_lb + torch.exp(res.x[:, 1:]),
+                        ns0[:, None].expand(lanes, m))
+    g_out = _value_and_grad(obj_flat, to_x(t_out, n_out))[1]
+    return GprOptResult(t_out, n_out, torch.minimum(res.obj, f0), torch.linalg.norm(g_out, dim=-1))

@@ -1,11 +1,12 @@
 """Build and load the hand-written CUDA kernels.
 
-``nvcc`` compiles every source under ``flgp_tpu_torch/csrc/`` into one shared
-library with a plain C interface for Hopper (``sm_90a``), loaded with
-``ctypes``.  The build runs at first use into ``build/flgp_tpu_torch/<hash>/``
-beside the package, keyed by a hash of the sources and flags, so an edited
-source rebuilds and an unchanged one loads the library already there.  A
-missing ``nvcc`` or a failed build raises.
+``nvcc`` compiles every source under ``flgp_tpu_torch/csrc/`` for Hopper
+(``sm_90a``), one process per source and all at once, and links the objects
+into one shared library with a plain C interface, loaded with ``ctypes``.
+The build runs at first use into ``build/flgp_tpu_torch/<hash>/`` beside the
+package, keyed by a hash of the sources and flags, so an edited source
+rebuilds and an unchanged one loads the library already there.  A missing
+``nvcc`` or a failed build raises.
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ BUILD_ROOT = _PKG_DIR.parent / "build" / "flgp_tpu_torch"
 LIB_NAME = "libflgp_kernels.so"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",   # registers, shared memory and spills per kernel, kept in ptxas.log
 )
 
@@ -39,6 +40,7 @@ _SIGNATURES = {
     "flgp_ell_colsum_t": [_P, _P, ctypes.c_longlong, _I, _P, _P],
     "flgp_ell_norm_gram_t": [_P, _P, _P, _I, _I, _I, _I, ctypes.c_float, _P, _P, _P],
     "flgp_ell_norm_matmat_t": [_P, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_float, _P, _P],
+    "flgp_ell_matmat": [_P, _P, _P, _I, _I, _I, _I, _P, _P],
 }
 
 _lib = None
@@ -75,17 +77,40 @@ def build() -> Path:
     if out.is_file():
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{LIB_NAME}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(p) for p in sources() if p.suffix == ".cu"]]
-    proc = subprocess.run(cmd, capture_output=True, text=True, cwd=SRC_DIR)
-    (out.parent / "ptxas.log").write_text(proc.stdout + proc.stderr)
+    nvcc, pid = _nvcc(), os.getpid()
+    units = [(src, out.with_name(f"{src.stem}.{pid}.o"))
+             for src in sources() if src.suffix == ".cu"]
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)] for src, obj in units]
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                              cwd=SRC_DIR) for cmd in cmds]
+    log = []
+    try:
+        for cmd, proc in zip(cmds, procs):
+            _finish(cmd, proc, log)
+        tmp = out.with_name(f"{LIB_NAME}.{pid}.tmp")
+        link = [nvcc, "-shared", "-o", str(tmp), *[str(obj) for _, obj in units]]
+        _finish(link, subprocess.Popen(link, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                       text=True, cwd=SRC_DIR), log)
+        os.replace(tmp, out)
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        (out.parent / "ptxas.log").write_text("".join(log))
+        for _, obj in units:
+            obj.unlink(missing_ok=True)
+    return out
+
+
+def _finish(cmd: list, proc: subprocess.Popen, log: list) -> None:
+    """Wait for one nvcc process, keep its output, raise if it failed."""
+    stdout, stderr = proc.communicate()
+    log.append(stdout + stderr)
     if proc.returncode != 0:
         raise RuntimeError(
-            f"nvcc failed (exit {proc.returncode}):\n{' '.join(cmd)}\n{proc.stderr[-4000:]}"
+            f"nvcc failed (exit {proc.returncode}):\n{' '.join(cmd)}\n{stderr[-4000:]}"
         )
-    os.replace(tmp, out)
-    return out
 
 
 def load() -> ctypes.CDLL:

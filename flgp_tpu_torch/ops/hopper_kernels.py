@@ -1,19 +1,20 @@
-"""Wrappers of the hand-written Hopper kernels K1–K8, with their plain versions.
+"""Wrappers of the hand-written Hopper kernels K1–K9, with their plain versions.
 
 K1 ``knn`` (csrc/knn.cu), K2 ``lae_weights`` (csrc/lae.cu), K3–K5
-``ell_colsum``, ``ell_norm_gram``, ``ell_norm_matmat`` (csrc/ell.cu) and their
+``ell_colsum``, ``ell_norm_gram``, ``ell_norm_matmat`` (csrc/ell.cu), their
 chunked feature-major variants K6–K8 ``ell_colsum_t``, ``ell_norm_gram_t``,
-``ell_norm_matmat_t`` (csrc/ell_t.cu) replace the TPU kernels of the same
-names in flgp_tpu/ops/pallas_kernels.py (K2: ``fused_lae_tiles``, with the
-Gram assembly that feeds it).
+``ell_norm_matmat_t`` (csrc/ell_t.cu) and K9 ``ell_matmat``
+(csrc/ell_matmat.cu) replace the TPU kernels of the same names in
+flgp_tpu/ops/pallas_kernels.py (K2: ``fused_lae_tiles``, with the Gram
+assembly that feeds it).
 
 Each wrapper takes its plain PyTorch version for tensors on the CPU, and only
 then.  For CUDA tensors it checks device, dtype (float32 values, int32
 indices), shape and contiguity, raises on anything else, launches the kernel
 on the current stream and adds one to ``LAUNCHES[name]``.  A build or launch
 error raises; nothing falls back.  The float64 path never reaches these
-wrappers: the callers (``ops.knn``, ``ops.lae``, ``ops.spectrum``) dispatch
-on dtype.
+wrappers: the callers (``ops.knn``, ``ops.lae``, ``ops.spectrum``,
+``EllMatrix.matmat``) dispatch on dtype.
 """
 
 from __future__ import annotations
@@ -31,7 +32,7 @@ from .lae import lae_weights_plain
 # Launches of each kernel since the last reset_launches().
 LAUNCHES = {"knn": 0, "lae_weights": 0, "ell_colsum": 0, "ell_norm_gram": 0,
             "ell_norm_matmat": 0, "ell_colsum_t": 0, "ell_norm_gram_t": 0,
-            "ell_norm_matmat_t": 0}
+            "ell_norm_matmat_t": 0, "ell_matmat": 0}
 
 
 def reset_launches() -> None:
@@ -167,7 +168,7 @@ def ell_norm_gram(values: torch.Tensor, indices: torch.Tensor, cscale: torch.Ten
 
 def ell_norm_matmat_plain(values: torch.Tensor, indices: torch.Tensor, cscale: torch.Tensor,
                           W: torch.Tensor, eps: float = EPS) -> torch.Tensor:
-    return _normalized(values, indices, cscale, eps).matmat(W)
+    return _normalized(values, indices, cscale, eps).matmat_plain(W)
 
 
 def ell_norm_matmat(values: torch.Tensor, indices: torch.Tensor, cscale: torch.Tensor,
@@ -284,4 +285,32 @@ def ell_norm_matmat_t(values: torch.Tensor, indices: torch.Tensor, cscale: torch
     _launch("ell_norm_matmat_t", values.device, _build.load().flgp_ell_norm_matmat_t,
             values.data_ptr(), indices.data_ptr(), cscale.data_ptr(), W.data_ptr(), nch, r, c, s,
             K, float(eps), out.data_ptr())
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K9: the raw ELL product
+# ---------------------------------------------------------------------------
+
+
+def ell_matmat_plain(values: torch.Tensor, indices: torch.Tensor, W: torch.Tensor) -> torch.Tensor:
+    return EllMatrix(values, indices, W.shape[0]).matmat_plain(W)
+
+
+def ell_matmat(values: torch.Tensor, indices: torch.Tensor, W: torch.Tensor) -> torch.Tensor:
+    """Z @ W for the raw (n, r) ELL graph Z and W (s, K) (K9), shape (n, K):
+    out[i] = Σₖ values[i, k]·W[indices[i, k]].  Any r ≥ 1, s and K; s = n in
+    the sparse GLGP operator, where W is the LOBPCG iterate block."""
+    if values.device.type == "cpu":
+        return ell_matmat_plain(values, indices, W)
+    n, r = values.shape
+    s, K = W.shape
+    if r < 1:
+        raise ValueError(f"ell_matmat needs r >= 1, got r={r}")
+    _check("values", values, torch.float32, (n, r), values.device)
+    _check("indices", indices, torch.int32, (n, r), values.device)
+    _check("W", W, torch.float32, (s, K), values.device)
+    out = torch.empty((n, K), dtype=torch.float32, device=values.device)
+    _launch("ell_matmat", values.device, _build.load().flgp_ell_matmat,
+            values.data_ptr(), indices.data_ptr(), W.data_ptr(), n, r, s, K, out.data_ptr())
     return out

@@ -39,3 +39,21 @@ def add_diag(C: torch.Tensor, d) -> torch.Tensor:
     diag = torch.diagonal(out, dim1=-2, dim2=-1)
     diag += d
     return out
+
+
+def woodbury_solve_terms(V: torch.Tensor, lam_sqrt: torch.Tensor, z_inv: torch.Tensor,
+                         Y: torch.Tensor):
+    """Woodbury solve for C = V·diag(lam)·Vᵀ + diag(1/z_inv).
+
+    Returns (alpha, L_Q) with alpha = C⁻¹Y and L_Q = chol(Q),
+    Q = Λ^{1/2}·Vᵀ·diag(z_inv)·V·Λ^{1/2} + I.  V (m, K); lam_sqrt (..., K);
+    z_inv (..., m), the elementwise inverse of the diagonal noise; Y (m, q).
+    The homoscedastic model is the z_inv = const special case.
+    """
+    VtZiV = pdot(V.mT, z_inv[..., :, None] * V)
+    Q = add_diag(lam_sqrt[..., :, None] * VtZiV * lam_sqrt[..., None, :], 1.0)
+    L_Q = cholesky(Q)
+    ZiY = z_inv[..., :, None] * Y
+    inner = chol_solve(L_Q, lam_sqrt[..., :, None] * pdot(V.mT, ZiY))
+    alpha = ZiY - z_inv[..., :, None] * pdot(V, lam_sqrt[..., :, None] * inner)
+    return alpha, L_Q

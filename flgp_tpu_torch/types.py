@@ -70,14 +70,38 @@ class EllMatrix:
         return out.index_put_((rows, self.indices.long()), self.values, accumulate=True)
 
     def matmat(self, W: torch.Tensor, block: int = 4096) -> torch.Tensor:
-        """Z @ W for dense W of shape (s, K): an (n, r, K) gather contracted
-        over r, in row blocks so the gather buffer stays small."""
+        """Z @ W for dense W of shape (s, K).  float32 tensors on a CUDA
+        device go through the hand-written kernel K9 (``ell_matmat``);
+        float64, and anything on the CPU, takes :meth:`matmat_plain`."""
+        if W.is_cuda and W.dtype == torch.float32 and self.values.dtype == torch.float32:
+            from .ops import hopper_kernels
+
+            return hopper_kernels.ell_matmat(
+                self.values.contiguous(), self.indices.to(torch.int32).contiguous(),
+                W.contiguous())
+        return self.matmat_plain(W, block)
+
+    def matmat_plain(self, W: torch.Tensor, block: int = 4096) -> torch.Tensor:
+        """Z @ W as an (n, r, K) gather contracted over r, in row blocks so
+        the gather buffer stays small."""
         n = self.shape[0]
         out = W.new_empty((n, W.shape[1]))
         for i in range(0, n, block):
             v = self.values[i:i + block]
             Wg = W[self.indices[i:i + block].long()]          # (b, r, K)
             out[i:i + block] = torch.einsum("nr,nrk->nk", v, Wg)
+        return out
+
+    def rmatmat(self, M: torch.Tensor, block: int = 4096) -> torch.Tensor:
+        """Zᵀ @ M for dense M of shape (n, K): a scatter-add of weighted
+        rows, in row blocks so the (block·r, K) buffer stays small.  The
+        transposed half of the sparse GLGP operator."""
+        n, r = self.values.shape
+        out = M.new_zeros((self.num_cols, M.shape[1]))
+        for i in range(0, n, block):
+            v = self.values[i:i + block]
+            rows = (v[:, :, None] * M[i:i + block, None, :]).reshape(-1, M.shape[1])
+            out.index_add_(0, self.indices[i:i + block].reshape(-1).long(), rows)
         return out
 
     def gram(self, block: int = 2048) -> torch.Tensor:

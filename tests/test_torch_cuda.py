@@ -1,4 +1,4 @@
-"""The CUDA kernels K1–K8 against their plain versions, on the card.
+"""The CUDA kernels K1–K9 against their plain versions, on the card.
 
 Marked ``cuda``: they skip where no CUDA device is present (a kernel written
 in CUDA has no interpret mode).  On a machine with an H100 and no JAX:
@@ -54,6 +54,32 @@ def test_knn_kernel_matches_plain(dev, gen, r, d):
     torch.testing.assert_close(got.sqdists, ref.sqdists, rtol=1e-5, atol=1e-5)
     rows = got.indices.cpu().numpy()
     assert not any(9 in row and 4 not in row for row in rows)
+
+
+@pytest.mark.parametrize("r", [8, 12])
+def test_knn_kernel_self_neighbours(dev, gen, r):
+    """s = n, as the GLGP graph calls it: many anchor tiles, and each point's
+    nearest neighbour is itself at d² ≈ 0 (either sign, from the expanded
+    form).  Point 9 is an exact twin of point 4: both lists start {4, 9}."""
+    from flgp_tpu_torch.ops import hopper_kernels as hk
+    from flgp_tpu_torch.ops.knn import knn_plain
+
+    Xnp = gen.normal(size=(20000, 3))
+    Xnp[9] = Xnp[4]
+    X = _cuda(Xnp, dev)
+    got = hk.knn(X, X, r)
+    torch.cuda.synchronize()
+    ref = knn_plain(X, X, r)
+    differ = torch.any(got.indices != ref.indices, dim=1)
+    # near-ties only: 4e8 pairs, and the kernel and the matmul round x·u
+    # differently, so a few rows swap two neighbours of equal d² (below)
+    assert int(differ.sum()) <= 20
+    torch.testing.assert_close(got.sqdists, ref.sqdists, rtol=1e-5, atol=1e-5)
+    me = torch.arange(20000, device=dev, dtype=got.indices.dtype)
+    not_self = (got.indices[:, 0] != me).nonzero()[:, 0].tolist()
+    assert set(not_self) <= {4, 9}
+    assert set(got.indices[9, :2].tolist()) == set(got.indices[4, :2].tolist()) == {4, 9}
+    assert float(got.sqdists[:, 0].abs().max()) < 1e-4
 
 
 @pytest.mark.parametrize("r", [2, 3, 6])
@@ -219,3 +245,137 @@ def test_colmajor_fit_launches_every_kernel_of_its_path(dev):
     assert eig.vectors.shape == (n, K) and labels.shape == (n,)
     assert bool(torch.all(torch.isfinite(mean))) and bool(torch.all(var > 0))
     assert float(torch.mean((labels[m:].cpu() != torch.as_tensor(tor.y_test)).double())) <= 0.03
+
+
+@pytest.mark.parametrize("n,s,r,K", [(3001, 3001, 48, 300), (777, 50, 1, 7), (4097, 129, 8, 384),
+                                     (1000, 1000, 3, 130), (64, 5000, 16, 4)])
+def test_ell_matmat_kernel_matches_plain(dev, gen, n, s, r, K):
+    """K9 at odd shapes: s = n with the GLGP fan-in r = 48, K not a multiple
+    of 4 (the scalar kernel) and of 4 (the 16-byte one), duplicate indices in
+    a row, an out-of-range index (contributes nothing) and zero weights (kept:
+    0·W is 0 unless W is not finite)."""
+    from flgp_tpu_torch.ops import hopper_kernels as hk
+    from flgp_tpu_torch.types import EllMatrix
+
+    vals = gen.uniform(-1.0, 1.0, size=(n, r))
+    vals[::7, 0] = 0.0
+    idx = gen.integers(0, s, size=(n, r))
+    if r > 1:
+        idx[::3, 1] = idx[::3, 0]
+    W = _cuda(gen.normal(size=(s, K)), dev)
+    v, i = _cuda(vals, dev), _cuda(idx, dev, torch.int32)
+    before = hk.LAUNCHES["ell_matmat"]
+    got = hk.ell_matmat(v, i, W)
+    torch.cuda.synchronize()
+    assert hk.LAUNCHES["ell_matmat"] == before + 1
+    ref = hk.ell_matmat_plain(v, i, W)
+    torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-5)
+    # EllMatrix.matmat routes float32 CUDA tensors through the kernel, float64 not
+    assert torch.equal(EllMatrix(v, i, s).matmat(W), got)
+    assert hk.LAUNCHES["ell_matmat"] == before + 2
+    EllMatrix(v.double(), i, s).matmat(W.double())
+    assert hk.LAUNCHES["ell_matmat"] == before + 2
+    # an index outside [0, s) adds nothing
+    i_bad = i.clone()
+    i_bad[0, 0] = s
+    v0 = v.clone()
+    v0[0, 0] = 0.0
+    torch.testing.assert_close(hk.ell_matmat(v, i_bad, W), hk.ell_matmat_plain(v0, i, W),
+                               rtol=1e-5, atol=1e-5)
+    # an unaligned W (a view one float into a buffer) takes the scalar kernel
+    buf = torch.empty(s * K + 1, dtype=torch.float32, device=dev)
+    W_off = buf[1:].view(s, K).copy_(W)
+    torch.testing.assert_close(hk.ell_matmat(v, i, W_off), ref, rtol=1e-5, atol=1e-5)
+
+
+def test_ell_matmat_wrapper_rejects_what_the_kernel_does_not_take(dev, gen):
+    from flgp_tpu_torch.ops import hopper_kernels as hk
+
+    v = _cuda(gen.uniform(size=(50, 3)), dev)
+    i = _cuda(gen.integers(0, 20, size=(50, 3)), dev, torch.int32)
+    W = _cuda(gen.normal(size=(20, 8)), dev)
+    with pytest.raises(TypeError):
+        hk.ell_matmat(v.double(), i, W.double())
+    with pytest.raises(TypeError):
+        hk.ell_matmat(v, i.long(), W)
+    with pytest.raises(ValueError):
+        hk.ell_matmat(v, i[:, :2], W)
+    with pytest.raises(ValueError):
+        hk.ell_matmat(v, i, W.T.contiguous().T)
+    with pytest.raises(ValueError):
+        hk.ell_matmat(v, i, W.cpu())
+
+
+def test_sparse_glgp_operator_and_fit_launch_the_kernel(dev, gen):
+    """SymCoo.matvec is K9 plus a scatter-add; a small sparse-LOBPCG GLGP fit
+    through the entry point (on the card by default) launches it once per
+    LOBPCG iteration and start, for every bandwidth."""
+    import flgp_tpu_torch as ft
+    from flgp_tpu_torch.ops import hopper_kernels as hk
+    from flgp_tpu_torch.ops.sparse_graph import glgp_operator, symmetrize_knn
+
+    n, r = 2000, 6
+    idx = _cuda(gen.integers(0, n, size=(n, r)), dev, torch.int32)
+    vals = _cuda(gen.uniform(0.1, 1.0, size=(n, r)), dev)
+    W, _ = glgp_operator(symmetrize_knn(idx, vals, n))
+    X = _cuda(gen.normal(size=(n, 24)), dev)
+    hk.reset_launches()
+    got = W.matvec(X)
+    torch.cuda.synchronize()
+    assert hk.LAUNCHES["ell_matmat"] == 1
+    W64, _ = glgp_operator(symmetrize_knn(idx, vals.double(), n))
+    torch.testing.assert_close(got.double(), W64.matvec(X.double()), rtol=1e-4, atol=1e-6)
+    assert hk.LAUNCHES["ell_matmat"] == 1
+
+    rng = np.random.default_rng(2)
+    y = (rng.uniform(size=1200) < 0.5).astype(np.float64)
+    Xb = rng.normal(size=(1200, 2)) * 0.5 + np.where(y[:, None] > 0, 1.5, -1.5)
+    cfg = ft.FitConfig(graph=ft.GraphConfig(s=64, r=3, K=16), a2s=(0.5, 1.0, 2.0), n_gibbs=10,
+                       gibbs_avg_sweeps=5, gl_sparse=True, gl_threshold=0.01, gl_solver="lobpcg",
+                       gl_lobpcg_iters=40, dtype=torch.float32, solve_dtype=torch.float64)
+    hk.reset_launches()
+    res = ft.fit_gl_logit_gp(torch.Generator(device=dev).manual_seed(0), Xb[:100], y[:100],
+                             Xb[100:], cfg=cfg)
+    assert hk.LAUNCHES["ell_matmat"] == 3 * 41, hk.LAUNCHES
+    assert hk.LAUNCHES["knn"] == 1                      # the self-kNN, r = 12
+    assert np.isfinite(res.metrics["gl_eigensolve_max_residual"])
+    assert np.mean(res.y_test != y[100:]) <= 0.02
+    with pytest.raises(ValueError, match="generator"):
+        ft.fit_gl_logit_gp(torch.Generator().manual_seed(0), Xb[:100], y[:100], Xb[100:], cfg=cfg)
+
+
+@pytest.mark.parametrize("name,gl_solver", [
+    ("fit_lae_logit_gp", "dense"), ("fit_lae_regression_gp", "dense"),
+    ("fit_se_logit_gp", "dense"), ("fit_se_regression_gp", "dense"),
+    ("fit_nystrom_logit_gp", "dense"), ("fit_nystrom_regression_gp", "dense"),
+    ("fit_gl_logit_gp", "dense"), ("fit_gl_regression_gp", "dense"),
+    ("fit_gl_logit_gp", "lobpcg"), ("fit_gl_regression_gp", "lobpcg")])
+def test_every_entry_point_fits_on_the_card_by_default(dev, name, gl_solver):
+    """No ``device=`` argument: the fit runs on the card (f32 graph stage,
+    f64 tail), gives finite outputs of the right shape and a sane accuracy."""
+    import flgp_tpu_torch as ft
+    from flgp_tpu_torch.datasets import spiral
+
+    rng = np.random.default_rng(2)
+    n, m = 1200, 100
+    cfg = ft.FitConfig(graph=ft.GraphConfig(s=64, r=3, K=16, nystrom_rcond=1e-3),
+                       a2s=(0.5, 1.0, 2.0), n_gibbs=10, gibbs_avg_sweeps=5,
+                       gl_sparse=True, gl_threshold=0.01, gl_solver=gl_solver, gl_lobpcg_iters=40,
+                       train=ft.TrainConfig(adam_steps=50), dtype=torch.float32,
+                       solve_dtype=torch.float64)
+    gen_dev = torch.Generator(device=dev).manual_seed(0)
+    if name.endswith("logit_gp"):
+        y = (rng.uniform(size=n) < 0.5).astype(np.float64)
+        X = rng.normal(size=(n, 2)) * 0.5 + np.where(y[:, None] > 0, 1.5, -1.5)
+        res = getattr(ft, name)(gen_dev, X[:m], y[:m], X[m:], cfg=cfg)
+        assert np.mean(res.y_test != y[m:]) <= 0.02
+    else:
+        ds = spiral(n=n, m_train=m, noise_sd=0.3, seed=5)
+        res = getattr(ft, name)(gen_dev, ds.x_train, ds.y_train, ds.x_test, cfg=cfg)
+        assert np.sqrt(np.mean((res.y_test - ds.y_test) ** 2)) < 3.5     # the targets' own sd
+    assert res.eigenpair.vectors.device.type == "cuda"
+    for arr in (res.y_test, res.posterior_mean, res.posterior_cov):
+        assert arr.shape == (n - m,) and np.all(np.isfinite(arr))
+    if "_gl_" in name:
+        resid = res.metrics["gl_eigensolve_max_residual"]
+        assert resid == 0.0 if gl_solver == "dense" else 0.0 < resid < 1.0

@@ -50,7 +50,7 @@ def test_fit_lae_logit_gp_matches_reference_f64(K):
                                     cfg=jcfg, anchors=(centers, counts))
     got = ft.fit_lae_logit_gp(torch.Generator().manual_seed(0), tor.x_train, tor.y_train,
                               tor.x_test, cfg=fit_config_from_jax(jcfg),
-                              anchors=anchors_from_numpy(centers, counts))
+                              anchors=anchors_from_numpy(centers, counts), device="cpu")
     np.testing.assert_allclose(got.pars["t"], np.asarray(ref.pars["t"]), rtol=1e-6)
     np.testing.assert_allclose(got.obj, ref.obj, rtol=1e-8)
     np.testing.assert_allclose(got.posterior_mean, ref.posterior_mean, rtol=0, atol=1e-6)
@@ -73,7 +73,7 @@ def test_fit_main_path_dtypes_f32_graph_f64_tail():
     ref = flgp_tpu.fit_lae_logit_gp(jax.random.PRNGKey(0), tor.x_train, tor.y_train, tor.x_test,
                                     cfg=jcfg, anchors=(centers, counts))
     got = ft.fit_lae_logit_gp(torch.Generator().manual_seed(0), tor.x_train, tor.y_train,
-                              tor.x_test, cfg=cfg, anchors=(centers, counts))
+                              tor.x_test, cfg=cfg, anchors=(centers, counts), device="cpu")
     assert got.eigenpair.vectors.dtype == torch.float32
     # f32 graph stages of different op order: agreement to f32 spectral accuracy
     np.testing.assert_allclose(got.pars["t"], np.asarray(ref.pars["t"]), rtol=1e-2)
@@ -88,7 +88,7 @@ def test_fit_with_binomial_counts_and_errors():
     cfg = ft.FitConfig(graph=ft.GraphConfig(s=s, r=3, K=20), n_gibbs=6, gibbs_avg_sweeps=3,
                        dtype=torch.float64, output_cov=True)
     res = ft.fit_lae_logit_gp(torch.Generator().manual_seed(0), tor.x_train, 2 * tor.y_train,
-                              tor.x_test, N=N, cfg=cfg, anchors=(centers, counts))
+                              tor.x_test, N=N, cfg=cfg, anchors=(centers, counts), device="cpu")
     assert res.y_test.shape == res.posterior_mean.shape == (n - 100,)
     assert res.C.shape == (n, 100) and np.all(np.isfinite(res.C))
     with pytest.raises(ValueError, match="generator"):
@@ -104,5 +104,5 @@ def test_torus_golden_full_config():
     cfg = ft.FitConfig(graph=ft.GraphConfig(s=600, r=3, K=100), sigma=1e-3,
                        dtype=torch.float32, solve_dtype=torch.float64)
     res = ft.fit_lae_logit_gp(torch.Generator().manual_seed(0), tor.x_train, tor.y_train,
-                              tor.x_test, cfg=cfg)
+                              tor.x_test, cfg=cfg, device="cpu")
     assert np.mean(res.y_test != tor.y_test) <= 0.015
