@@ -7,11 +7,13 @@ Phases, each of which ends the script with a non-zero exit if it fails:
 
 1. the card: name and power limit from nvidia-smi; a CUDA device is required
    (there is no CPU path) and TF32 is switched off;
-2. build: nvcc compiles the kernels K1–K9 from flgp_tpu_torch/csrc for sm_90a
-   (one nvcc process per source, all at once);
+2. build: nvcc compiles the kernels K1–K9 and ``ell_sym_matmat`` from
+   flgp_tpu_torch/csrc for sm_90a (one nvcc process per source, all at once);
 3. kernels vs their plain PyTorch versions, on the card, at the shapes the
    main path gives them: the torus config (n=4800, d=2, s=600, r=3, K=100)
    and the large config (n=1e6, d=2, s=1024, r=3, K=128), with both times;
+   K1 also at the n=1e7 path's launch shape (one 65,536-point chunk against
+   1,024 anchors, r=3 and r=1), where most of its launches happen;
 4. the torus fit through ``fit_lae_logit_gp`` (error ≤ 0.03; all five
    kernels must be launched by it), then a second, warm fit for its time;
 5. the n=1e6 fit (error ≤ 0.03), its wall time, build_spectrum's time alone
@@ -27,19 +29,28 @@ Phases, each of which ends the script with a non-zero exit if it fails:
 8. K1 as the GLGP graph calls it (self-kNN, s = n = 1e5, d = 3, r = 8) vs
    its plain version: differing rows near-ties only, d² within 1e-5, every
    point its own nearest neighbour at d² ≈ 0; then
-   K9 ``ell_matmat`` vs its plain version at the LOBPCG block's shape
-   (n = s = 1e5, r = 8, K = 384), the spectrum_from_Z shape (n = 1e6,
-   s = 1024, r = 3, K = 128) and the torus GLGP shape (n = s = 4800, r = 48,
-   K = 300), with the times of ``torch.sparse.mm`` on the same matrix as CSR
-   and of the operator's transposed half (``EllMatrix.rmatmat``);
+   K9 ``ell_matmat`` vs its plain version at the shape the SE torus fit
+   launches it at (spectrum_from_Z: n = 4800, s = 600, r = 3, K = 100; the
+   kernels line takes K9's numbers from this one) and, as side rows that no
+   fit launches, at n = 1e6, s = 1024, r = 3, K = 128, at the LOBPCG block's
+   shape (n = s = 1e5, r = 8, K = 384, the only one its slab body serves)
+   and at the torus GLGP shape (n = s = 4800, r = 48, K = 300), with the
+   times of ``torch.sparse.mm`` on the same matrix as CSR
+   and of the operator's transposed half (``EllMatrix.rmatmat``); then the
+   symmetric operator product ``ell_sym_matmat`` (both halves, one launch)
+   vs its plain version at the first and the last of those shapes, with the
+   time to build the transpose's CSR structure apart and, as yardsticks,
+   ``torch.sparse.mm`` on the symmetrized CSR and the composition it
+   replaced (K9 + ``rmatmat`` + an add);
 9. the sparse GLGP spectrum of a Gaussian cloud (n = 1e5, d = 3, r = 8,
    K = 128, 60 LOBPCG iterations, float32): wall time, largest residual, 61
-   K9 launches, eigenvalues against the same solve through the plain
-   operator from the same start block; then the device time of each piece
-   of one LOBPCG iteration at that shape and at the torus GLGP fit's;
+   ``ell_sym_matmat`` launches, eigenvalues against the same solve through
+   the plain operator from the same start block; then the device time of
+   each piece of one LOBPCG iteration at that shape and at the torus GLGP
+   fit's;
 10. fits through the entry points, f32 graph and f64 tail, cold and warm:
-    ``fit_gl_logit_gp`` (sparse LOBPCG; K9 must be launched) and
-    ``fit_se_logit_gp`` on the torus, ``fit_lae_regression_gp``,
+    ``fit_gl_logit_gp`` (sparse LOBPCG; ``ell_sym_matmat`` must be launched)
+    and ``fit_se_logit_gp`` (K9 must be) on the torus, ``fit_lae_regression_gp``,
     ``fit_se_regression_gp`` and ``fit_nystrom_regression_gp`` on the spiral.
 
 Beside each kernel's time stand its bound (the least time the card could
@@ -89,7 +100,8 @@ from flgp_tpu_torch.ops import hopper_kernels as hk  # noqa: E402
 from flgp_tpu_torch.ops.knn import knn, knn_plain  # noqa: E402
 from flgp_tpu_torch.ops.lae import lae_weights_plain  # noqa: E402
 from flgp_tpu_torch.ops.lobpcg import _chol_qr, lobpcg_standard  # noqa: E402
-from flgp_tpu_torch.ops.sparse_graph import glgp_operator, symmetrize_knn  # noqa: E402
+from flgp_tpu_torch.ops.sparse_graph import (  # noqa: E402
+    SymCoo, glgp_operator, sym_structure, symmetrize_knn)
 from flgp_tpu_torch.ops.spectrum import spectrum_fused  # noqa: E402
 from flgp_tpu_torch.types import EigenPair, EllMatrix  # noqa: E402
 
@@ -104,6 +116,9 @@ KERNELS = {
     "ell_norm_gram_t": ("flgp_tpu_torch/csrc/ell_t.cu", "flgp_tpu/ops/pallas_kernels.py:626"),
     "ell_norm_matmat_t": ("flgp_tpu_torch/csrc/ell_t.cu", "flgp_tpu/ops/pallas_kernels.py:689"),
     "ell_matmat": ("flgp_tpu_torch/csrc/ell_matmat.cu", "flgp_tpu/ops/pallas_kernels.py:740"),
+    # K9's gather over a graph and its transpose: the operator product the
+    # reference sums over its edge list in plain XLA
+    "ell_sym_matmat": ("flgp_tpu_torch/csrc/ell_matmat.cu", "flgp_tpu/ops/sparse_graph.py:27"),
 }
 # the kernels each path must launch
 MAIN_PATH = ("knn", "lae_weights", "ell_colsum", "ell_norm_gram", "ell_norm_matmat")
@@ -127,7 +142,10 @@ def work(name: str, n: int, r: int, s: int, K: int = 0, d: int = 0, distinct=Non
     """Compulsory bytes (each input read once, each output written once) and
     float32 operations of one call of a kernel, from its shapes; for the
     chunked kernels n counts the pad points too (they are stored and read).
-    K9 reads only the ``distinct`` rows of W that the graph names."""
+    K9 reads only the ``distinct`` rows of W that the graph names; the
+    symmetric product reads the graph as ELL and the ``distinct`` entries of
+    its transpose that the CSR holds (a value and a source each, n + 1 row
+    starts) and names every row of X."""
     graph = 8 * n * r                                   # f32 values + i32 indices
     if name == "knn":           # d²: 2d for the dot product, 2 to add the norms
         return dict(bytes=4 * (n * d + s * d) + 8 * n * r, flops=n * s * (2 * d + 2))
@@ -149,6 +167,9 @@ def work(name: str, n: int, r: int, s: int, K: int = 0, d: int = 0, distinct=Non
     if name == "ell_matmat":
         return dict(bytes=graph + 4 * K * (s if distinct is None else distinct) + 4 * n * K,
                     flops=2 * n * r * K)
+    if name == "ell_sym_matmat":
+        return dict(bytes=graph + 8 * distinct + 4 * (n + 1) + 4 * n * K + 4 * n * K,
+                    flops=2 * (n * r + distinct) * K)
     raise KeyError(name)
 
 
@@ -206,6 +227,55 @@ def _allclose(name, got, ref, rtol, atol):
               f"(max abs err {_maxabs(got, ref):.3e})")
 
 
+def check_knn(label: str, X, U, r: int):
+    """K1 against its plain version on the same inputs: rows may differ on
+    near-ties only, and none may at d = 2, where the kernel's d² is the
+    plain version's bit for bit; d² within 1e-5."""
+    n = X.shape[0]
+    got = hk.knn(X, U, r)
+    torch.cuda.synchronize()
+    ref = knn_plain(X, U, r)
+    differ = torch.any(got.indices != ref.indices, dim=1)
+    n_differ = int(differ.sum())
+    # a differing row must be a near-tie: same sorted d² within 1e-5·(|x|²+|u|²)
+    x2 = torch.sum(X * X, dim=1)
+    u2max = float(torch.max(torch.sum(U * U, dim=1)))
+    gap = torch.abs(got.sqdists[differ] - ref.sqdists[differ])
+    n_far = int(torch.sum(torch.any(gap > 1e-5 * (x2[differ][:, None] + u2max), dim=1)))
+    print(f"  {label:5s} knn r={r}: {n_differ} of {n} rows differ, {n_far} of them "
+          f"not near-ties", flush=True)
+    if X.shape[1] == 2 and n_differ:
+        _fail(f"knn r={r} {label}: indices differ on {n_differ} of {n} rows at d = 2")
+    if n_differ > 1e-4 * n:
+        _fail(f"knn r={r} {label}: indices differ on {n_differ} of {n} rows (> 0.01%)")
+    if n_far:
+        _fail(f"knn r={r} {label}: {n_far} differing rows are not near-ties")
+    _allclose(f"knn d² r={r} {label}", got.sqdists, ref.sqdists, 1e-5, 1e-5)
+    return got, ref
+
+
+def check_knn_chunk(dev, results: dict) -> None:
+    """K1 at the launch shape of the n=1e7 path: one 65,536-point chunk of
+    the torus cloud against s = 1024 anchors, r = 3 (the graph) and r = 1
+    (the cluster sizes), 153 launches each in that fit."""
+    cfg = SHAPES["huge"]
+    n, s = cfg["chunk"], cfg["s"]
+    ds = torus_rings(n=n + cfg["m"], m_train=cfg["m"], seed=cfg["seed"])
+    X = torch.as_tensor(ds.x_test, dtype=torch.float32, device=dev).contiguous()
+    g = torch.Generator(device=dev).manual_seed(17)
+    U = X[torch.randperm(n, generator=g, device=dev)[:s]].contiguous()
+    ent = results["knn"]
+    for r in (cfg["r"], 1):
+        got, ref = check_knn("chunk", X, U, r)
+        ms = cuda_ms(lambda: hk.knn(X, U, r), 50)
+        plain_ms = cuda_ms(lambda: knn_plain(X, U, r), 5)
+        w = work("knn", n=n, r=r, s=s, d=X.shape[1])
+        ent["max_abs_err"] = max(ent["max_abs_err"], _maxabs(got.sqdists, ref.sqdists))
+        ent.update({f"ms_chunk_r{r}": ms, f"plain_ms_chunk_r{r}": plain_ms, f"work_chunk_r{r}": w})
+        print(f"  chunk knn r={r} (n={n}, s={s}, d={X.shape[1]}): kernel {ms:9.4f} ms  plain "
+              f"{plain_ms:9.4f} ms  bound {bound(w)[0]:.4f} ms ({bound(w)[1]})", flush=True)
+
+
 def check_kernels(label: str, cfg: dict, dev, results: dict) -> None:
     """Each kernel against its plain version on the same device inputs."""
     ds = torus_rings(n=cfg["n"], m_train=cfg["m"], seed=cfg["seed"])
@@ -234,24 +304,8 @@ def check_kernels(label: str, cfg: dict, dev, results: dict) -> None:
                     f"bound {b_ms:.4f} ms ({b_by}){lib}  max_abs_err {err:.3e}")
 
     # K1 at the graph's r and at k-means‖'s r = 1 over the candidate set
-    x2 = torch.sum(X * X, dim=1)
     for rr, UU in ((r, U), (1, Uc)):
-        got = hk.knn(X, UU, rr)
-        torch.cuda.synchronize()
-        ref = knn_plain(X, UU, rr)
-        differ = torch.any(got.indices != ref.indices, dim=1)
-        n_differ = int(differ.sum())
-        # a differing row must be a near-tie: same sorted d² within 1e-5·(|x|²+|u|²)
-        u2max = float(torch.max(torch.sum(UU * UU, dim=1)))
-        gap = torch.abs(got.sqdists[differ] - ref.sqdists[differ])
-        n_far = int(torch.sum(torch.any(gap > 1e-5 * (x2[differ][:, None] + u2max), dim=1)))
-        print(f"  {label:5s} knn r={rr}: {n_differ} of {n} rows differ, {n_far} of them "
-              f"not near-ties", flush=True)
-        if n_differ > 1e-4 * n:
-            _fail(f"knn r={rr} {label}: indices differ on {n_differ} of {n} rows (> 0.01%)")
-        if n_far:
-            _fail(f"knn r={rr} {label}: {n_far} differing rows are not near-ties")
-        _allclose(f"knn d² r={rr} {label}", got.sqdists, ref.sqdists, 1e-5, 1e-5)
+        got, ref = check_knn(label, X, UU, rr)
         if rr == r:
             record("knn", _maxabs(got.sqdists, ref.sqdists),
                    cuda_ms(lambda: hk.knn(X, U, r), reps_k),
@@ -632,11 +686,84 @@ def gaussian_graph(dev, seed: int, results=None):
     return glgp_operator(symmetrize_knn(res.indices, vals, n))[0]
 
 
+def sym_csr(op) -> torch.Tensor:
+    """Z + Zᵀ of a SymCoo as one coalesced CSR matrix: what the yardstick
+    ``torch.sparse.mm`` multiplies."""
+    coo = torch.sparse_coo_tensor(torch.stack([op.rows.long(), op.cols.long()]), op.vals,
+                                  size=(op.n, op.n)).coalesce()
+    return coo.to_sparse_csr()
+
+
+def check_ell_sym_matmat(dev, g, cases: dict, results: dict) -> None:
+    """``ell_sym_matmat`` against its plain version on the operators of
+    phase 8, on the arrays ``SymCoo.matvec`` hands it (mutual edges folded
+    into the forward weights, the rest of the transpose as CSR), with the
+    structure's build time apart and, as yardsticks only, ``torch.sparse.mm``
+    on the symmetrized CSR and the composition the kernel replaced (K9,
+    ``rmatmat``'s ``index_add_`` and an add)."""
+    rows = ["ell_sym_matmat vs plain, ms per call:"]
+    ent = results.setdefault("ell_sym_matmat", dict(max_abs_err=0.0))
+    for label, (op, K) in cases.items():
+        n, r = op.values.shape
+        idx = op.indices.contiguous()
+        Z = EllMatrix(op.values, idx, n)
+        build_ms = []           # the first call also loads torch's sort kernels
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            structure = sym_structure(idx, n)
+            torch.cuda.synchronize()
+            build_ms.append(1e3 * (time.perf_counter() - t0))
+        op = SymCoo(idx, op.values, n, structure)
+        vals, tr, vt = op.kernel_arrays()
+        kept = int(tr.ptr[-1])
+        X = torch.randn((n, K), generator=g, device=dev, dtype=torch.float32)
+        got = hk.ell_sym_matmat(vals, idx, tr.ptr, tr.src, vt, X)
+        torch.cuda.synchronize()
+        ref = hk.ell_sym_matmat_plain(vals, idx, tr.ptr, tr.src, vt, X)
+        # the kernel sums a row's terms in one chain, the plain version in
+        # two halves (one of them with atomics): 1e-5 relative + absolute;
+        # the same against the operator's plain composition, nothing folded
+        _allclose(f"ell_sym_matmat {label}", got, ref, 1e-5, 1e-5)
+        _allclose(f"ell_sym_matmat {label} vs gather + scatter-add", got,
+                  Z.matmat_plain(X) + Z.rmatmat(X), 1e-5, 1e-5)
+        _allclose(f"SymCoo.matvec {label}", op.matvec(X), got, 0.0, 0.0)
+        err = _maxabs(got, ref)
+        csr = sym_csr(op)
+        lib_err = _maxabs(torch.sparse.mm(csr, X), ref)
+        del got, ref
+        ms = cuda_ms(lambda: hk.ell_sym_matmat(vals, idx, tr.ptr, tr.src, vt, X), 20)
+        plain_ms = cuda_ms(lambda: hk.ell_sym_matmat_plain(vals, idx, tr.ptr, tr.src, vt, X), 3)
+        lib_ms = cuda_ms(lambda: torch.sparse.mm(csr, X), 10)
+        old_ms = cuda_ms(lambda: Z.matmat(X) + Z.rmatmat(X), 5)
+
+        # the per-operator preparation of the kernel's values
+        vt_ms = cuda_ms(lambda: SymCoo(idx, op.values, n, structure).kernel_arrays(), 20)
+        w = work("ell_sym_matmat", n=n, r=r, s=n, K=K, distinct=kept)
+        ent["max_abs_err"] = max(ent["max_abs_err"], err)
+        ent.update({f"ms_{label}": ms, f"plain_ms_{label}": plain_ms,
+                    f"library_ms_{label}": lib_ms, f"work_{label}": w})
+        rows.append(f"  {label:8s} (n={n}, r={r}, K={K}; {n * r - kept} of {n * r} edges mutual, "
+                    f"{kept} transposed entries kept) kernel {ms:9.4f} ms  plain {plain_ms:9.4f} "
+                    f"ms  torch.sparse.mm (symmetrized CSR, coalesced: {csr.values().numel()} "
+                    f"entries for the kernel's {n * r + kept}) {lib_ms:9.4f} ms  bound "
+                    f"{bound(w)[0]:.4f} ms ({bound(w)[1]})  the composition it replaced (K9 + "
+                    f"rmatmat + add) {old_ms:9.4f} ms  max_abs_err {err:.3e}  sparse.mm vs plain "
+                    f"{lib_err:.3e}; transpose structure, once per graph: {build_ms[0]:.3f} ms "
+                    f"the first call, {build_ms[1]:.3f} ms the second (host clock), values "
+                    f"folded and permuted once per operator: {vt_ms:.4f} ms")
+        del csr, X
+    print("\n".join(rows), flush=True)
+
+
 def check_ell_matmat(dev, results: dict):
     """Phase 8: the self-kNN (K1) that builds the LOBPCG-shape graph against
     its plain version, then K9 against its plain version, with the library
-    call and the operator's transposed half beside it.  Returns the LOBPCG-shape operator
-    and a torus-GLGP-shaped one (n = 4800, r = 48)."""
+    call and the operator's transposed half beside it, then the symmetric
+    operator product.  The first K9 shape is the one the SE torus fit
+    launches it at (``se_spectrum_at`` -> ``spectrum_from_Z``); no fit
+    launches it at the others.  Returns the LOBPCG-shape operator and a
+    torus-GLGP-shaped one (n = 4800, r = 48)."""
     g = torch.Generator(device=dev).manual_seed(11)
     op = gaussian_graph(dev, seed=12, results=results)
     big = SHAPES["large"]
@@ -645,11 +772,17 @@ def check_ell_matmat(dev, results: dict):
     U6 = X6[torch.randperm(X6.shape[0], generator=g, device=dev)[:big["s"]]].contiguous()
     res6 = hk.knn(X6, U6, big["r"])
     tor = SHAPES["torus"]
+    dt = torus_rings(n=tor["n"], m_train=tor["m"], seed=tor["seed"])
+    Xs = torch.as_tensor(np.concatenate([dt.x_train, dt.x_test]), dtype=torch.float32, device=dev)
+    Us = Xs[torch.randperm(Xs.shape[0], generator=g, device=dev)[:tor["s"]]].contiguous()
+    res_s = hk.knn(Xs, Us, tor["r"])
     Xt = torch.randn((tor["n"], 2), generator=g, device=dev, dtype=torch.float32)
     rest = knn_plain(Xt, Xt, 48)
     op_t = glgp_operator(symmetrize_knn(
         rest.indices, torch.exp(-rest.sqdists / torch.mean(rest.sqdists)), tor["n"]))[0]
     cases = {   # label: (values, indices, s, K)
+        "se-torus": (torch.exp(-res_s.sqdists / torch.mean(res_s.sqdists)), res_s.indices,
+                     tor["s"], tor["K"]),
         "lobpcg": (op.values.contiguous(), op.indices.contiguous(), LOBPCG["n"], 3 * LOBPCG["K"]),
         "large": (torch.exp(-res6.sqdists / torch.mean(res6.sqdists)), res6.indices, big["s"],
                   big["K"]),
@@ -676,6 +809,11 @@ def check_ell_matmat(dev, results: dict):
         t_ms = cuda_ms(lambda: Z.rmatmat(M), 5)
         w = work("ell_matmat", n=n, r=r, s=s, K=K, distinct=int(torch.unique(idx).numel()))
         no_reuse = 1e3 * (8 * n * r + 4 * K * n * r + 4 * n * K) / HBM_BYTES_PER_S
+        # the other of K9's two bodies at this shape: the slab kernel where W
+        # fits in the L2 (forced), one slab where it does not (no L2 reuse)
+        other_ms = cuda_ms(lambda: hk._ell_matmat(vals, idx, W, K), 20)
+        _allclose(f"ell_matmat {label}, one slab of {K} columns", hk._ell_matmat(vals, idx, W, K),
+                  hk.ell_matmat(vals, idx, W), 0.0, 0.0)
         ent["max_abs_err"] = max(ent["max_abs_err"], err)
         ent.update({f"ms_{label}": ms, f"plain_ms_{label}": plain_ms,
                     f"library_ms_{label}": lib_ms, f"work_{label}": w})
@@ -683,9 +821,12 @@ def check_ell_matmat(dev, results: dict):
                     f"{plain_ms:9.4f} ms  torch.sparse.mm {lib_ms:9.4f} ms  bound "
                     f"{bound(w)[0]:.4f} ms ({bound(w)[1]}; {no_reuse:.4f} ms with no reuse of "
                     f"gathered rows)  transposed half (rmatmat, index_add_) {t_ms:9.4f} ms  "
-                    f"max_abs_err {err:.3e}  sparse.mm vs plain {lib_err:.3e}")
+                    f"max_abs_err {err:.3e}  sparse.mm vs plain {lib_err:.3e}; the slab kernel "
+                    f"with one slab of {K} columns {other_ms:9.4f} ms")
         del csr, W, M
     print("\n".join(rows), flush=True)
+    check_ell_sym_matmat(dev, g, {"lobpcg": (op, 3 * LOBPCG["K"]), "gl-torus": (op_t, 3 * tor["K"])},
+                         results)
     return op, op_t
 
 
@@ -696,7 +837,6 @@ def lobpcg_iteration(dev, op, K: int, label: str) -> None:
     n = op.n
     g = torch.Generator(device=dev).manual_seed(31)
     S = _chol_qr(torch.randn((n, 3 * K), generator=g, device=dev, dtype=torch.float32))[0]
-    Z = EllMatrix(op.values, op.indices, n)
     AS = op.matvec(S)
     H = S.T @ AS
     H = 0.5 * (H + H.T)
@@ -704,8 +844,7 @@ def lobpcg_iteration(dev, op, K: int, label: str) -> None:
     X = S[:, :K].contiguous()
     parts = {
         "Cholesky-QR (Gram, Cholesky, triangular solve; twice)": lambda: _chol_qr(S),
-        "operator, forward half (K9)": lambda: Z.matmat(S),
-        "operator, transposed half (index_add_)": lambda: Z.rmatmat(S),
+        "operator (ell_sym_matmat, both halves in one launch)": lambda: op.matvec(S),
         "H = S'AS": lambda: S.T @ AS,
         f"eigh ({3 * K}, {3 * K})": lambda: torch.linalg.eigh(H),
         "X = S C, AX = AS C, P = X - X0 (X0' X)": lambda: (S @ C, AS @ C, X - X @ (X.T @ X)),
@@ -726,7 +865,7 @@ def lobpcg_spectrum(dev, op) -> None:
     hk.reset_launches()
     got = lobpcg_standard(op.matvec, X0, iters=iters)
     torch.cuda.synchronize()
-    n_launch = hk.LAUNCHES["ell_matmat"]
+    n_launch = hk.LAUNCHES["ell_sym_matmat"]
     Z = EllMatrix(op.values, op.indices, n)
     ref = lobpcg_standard(lambda S: Z.matmat_plain(S) + Z.rmatmat(S), X0, iters=iters)
     torch.cuda.synchronize()
@@ -740,18 +879,18 @@ def lobpcg_spectrum(dev, op) -> None:
           f"iterations, f32: wall {wall:.3f} s (self-kNN, operator and solve; second cloud), "
           f"max residual {float(got.residual_norms.max()):.3e} (timed cloud "
           f"{float(timed.residual_norms.max()):.3e}), leading {lead} residuals at most "
-          f"{float(got.residual_norms[:lead].max()):.3e}, ell_matmat launches {n_launch}; "
+          f"{float(got.residual_norms[:lead].max()):.3e}, ell_sym_matmat launches {n_launch}; "
           f"eigenvalues {float(got.eigenvalues[0]):.6f} .. {float(got.eigenvalues[-1]):.6f}; "
           f"kernel vs plain operator from the same X0: leading {lead} eigenvalues max abs diff "
           f"{float(diff[:lead].max()):.3e}, all {K} {float(diff.max()):.3e}", flush=True)
     if n_launch != iters + 1:
-        _fail(f"the LOBPCG solve launched ell_matmat {n_launch} times, expected {iters + 1}")
+        _fail(f"the LOBPCG solve launched ell_sym_matmat {n_launch} times, expected {iters + 1}")
     for nm, r in (("kernel", got), ("plain", ref), ("timed", timed)):
         if not bool(torch.all(torch.isfinite(r.eigenvalues) & torch.isfinite(r.residual_norms))):
             _fail(f"sparse GLGP spectrum ({nm} operator): non-finite eigenvalues or residuals")
-    # The two solves round the forward half differently (an fmaf chain vs an
-    # einsum) and both scatter with float atomics in an order that changes
-    # from run to run, so after 60 Rayleigh-Ritz steps only the converged
+    # The two solves sum a row's terms in different orders (one fmaf chain vs
+    # an einsum plus a scatter with float atomics, whose order changes from
+    # run to run), so after 60 Rayleigh-Ritz steps only the converged
     # leading pairs must agree: 1e-4 absolute on eigenvalues ≤ 1, a
     # thousand float32 roundings.
     if float(diff[:lead].max()) > 1e-4:
@@ -797,7 +936,8 @@ def _report_fit(name: str, what: str, f: dict) -> None:
 
 
 def grid_fits(dev) -> dict:
-    """Phase 10; returns the kernel launches of the GLGP sparse-LOBPCG fit."""
+    """Phase 10; returns the ``ell_sym_matmat`` launches of the GLGP
+    sparse-LOBPCG fit and the ``ell_matmat`` launches of the SE fit."""
     tor = SHAPES["torus"]
     ds = torus_rings(n=tor["n"], m_train=tor["m"], seed=tor["seed"])
     graph = ft.GraphConfig(s=tor["s"], r=tor["r"], K=tor["K"])
@@ -807,8 +947,8 @@ def grid_fits(dev) -> dict:
     gl = entry_fit("fit_gl_logit_gp", ds, gl_cfg, dev, seed=0)
     _report_fit("fit_gl_logit_gp", "torus, sparse LOBPCG, r=48, 10 bandwidths x 80 iterations", gl)
     resid = gl["res"].metrics["gl_eigensolve_max_residual"]
-    if gl["launches"].get("ell_matmat", 0) == 0 or not np.isfinite(resid):
-        _fail(f"fit_gl_logit_gp: ell_matmat launches {gl['launches']}, residual {resid}")
+    if gl["launches"].get("ell_sym_matmat", 0) == 0 or not np.isfinite(resid):
+        _fail(f"fit_gl_logit_gp: ell_sym_matmat launches {gl['launches']}, residual {resid}")
     gate = ERR_GATE
     if gl["score"] > ERR_GATE:
         # GLGP on this data is honestly worse than the anchor-graph kernels:
@@ -827,6 +967,8 @@ def grid_fits(dev) -> dict:
     _report_fit("fit_se_logit_gp", "torus, 10 bandwidths", se)
     if se["score"] > ERR_GATE:
         _fail(f"fit_se_logit_gp torus test error {se['score']} > {ERR_GATE}")
+    if se["launches"].get("ell_matmat", 0) == 0:
+        _fail(f"fit_se_logit_gp launched no ell_matmat kernel: {se['launches']}")
 
     sp = spiral(n=SPIRAL["n"], m_train=SPIRAL["m"])
     for name, rmse_gate in RMSE_GATES.items():
@@ -837,7 +979,8 @@ def grid_fits(dev) -> dict:
         _report_fit(name, "spiral n=4000, m=200", f)
         if not f["score"] <= rmse_gate:
             _fail(f"{name} spiral rmse {f['score']} > {rmse_gate}")
-    return gl["launches"]
+    return {"ell_sym_matmat": gl["launches"]["ell_sym_matmat"],
+            "ell_matmat": se["launches"]["ell_matmat"]}
 
 
 def main() -> None:
@@ -867,6 +1010,7 @@ def main() -> None:
     results: dict = {}
     for label in ("torus", "large"):
         check_kernels(label, SHAPES[label], dev, results)
+    check_knn_chunk(dev, results)
 
     # 4. torus fit: the main path, through the entry point a user calls
     tor = SHAPES["torus"]
@@ -904,15 +1048,19 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # 10. the bandwidth-grid and regression drivers through their entry points
-    launches["ell_matmat"] = grid_fits(dev)["ell_matmat"]
+    launches.update(grid_fits(dev))
 
     # K1–K5: launches of the torus fit, times at the n=1e6 shape; K6–K8:
     # launches of the first n=1e7 fit, times at the n=1e7 shape; K9: launches
-    # of the sparse-LOBPCG GLGP fit, times at the LOBPCG block's shape
+    # of the SE torus fit, times at the shape that fit launches it at;
+    # ell_sym_matmat: launches of the sparse-LOBPCG GLGP fit, times at the
+    # LOBPCG block's shape
     kernels = []
     for name, (src, replaces) in KERNELS.items():
         r = results[name]
-        shape = "huge" if name.endswith("_t") else "lobpcg" if name == "ell_matmat" else "large"
+        shape = ("huge" if name.endswith("_t") else
+                 "se-torus" if name == "ell_matmat" else
+                 "lobpcg" if name == "ell_sym_matmat" else "large")
         bound_ms, bound_by = bound(r[f"work_{shape}"])
         kernels.append(dict(name=name, route="cuda", source=src, replaces=replaces,
                             launches=launches[name], max_abs_err=r["max_abs_err"],

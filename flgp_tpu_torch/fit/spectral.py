@@ -15,7 +15,7 @@ from ..ops.knn import KnnResult, knn
 from ..ops.lae import lae_weights
 from ..ops.laplacian import normalize_graph_laplacian
 from ..ops.lobpcg import lobpcg_standard
-from ..ops.sparse_graph import glgp_operator, symmetrize_knn
+from ..ops.sparse_graph import SymStructure, glgp_operator, sym_structure, symmetrize_knn
 from ..ops.spectrum import _top_k_eigh, spectrum_from_Z, spectrum_fused
 from ..types import EigenPair, EllMatrix
 
@@ -157,6 +157,9 @@ class GlBasis(NamedTuple):
     sq_dists: torch.Tensor               # dense (n, n) squared distances, or kNN (n, r)
     knn_idx: Optional[torch.Tensor]
     dist_mean: torch.Tensor
+    # structure of Z + Zᵀ for the kNN graph (sparse basis): the indices are the
+    # same for every bandwidth, so the LOBPCG operator sorts them once
+    structure: Optional[SymStructure] = None
 
 
 def gl_setup(X_all: torch.Tensor, sparse: bool, threshold: float) -> GlBasis:
@@ -164,7 +167,8 @@ def gl_setup(X_all: torch.Tensor, sparse: bool, threshold: float) -> GlBasis:
     if sparse:
         r = max(int(round(threshold * n)), 3)
         res = knn(X_all, X_all, r)
-        return GlBasis(res.sqdists, res.indices, torch.mean(res.sqdists))
+        return GlBasis(res.sqdists, res.indices, torch.mean(res.sqdists),
+                       sym_structure(res.indices, n))
     d = sqdist(X_all, X_all)
     return GlBasis(d, None, torch.mean(d))
 
@@ -190,8 +194,8 @@ def gl_spectrum_lobpcg(generator, basis: GlBasis, a2, K: int, iters: int = 80,
 
         W = D_A^{-1/2} · A · D_A^{-1/2},   A = D^{-1} · (Z+Zᵀ)/2 · D⁻¹
 
-    applied as a gather (kernel K9) plus a scatter-add, O(n·r·K) per
-    iteration.  Same eigensystem as ``gl_spectrum_at``."""
+    applied as two gathers in one kernel launch (``ell_sym_matmat``),
+    O(n·r·K) per iteration.  Same eigensystem as ``gl_spectrum_at``."""
     return gl_spectrum_lobpcg_status(generator, basis, a2, K, iters, X0)[0]
 
 
@@ -205,7 +209,7 @@ def gl_spectrum_lobpcg_status(generator, basis: GlBasis, a2, K: int, iters: int 
         raise ValueError("gl_spectrum_lobpcg requires the sparse kNN basis")
     n = basis.knn_idx.shape[0]
     vals = torch.exp(-basis.sq_dists / (a2 * basis.dist_mean))
-    W, sqrt_da_inv = glgp_operator(symmetrize_knn(basis.knn_idx, vals, n))
+    W, sqrt_da_inv = glgp_operator(symmetrize_knn(basis.knn_idx, vals, n, basis.structure))
     if X0 is None:
         X0 = torch.randn((n, K), generator=generator, dtype=vals.dtype, device=vals.device)
     res = lobpcg_standard(W.matvec, X0, iters=iters)

@@ -32,7 +32,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # C entry points and their argument types (pointers and the stream as void*)
 _SIGNATURES = {
-    "flgp_knn": [_P, _P, _I, _I, _I, _I, _P, _P, _P],
+    "flgp_knn": [_P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P],
     "flgp_lae": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P],
     "flgp_ell_colsum": [_P, _P, ctypes.c_longlong, _I, _P, _P],
     "flgp_ell_norm_gram": [_P, _P, _P, _I, _I, _I, ctypes.c_float, _P, _P, _P],
@@ -40,7 +40,8 @@ _SIGNATURES = {
     "flgp_ell_colsum_t": [_P, _P, ctypes.c_longlong, _I, _P, _P],
     "flgp_ell_norm_gram_t": [_P, _P, _P, _I, _I, _I, _I, ctypes.c_float, _P, _P, _P],
     "flgp_ell_norm_matmat_t": [_P, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_float, _P, _P],
-    "flgp_ell_matmat": [_P, _P, _P, _I, _I, _I, _I, _P, _P],
+    "flgp_ell_matmat": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P],
+    "flgp_ell_sym_matmat": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
 }
 
 _lib = None

@@ -1,4 +1,5 @@
-"""Wrappers of the hand-written Hopper kernels K1–K9, with their plain versions.
+"""Wrappers of the hand-written Hopper kernels K1–K9 and of the symmetric
+operator product ``ell_sym_matmat``, with their plain versions.
 
 K1 ``knn`` (csrc/knn.cu), K2 ``lae_weights`` (csrc/lae.cu), K3–K5
 ``ell_colsum``, ``ell_norm_gram``, ``ell_norm_matmat`` (csrc/ell.cu), their
@@ -6,7 +7,9 @@ chunked feature-major variants K6–K8 ``ell_colsum_t``, ``ell_norm_gram_t``,
 ``ell_norm_matmat_t`` (csrc/ell_t.cu) and K9 ``ell_matmat``
 (csrc/ell_matmat.cu) replace the TPU kernels of the same names in
 flgp_tpu/ops/pallas_kernels.py (K2: ``fused_lae_tiles``, with the Gram
-assembly that feeds it).
+assembly that feeds it).  ``ell_sym_matmat`` (csrc/ell_matmat.cu) is K9's
+gather applied to a graph and to its transpose in one launch: the product
+(Z + Zᵀ)·X of the sparse GLGP operator.
 
 Each wrapper takes its plain PyTorch version for tensors on the CPU, and only
 then.  For CUDA tensors it checks device, dtype (float32 values, int32
@@ -14,7 +17,7 @@ indices), shape and contiguity, raises on anything else, launches the kernel
 on the current stream and adds one to ``LAUNCHES[name]``.  A build or launch
 error raises; nothing falls back.  The float64 path never reaches these
 wrappers: the callers (``ops.knn``, ``ops.lae``, ``ops.spectrum``,
-``EllMatrix.matmat``) dispatch on dtype.
+``EllMatrix.matmat``, ``SymCoo.matvec``) dispatch on dtype.
 """
 
 from __future__ import annotations
@@ -32,7 +35,7 @@ from .lae import lae_weights_plain
 # Launches of each kernel since the last reset_launches().
 LAUNCHES = {"knn": 0, "lae_weights": 0, "ell_colsum": 0, "ell_norm_gram": 0,
             "ell_norm_matmat": 0, "ell_colsum_t": 0, "ell_norm_gram_t": 0,
-            "ell_norm_matmat_t": 0, "ell_matmat": 0}
+            "ell_norm_matmat_t": 0, "ell_matmat": 0, "ell_sym_matmat": 0}
 
 
 def reset_launches() -> None:
@@ -75,6 +78,13 @@ def knn(X: torch.Tensor, U: torch.Tensor, r: int) -> KnnResult:
     """r nearest anchors of each row of X (K1); see ``ops.knn.knn``."""
     if X.device.type == "cpu":
         return knn_plain(X, U, r)
+    return _knn(X, U, r, split=0)
+
+
+def _knn(X: torch.Tensor, U: torch.Tensor, r: int, split: int) -> KnnResult:
+    """K1 on CUDA tensors.  ``split`` lanes share a row and divide the
+    anchors (a power of two up to 32); 0 lets the kernel's entry point choose
+    from (n, s).  The result does not depend on it; the tests force it."""
     n, d = X.shape
     s = U.shape[0]
     _check_fan_in(r)
@@ -84,8 +94,11 @@ def knn(X: torch.Tensor, U: torch.Tensor, r: int) -> KnnResult:
     _check("U", U, torch.float32, (s, d), X.device)
     idx = torch.empty((n, r), dtype=torch.int32, device=X.device)
     dist = torch.empty((n, r), dtype=torch.float32, device=X.device)
+    # the anchors as the kernel's pre-pass packs them: (−2u, |u|²) records
+    packed = torch.empty((s, max(d, 3) + 1), dtype=torch.float32, device=X.device)
     _launch("knn", X.device, _build.load().flgp_knn,
-            X.data_ptr(), U.data_ptr(), n, s, d, r, idx.data_ptr(), dist.data_ptr())
+            X.data_ptr(), U.data_ptr(), n, s, d, r, int(split), packed.data_ptr(),
+            idx.data_ptr(), dist.data_ptr())
     return KnnResult(idx, dist)
 
 
@@ -289,7 +302,7 @@ def ell_norm_matmat_t(values: torch.Tensor, indices: torch.Tensor, cscale: torch
 
 
 # ---------------------------------------------------------------------------
-# K9: the raw ELL product
+# K9: the raw ELL product, and the symmetric operator product built on it
 # ---------------------------------------------------------------------------
 
 
@@ -299,10 +312,17 @@ def ell_matmat_plain(values: torch.Tensor, indices: torch.Tensor, W: torch.Tenso
 
 def ell_matmat(values: torch.Tensor, indices: torch.Tensor, W: torch.Tensor) -> torch.Tensor:
     """Z @ W for the raw (n, r) ELL graph Z and W (s, K) (K9), shape (n, K):
-    out[i] = Σₖ values[i, k]·W[indices[i, k]].  Any r ≥ 1, s and K; s = n in
-    the sparse GLGP operator, where W is the LOBPCG iterate block."""
+    out[i] = Σₖ values[i, k]·W[indices[i, k]].  Any r ≥ 1, s and K."""
     if values.device.type == "cpu":
         return ell_matmat_plain(values, indices, W)
+    return _ell_matmat(values, indices, W, slab_cols=0)
+
+
+def _ell_matmat(values: torch.Tensor, indices: torch.Tensor, W: torch.Tensor,
+                slab_cols: int) -> torch.Tensor:
+    """K9 on CUDA tensors.  ``slab_cols`` is the width of the column slabs
+    the kernel walks K in; 0 lets its entry point choose from (s, K).  The
+    result does not depend on it; the tests force it."""
     n, r = values.shape
     s, K = W.shape
     if r < 1:
@@ -312,5 +332,58 @@ def ell_matmat(values: torch.Tensor, indices: torch.Tensor, W: torch.Tensor) -> 
     _check("W", W, torch.float32, (s, K), values.device)
     out = torch.empty((n, K), dtype=torch.float32, device=values.device)
     _launch("ell_matmat", values.device, _build.load().flgp_ell_matmat,
-            values.data_ptr(), indices.data_ptr(), W.data_ptr(), n, r, s, K, out.data_ptr())
+            values.data_ptr(), indices.data_ptr(), W.data_ptr(), n, r, s, K, int(slab_cols),
+            out.data_ptr())
+    return out
+
+
+def ell_sym_matmat_plain(values: torch.Tensor, indices: torch.Tensor, ptr: torch.Tensor,
+                         src: torch.Tensor, vt: torch.Tensor, X: torch.Tensor,
+                         block: int = 1 << 16) -> torch.Tensor:
+    """(Z + Zᵀ) @ X from the same arguments as the kernel: the forward half
+    as a gather over the ELL arrays, the transposed half as a scatter-add of
+    the CSR entries (entry e of row i adds vt[e]·X[src[e]] to out[i]), in
+    blocks of entries so the weighted copy stays small."""
+    n = values.shape[0]
+    out = EllMatrix(values, indices, n).matmat_plain(X)
+    nnz = int(ptr[-1])
+    dst = torch.repeat_interleave(torch.arange(n, device=X.device), torch.diff(ptr.long()))
+    for e in range(0, nnz, block):
+        stop = min(e + block, nnz)        # src and vt may run on past the last row
+        rows = vt[e:stop, None] * X[src[e:stop].long()]
+        out.index_add_(0, dst[e:stop], rows)
+    return out
+
+
+def ell_sym_matmat(values: torch.Tensor, indices: torch.Tensor, ptr: torch.Tensor,
+                   src: torch.Tensor, vt: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
+    """(Z + Zᵀ) @ X for the raw (n, r) ELL graph Z on n points and X (n, K):
+    out[i] = Σₖ values[i, k]·X[indices[i, k]] + Σ_{e ∈ [ptr[i], ptr[i+1])} vt[e]·X[src[e]],
+    with (ptr, src, vt) rows of Zᵀ as CSR (``EllMatrix.transpose_structure``
+    and the values it permutes): all of them, or, as ``SymCoo`` calls it,
+    those whose reverse edge Z lacks, the others folded into ``values``.
+    One launch, no atomics."""
+    if values.device.type == "cpu":
+        return ell_sym_matmat_plain(values, indices, ptr, src, vt, X)
+    return _ell_sym_matmat(values, indices, ptr, src, vt, X, slab_cols=0)
+
+
+def _ell_sym_matmat(values: torch.Tensor, indices: torch.Tensor, ptr: torch.Tensor,
+                    src: torch.Tensor, vt: torch.Tensor, X: torch.Tensor,
+                    slab_cols: int) -> torch.Tensor:
+    """The symmetric product on CUDA tensors; ``slab_cols`` as in ``_ell_matmat``."""
+    n, r = values.shape
+    K = X.shape[1]
+    if r < 1:
+        raise ValueError(f"ell_sym_matmat needs r >= 1, got r={r}")
+    _check("values", values, torch.float32, (n, r), values.device)
+    _check("indices", indices, torch.int32, (n, r), values.device)
+    _check("ptr", ptr, torch.int32, (n + 1,), values.device)
+    _check("src", src, torch.int32, (n * r,), values.device)
+    _check("vt", vt, torch.float32, (n * r,), values.device)
+    _check("X", X, torch.float32, (n, K), values.device)
+    out = torch.empty((n, K), dtype=torch.float32, device=values.device)
+    _launch("ell_sym_matmat", values.device, _build.load().flgp_ell_sym_matmat,
+            values.data_ptr(), indices.data_ptr(), ptr.data_ptr(), src.data_ptr(), vt.data_ptr(),
+            X.data_ptr(), n, r, K, int(slab_cols), out.data_ptr())
     return out

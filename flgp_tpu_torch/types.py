@@ -8,9 +8,21 @@ column indices within a row add.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
+
+
+class EllTranspose(NamedTuple):
+    """The structure of Zᵀ as CSR, for an (n, r) ELL matrix Z with s columns:
+    row i of Zᵀ holds the entries of Z whose column index is i, in the order
+    of their flat position j·r + k.  It depends on the indices alone, so one
+    structure serves every value array on the same graph:
+    ``values.reshape(-1)[perm]`` are the CSR values."""
+
+    ptr: torch.Tensor     # (s + 1,) int32 row starts
+    src: torch.Tensor     # (n·r,) int32 row j of Z of each entry; past ptr[s]: entries in no row
+    perm: torch.Tensor    # (n·r,) int64 flat position of each entry in the (n, r) arrays
 
 
 class EllMatrix:
@@ -95,7 +107,7 @@ class EllMatrix:
     def rmatmat(self, M: torch.Tensor, block: int = 4096) -> torch.Tensor:
         """Zᵀ @ M for dense M of shape (n, K): a scatter-add of weighted
         rows, in row blocks so the (block·r, K) buffer stays small.  The
-        transposed half of the sparse GLGP operator."""
+        transposed half of the sparse GLGP operator's plain composition."""
         n, r = self.values.shape
         out = M.new_zeros((self.num_cols, M.shape[1]))
         for i in range(0, n, block):
@@ -103,6 +115,25 @@ class EllMatrix:
             rows = (v[:, :, None] * M[i:i + block, None, :]).reshape(-1, M.shape[1])
             out.index_add_(0, self.indices[i:i + block].reshape(-1).long(), rows)
         return out
+
+    def transpose_structure(self, skip: Optional[torch.Tensor] = None) -> EllTranspose:
+        """CSR structure of Zᵀ: a stable sort of the flat column indices, the
+        row starts from a count and a cumulative sum.  An index outside
+        [0, s), and an entry that the (n·r,) bool mask ``skip`` names, sorts
+        past the last row and belongs to none."""
+        n, r = self.indices.shape
+        s = self.num_cols
+        if n * r >= 2 ** 31:
+            raise ValueError(f"the int32 CSR structure needs n·r < 2^31, got {n}·{r}")
+        flat = self._flat_idx()
+        keep = (flat >= 0) & (flat < s)
+        if skip is not None:
+            keep = keep & ~skip
+        key = torch.where(keep, flat, s)
+        perm = torch.sort(key, stable=True).indices
+        ptr = torch.zeros((s + 1,), dtype=torch.int32, device=flat.device)
+        ptr[1:] = torch.cumsum(torch.bincount(key, minlength=s + 1)[:s], dim=0)
+        return EllTranspose(ptr, (perm // r).to(torch.int32), perm)
 
     def gram(self, block: int = 2048) -> torch.Tensor:
         """ZᵀZ as a dense (s, s) matrix: row blocks densified into (block, s)

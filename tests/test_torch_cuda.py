@@ -1,4 +1,5 @@
-"""The CUDA kernels K1–K9 against their plain versions, on the card.
+"""The CUDA kernels K1–K9 and ``ell_sym_matmat`` against their plain versions,
+on the card.
 
 Marked ``cuda``: they skip where no CUDA device is present (a kernel written
 in CUDA has no interpret mode).  On a machine with an H100 and no JAX:
@@ -54,6 +55,42 @@ def test_knn_kernel_matches_plain(dev, gen, r, d):
     torch.testing.assert_close(got.sqdists, ref.sqdists, rtol=1e-5, atol=1e-5)
     rows = got.indices.cpu().numpy()
     assert not any(9 in row and 4 not in row for row in rows)
+
+
+@pytest.mark.parametrize("r", [1, 3, 8, 9, 16])
+@pytest.mark.parametrize("d", [1, 2, 3, 5, 17])
+@pytest.mark.parametrize("n,s", [(300_000, 700), (3000, 700)], ids=["grid-filling", "anchor-split"])
+def test_knn_kernel_every_width_and_split(dev, gen, n, s, d, r):
+    """Both template widths (d = 2, 3) and the run-time one, both numbers of
+    rows a thread (r ≤ 8, r > 8), at a shape whose rows fill the card (no
+    anchor split) and at one that takes the anchor-split path; then every
+    split forced.  The list does not depend on the split, bit for bit; at
+    d = 2 no row differs from the plain version."""
+    from flgp_tpu_torch.ops import hopper_kernels as hk
+    from flgp_tpu_torch.ops.knn import knn_plain
+
+    X = _cuda(gen.normal(size=(n, d)), dev)
+    Unp = gen.normal(size=(s, d))
+    Unp[9] = Unp[4]                                   # an exact tie: index 4 before index 9
+    Unp[10] = Unp[4]                                  # a lane's own tie when the split is 2
+    U = _cuda(Unp, dev)
+    got = hk.knn(X, U, r)
+    torch.cuda.synchronize()
+    ref = knn_plain(X, U, r)
+    differ = torch.any(got.indices != ref.indices, dim=1)
+    assert int(differ.sum()) <= (0 if d <= 2 else max(1, n // 10_000))     # near-ties only
+    torch.testing.assert_close(got.sqdists, ref.sqdists, rtol=1e-5, atol=2e-5)
+    for split in (1, 2, 4, 8, 16, 32):
+        forced = hk._knn(X, U, r, split)
+        assert torch.equal(forced.indices, got.indices), split
+        assert torch.equal(forced.sqdists, got.sqdists), split
+    rows = got.indices[:3000].cpu().tolist()
+    for row in rows:
+        where = [row.index(j) for j in (4, 9, 10) if j in row]
+        assert where == sorted(where)
+        assert 4 in row or not (9 in row or 10 in row)
+    with pytest.raises(RuntimeError, match="cudaError"):
+        hk._knn(X, U, r, 3)                           # not a power of two
 
 
 @pytest.mark.parametrize("r", [8, 12])
@@ -288,6 +325,106 @@ def test_ell_matmat_kernel_matches_plain(dev, gen, n, s, r, K):
     torch.testing.assert_close(hk.ell_matmat(v, i, W_off), ref, rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("slab_cols", [0, 4, 24, 64, 100, 1000])
+@pytest.mark.parametrize("n,s,r,K", [(3001, 3001, 48, 300), (4097, 129, 8, 384), (1000, 1000, 3, 130),
+                                     (2000, 300_000, 5, 40)])
+def test_ell_matmat_kernel_slabs(dev, gen, n, s, r, K, slab_cols):
+    """K9's two bodies: the row kernel (slab_cols = 0 with W small) and the
+    slab kernel with forced slab widths, narrower than a lane group, ragged
+    against K, wider than K; s·K·4 above 32 MB takes slabs unforced.  Vector
+    (K % 4 == 0) and scalar (K = 130, and an unaligned W) paths.  All give
+    the same fmaf chain: equal bit for bit, and within 1e-5 of the plain
+    version."""
+    from flgp_tpu_torch.ops import hopper_kernels as hk
+
+    vals = gen.uniform(-1.0, 1.0, size=(n, r))
+    idx = gen.integers(0, s, size=(n, r))
+    idx[::3, 1] = idx[::3, 0]
+    idx[0, 0] = s                                      # out of range: adds nothing
+    W = _cuda(gen.normal(size=(s, K)), dev)
+    v, i = _cuda(vals, dev), _cuda(idx, dev, torch.int32)
+    got = hk._ell_matmat(v, i, W, slab_cols)
+    torch.cuda.synchronize()
+    v0, i0 = v.clone(), i.clone()
+    v0[0, 0], i0[0, 0] = 0.0, 0
+    torch.testing.assert_close(got, hk.ell_matmat_plain(v0, i0, W), rtol=1e-5, atol=1e-5)
+    assert torch.equal(got, hk.ell_matmat(v, i, W))
+    buf = torch.empty(s * K + 1, dtype=torch.float32, device=dev)
+    W_off = buf[1:].view(s, K).copy_(W)               # unaligned: the scalar path
+    assert torch.equal(hk._ell_matmat(v, i, W_off, slab_cols), got)
+
+
+@pytest.mark.parametrize("slab_cols", [0, 8, 64, 1000])
+@pytest.mark.parametrize("n,r,K", [(3001, 48, 300), (5000, 8, 384), (1000, 3, 130), (90_000, 4, 96)])
+def test_ell_sym_matmat_kernel_matches_plain(dev, gen, n, r, K, slab_cols):
+    """The symmetric product against its plain version: r = 48 > 32 (two
+    rounds of a 32-lane group), a hub whose in-degree is n (many rounds),
+    rows with in-degree 0, a duplicate edge, an out-of-range index, scalar
+    and vector paths, forced slabs and (n = 90,000, K = 96: 34.6 MB) unforced
+    ones.  The slab width does not change a bit of the result."""
+    from flgp_tpu_torch.ops import hopper_kernels as hk
+    from flgp_tpu_torch.ops.sparse_graph import SymCoo
+    from flgp_tpu_torch.types import EllMatrix
+
+    idx = gen.integers(0, n, size=(n, r))
+    idx[(idx >= 100) & (idx < 200)] = 7                # rows 100..199 have no in-edge
+    idx[:, 0] = 7                                      # a hub
+    idx[5, 1] = idx[5, 2]
+    idx[0, 1] = n                                      # out of range: in neither half
+    vals = gen.uniform(-1.0, 1.0, size=(n, r))
+    v, i = _cuda(vals, dev), _cuda(idx, dev, torch.int32)
+    X = _cuda(gen.normal(size=(n, K)), dev)
+    tr = EllMatrix(v, i, n).transpose_structure()
+    assert int(tr.ptr[200] - tr.ptr[100]) == 0 and int(tr.ptr[-1]) == n * r - 1
+    vt = v.reshape(-1)[tr.perm]
+    before = hk.LAUNCHES["ell_sym_matmat"]
+    got = hk._ell_sym_matmat(v, i, tr.ptr, tr.src, vt, X, slab_cols)
+    torch.cuda.synchronize()
+    assert hk.LAUNCHES["ell_sym_matmat"] == before + 1
+    v0, i0 = v.clone(), i.clone()
+    v0[0, 1], i0[0, 1] = 0.0, 0
+    tr0 = EllMatrix(v0, i0, n).transpose_structure()
+    ref = hk.ell_sym_matmat_plain(v0, i0, tr0.ptr, tr0.src, v0.reshape(-1)[tr0.perm], X)
+    # the hub's row sums n + r terms of either sign: 1e-5 of the sum's scale
+    scale = float(ref.abs().max())
+    assert float((got - ref).abs().max()) <= 1e-5 * max(1.0, scale)
+    assert torch.equal(got, hk.ell_sym_matmat(v, i, tr.ptr, tr.src, vt, X))
+    # the operator takes the kernel for float32 CUDA tensors, once per product,
+    # on its folded arrays: the hub's own edges 7 → j are mutual with j → 7
+    op = SymCoo(i0, v0, n)
+    torch.testing.assert_close(op.matvec(X), ref, rtol=1e-5, atol=1e-5 * max(1.0, scale))
+    assert hk.LAUNCHES["ell_sym_matmat"] == before + 3
+    assert r <= int(op.structure.mutual.sum()) == n * r - int(op.structure.transpose.ptr[-1])
+    op.matvec(X[:, 0].contiguous())
+    assert hk.LAUNCHES["ell_sym_matmat"] == before + 4
+    SymCoo(i0, v0.double(), n).matvec(X.double())
+    assert hk.LAUNCHES["ell_sym_matmat"] == before + 4
+
+
+def test_ell_sym_matmat_wrapper_rejects_what_the_kernel_does_not_take(dev, gen):
+    from flgp_tpu_torch.ops import hopper_kernels as hk
+    from flgp_tpu_torch.types import EllMatrix
+
+    n, r = 50, 3
+    v = _cuda(gen.uniform(size=(n, r)), dev)
+    i = _cuda(gen.integers(0, n, size=(n, r)), dev, torch.int32)
+    X = _cuda(gen.normal(size=(n, 8)), dev)
+    tr = EllMatrix(v, i, n).transpose_structure()
+    vt = v.reshape(-1)[tr.perm]
+    with pytest.raises(TypeError):
+        hk.ell_sym_matmat(v, i, tr.ptr.long(), tr.src, vt, X)
+    with pytest.raises(TypeError):
+        hk.ell_sym_matmat(v.double(), i, tr.ptr, tr.src, vt.double(), X.double())
+    with pytest.raises(ValueError):
+        hk.ell_sym_matmat(v, i, tr.ptr[:-1], tr.src, vt, X)
+    with pytest.raises(ValueError):
+        hk.ell_sym_matmat(v, i, tr.ptr, tr.src, vt, X[:-1])          # X must have n rows
+    with pytest.raises(ValueError):
+        hk.ell_sym_matmat(v, i, tr.ptr, tr.src, vt, X.T.contiguous().T)
+    with pytest.raises(ValueError):
+        hk.ell_sym_matmat(v, i, tr.ptr, tr.src.cpu(), vt, X)
+
+
 def test_ell_matmat_wrapper_rejects_what_the_kernel_does_not_take(dev, gen):
     from flgp_tpu_torch.ops import hopper_kernels as hk
 
@@ -307,9 +444,10 @@ def test_ell_matmat_wrapper_rejects_what_the_kernel_does_not_take(dev, gen):
 
 
 def test_sparse_glgp_operator_and_fit_launch_the_kernel(dev, gen):
-    """SymCoo.matvec is K9 plus a scatter-add; a small sparse-LOBPCG GLGP fit
-    through the entry point (on the card by default) launches it once per
-    LOBPCG iteration and start, for every bandwidth."""
+    """SymCoo.matvec is one ``ell_sym_matmat`` launch; a small sparse-LOBPCG
+    GLGP fit through the entry point (on the card by default) launches it
+    once per LOBPCG iteration and start, for every bandwidth, and never the
+    forward-only K9."""
     import flgp_tpu_torch as ft
     from flgp_tpu_torch.ops import hopper_kernels as hk
     from flgp_tpu_torch.ops.sparse_graph import glgp_operator, symmetrize_knn
@@ -322,10 +460,10 @@ def test_sparse_glgp_operator_and_fit_launch_the_kernel(dev, gen):
     hk.reset_launches()
     got = W.matvec(X)
     torch.cuda.synchronize()
-    assert hk.LAUNCHES["ell_matmat"] == 1
+    assert hk.LAUNCHES["ell_sym_matmat"] == 1 and hk.LAUNCHES["ell_matmat"] == 0
     W64, _ = glgp_operator(symmetrize_knn(idx, vals.double(), n))
     torch.testing.assert_close(got.double(), W64.matvec(X.double()), rtol=1e-4, atol=1e-6)
-    assert hk.LAUNCHES["ell_matmat"] == 1
+    assert hk.LAUNCHES["ell_sym_matmat"] == 1
 
     rng = np.random.default_rng(2)
     y = (rng.uniform(size=1200) < 0.5).astype(np.float64)
@@ -336,7 +474,7 @@ def test_sparse_glgp_operator_and_fit_launch_the_kernel(dev, gen):
     hk.reset_launches()
     res = ft.fit_gl_logit_gp(torch.Generator(device=dev).manual_seed(0), Xb[:100], y[:100],
                              Xb[100:], cfg=cfg)
-    assert hk.LAUNCHES["ell_matmat"] == 3 * 41, hk.LAUNCHES
+    assert hk.LAUNCHES["ell_sym_matmat"] == 3 * 41 and hk.LAUNCHES["ell_matmat"] == 0, hk.LAUNCHES
     assert hk.LAUNCHES["knn"] == 1                      # the self-kNN, r = 12
     assert np.isfinite(res.metrics["gl_eigensolve_max_residual"])
     assert np.mean(res.y_test != y[100:]) <= 0.02

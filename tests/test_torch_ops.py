@@ -121,6 +121,37 @@ def test_knn_f32_matches_pallas_interpret(rng, n, s, r):
     np.testing.assert_allclose(got.sqdists.numpy(), np.asarray(ref.sqdists), rtol=1e-4, atol=1e-4)
 
 
+@pytest.mark.parametrize("r", [1, 3, 16])
+@pytest.mark.parametrize("d", [1, 2, 3, 5, 17])
+def test_knn_matches_reference_over_widths(rng, d, r):
+    """``knn`` and ``knn_plain`` against the reference's plain path on the
+    CPU at the widths the kernel has a body for (2 and 3 as template
+    parameters, every other through the run-time one) and at the ends of its
+    fan-in range.  float64: the same indices, d² to 1e-12.  float32 through
+    the wrapper (its plain version on the CPU): the same indices as the
+    float32 reference, d² to 1e-4.  Anchors 3 and 7 coincide, and so do 11 and
+    5: the lower index always comes first."""
+    X, U = _points(rng, 120, 40, d)
+    U[11] = U[5]
+    ref = knn_xla(jnp.asarray(X), jnp.asarray(U), r)
+    for got in (knn(T(X), T(U), r), knn_plain(T(X), T(U), r, block=50)):
+        np.testing.assert_array_equal(got.indices.numpy(), np.asarray(ref.indices))
+        np.testing.assert_allclose(got.sqdists.numpy(), np.asarray(ref.sqdists), rtol=1e-12,
+                                   atol=1e-12)
+    ref32 = knn_xla(jnp.asarray(X, jnp.float32), jnp.asarray(U, jnp.float32), r)
+    got32 = hk.knn(T(X, torch.float32), T(U, torch.float32), r)
+    assert got32.indices.dtype == torch.int32 and got32.sqdists.dtype == torch.float32
+    np.testing.assert_array_equal(got32.indices.numpy(), np.asarray(ref32.indices))
+    np.testing.assert_allclose(got32.sqdists.numpy(), np.asarray(ref32.sqdists), rtol=1e-4,
+                               atol=1e-4)
+    for lo, hi in ((3, 7), (5, 11)):
+        for row in got32.indices.tolist():
+            if hi in row:
+                assert lo in row and row.index(lo) < row.index(hi)
+            if r >= 2:
+                assert (lo in row) == (hi in row) or row[-1] == lo
+
+
 def test_sqdist_blocked_matches_reference(rng):
     from flgp_tpu.ops.distance import sqdist_blocked as jsqdist_blocked
     from flgp_tpu_torch.ops.distance import sqdist_blocked
@@ -243,10 +274,15 @@ def test_wrappers_take_plain_version_on_cpu_without_counting(rng):
     hk.ell_norm_gram_t(wt, it, T(cs, torch.float32))
     hk.ell_norm_matmat_t(wt, it, T(cs, torch.float32), torch.ones((s, 2)))
     hk.ell_matmat(T(w, torch.float32), T(idx, torch.int32), torch.ones((s, 2)))
+    n = w.shape[0]
+    self_idx = T(idx, torch.int32) % n                               # an (n, r) graph on n points
+    tr = EllMatrix(T(w, torch.float32), self_idx, n).transpose_structure()
+    hk.ell_sym_matmat(T(w, torch.float32), self_idx, tr.ptr, tr.src,
+                      T(w, torch.float32).reshape(-1)[tr.perm], torch.ones((n, 2)))
     assert all(v == 0 for v in hk.LAUNCHES.values())
     assert set(hk.LAUNCHES) == {"knn", "lae_weights", "ell_colsum", "ell_norm_gram",
                                 "ell_norm_matmat", "ell_colsum_t", "ell_norm_gram_t",
-                                "ell_norm_matmat_t", "ell_matmat"}
+                                "ell_norm_matmat_t", "ell_matmat", "ell_sym_matmat"}
 
 
 # ---------------------------------------------------------------------------

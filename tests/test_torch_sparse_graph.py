@@ -1,9 +1,12 @@
 """The sparse GLGP operator and LOBPCG of flgp_tpu_torch against flgp_tpu,
 float64, on the same kNN graphs and the same start block.
 
-The port's ``SymCoo`` keeps the ELL arrays and applies gather + scatter-add;
-the reference sums over a 2·n·r-edge COO list.  Same sum, another order:
-products agree to 1e-12.  LOBPCG is deterministic given X0: eigenvalues to
+The port's ``SymCoo`` keeps the ELL arrays and, for the kernel, the CSR
+structure of the transposed entries whose reverse edge the graph lacks (the
+others fold into the forward weights); its plain product is gather +
+scatter-add, the kernel's plain version (``ell_sym_matmat_plain``) a gather
+plus a scatter-add over the CSR entries.  The reference sums over a 2·n·r-edge COO list.  Same sum, another
+order: products agree to 1e-12 in float64 and 1e-5 in float32.  LOBPCG is deterministic given X0: eigenvalues to
 1e-8, residual norms to 1e-6 absolute, eigenvectors through heat kernels
 (which do not see signs or rotations inside an eigenspace) to 1e-6.
 """
@@ -22,9 +25,11 @@ from flgp_tpu.ops.sparse_graph import symmetrize_knn as jsymmetrize_knn
 
 from flgp_tpu_torch.convert import gl_basis_from_jax, symcoo_from_numpy
 from flgp_tpu_torch.fit import spectral
+from flgp_tpu_torch.ops import hopper_kernels as hk
 from flgp_tpu_torch.ops.heat_kernel import heat_kernel
 from flgp_tpu_torch.ops.lobpcg import lobpcg_standard
-from flgp_tpu_torch.ops.sparse_graph import glgp_operator, symmetrize_knn
+from flgp_tpu_torch.ops.sparse_graph import SymCoo, glgp_operator, sym_structure, symmetrize_knn
+from flgp_tpu_torch.types import EllMatrix
 
 torch.set_num_threads(1)
 
@@ -81,6 +86,178 @@ def test_symmetrize_and_operator_match_reference_and_dense(rng):
                                atol=1e-14)
     with pytest.raises(ValueError, match="symmetrized"):
         symcoo_from_numpy(jW.cols, jW.rows, jW.vals, n)
+
+
+def _awkward_graph(rng, n=40, r=4):
+    """Column 7 is a hub (every row names it), columns 3 and 30 have no
+    in-edges, row 5 names one column twice and column 7 twice, row 7 names
+    column 5 twice (so 5 ↔ 7 is mutual with duplicates on both sides), row 9
+    names itself."""
+    idx = rng.integers(0, n, size=(n, r))
+    idx[idx == 3] = 4
+    idx[idx == 30] = 31
+    idx[:, 0] = 7
+    idx[5, 1] = idx[5, 2]
+    idx[7, 1] = idx[7, 2] = 5
+    idx[5, 3] = 7
+    idx[9, 3] = 9
+    return idx.astype(np.int32), rng.uniform(0.1, 1.0, size=(n, r))
+
+
+def test_transpose_structure_round_trips_to_dense(rng):
+    n, r = 40, 4
+    idx, vals = _awkward_graph(rng, n, r)
+    Z = EllMatrix(T(vals), T(idx, torch.int32), n)
+    tr = Z.transpose_structure()
+    ptr, src, perm = tr.ptr.numpy(), tr.src.numpy(), tr.perm.numpy()
+    assert tr.ptr.dtype == tr.src.dtype == torch.int32 and tr.perm.dtype == torch.int64
+    assert ptr[0] == 0 and ptr[-1] == n * r and np.all(np.diff(ptr) >= 0)
+    assert ptr[8] - ptr[7] == np.sum(idx == 7) >= n                 # the hub
+    assert ptr[4] == ptr[3] and ptr[31] == ptr[30]                  # rows with no in-edge
+    np.testing.assert_array_equal(np.sort(perm), np.arange(n * r))
+    np.testing.assert_array_equal(src, perm // r)
+    dense_t = np.zeros((n, n))
+    vt = vals.reshape(-1)[perm]
+    for i in range(n):
+        seg = slice(ptr[i], ptr[i + 1])
+        assert np.all(np.diff(perm[seg]) > 0)                 # stable: flat order within a row
+        np.testing.assert_array_equal(idx.reshape(-1)[perm[seg]], i)
+        np.add.at(dense_t[i], src[seg], vt[seg])
+    np.testing.assert_allclose(dense_t, Z.to_dense().numpy().T, rtol=0, atol=1e-15)
+    # an index outside [0, n) belongs to no row of the transpose
+    bad = idx.copy()
+    bad[0, 0], bad[1, 0] = n, -1
+    tr_bad = EllMatrix(T(vals), T(bad, torch.int32), n).transpose_structure()
+    assert int(tr_bad.ptr[-1]) == n * r - 2
+    assert int(tr_bad.ptr[8] - tr_bad.ptr[7]) == np.sum(idx == 7) - 2
+    assert set(tr_bad.perm[-2:].tolist()) == {0, r}
+    # and so does an entry the caller masks out
+    skip = torch.zeros(n * r, dtype=torch.bool)
+    skip[[2 * r, 3 * r]] = True                                  # rows 2 and 3, k = 0: the hub
+    tr_skip = Z.transpose_structure(skip=skip)
+    assert int(tr_skip.ptr[-1]) == n * r - 2 and set(tr_skip.perm[-2:].tolist()) == {2 * r, 3 * r}
+
+
+def test_sym_structure_folds_mutual_edges(rng):
+    """An entry whose reverse edge is in the graph is mutual: its transposed
+    copy folds into the forward weight of the reverse edge's first copy, and
+    the CSR keeps the rest.  Forward(folded) + CSR is Z + Zᵀ as a dense
+    matrix, with duplicates, a self-loop, a hub and out-of-range indices."""
+    n, r = 40, 4
+    idx, vals = _awkward_graph(rng, n, r)
+    idx[0, 1], idx[1, 1] = n, -1                                 # in neither half
+    sym = SymCoo(T(idx, torch.int32), T(vals), n)
+    forward, tr, vt = sym.kernel_arrays()
+    st = sym.structure
+    edges = {(i, int(j)) for i in range(n) for j in idx[i] if 0 <= j < n}
+    want = np.array([[0 <= j < n and (int(j), i) in edges for j in idx[i]] for i in range(n)])
+    np.testing.assert_array_equal(st.mutual.numpy().reshape(n, r), want)
+    assert want[9, 3] and want[5].sum() >= 2 and want[7, 1] and want[7, 2]
+    twin = st.twin.numpy().reshape(n, r)
+    for i, k in zip(*np.nonzero(want)):
+        j = idx[i, k]
+        assert twin[i, k] == j * r + list(idx[j]).index(i)      # the first copy of j → i
+    assert int(tr.ptr[-1]) == len([1 for i in range(n) for j in idx[i] if 0 <= j < n]) - want.sum()
+    ok = (idx >= 0) & (idx < n)
+    dense = np.zeros((n, n))
+    np.add.at(dense, (np.arange(n)[:, None].repeat(r, 1)[ok], idx[ok]), vals[ok])
+    got = np.zeros((n, n))
+    np.add.at(got, (np.arange(n)[:, None].repeat(r, 1)[ok], idx[ok]), forward.numpy()[ok])
+    ptr, src = tr.ptr.numpy(), tr.src.numpy()
+    for i in range(n):
+        np.add.at(got[i], src[ptr[i]:ptr[i + 1]], vt.numpy()[ptr[i]:ptr[i + 1]])
+    np.testing.assert_allclose(got, dense + dense.T, rtol=0, atol=1e-14)
+    # the values are folded again for a rescaled operator, the structure is not rebuilt
+    idx[0, 1] = idx[1, 1] = 0                                   # scale_sym gathers d at the indices
+    clean = SymCoo(T(idx, torch.int32), T(vals), n)
+    f1, tr1, _ = clean.kernel_arrays()
+    scaled = clean.scale_sym(T(rng.uniform(0.5, 2.0, size=n)))
+    assert scaled.structure is clean.structure
+    f2, tr2, _ = scaled.kernel_arrays()
+    assert tr2 is tr1 and not np.allclose(f2.numpy(), f1.numpy())
+
+
+@pytest.mark.parametrize("how", ["assign", "in_place", "structure"])
+def test_kernel_arrays_follow_values_and_structure(rng, how):
+    """The folded values a ``SymCoo`` keeps for the kernel are made again
+    when ``values`` is assigned or written in place, or ``structure`` is
+    assigned: the kernel's arrays always give the product of the plain
+    composition, which reads ``values`` directly."""
+    n, r = 40, 4
+    idx, vals = _awkward_graph(rng, n, r)
+    sym = symmetrize_knn(T(idx, torch.int32), T(vals), n)
+    first = sym.kernel_arrays()
+    assert sym.kernel_arrays()[0] is first[0]                   # unchanged: kept
+    if how == "assign":
+        sym.values = sym.values * 3.0
+    elif how == "in_place":
+        sym.values.mul_(3.0)
+    else:
+        sym.structure = sym_structure(sym.indices, n)
+    forward, tr, vt = sym.kernel_arrays()
+    assert forward is not first[0] and tr is sym.structure.transpose
+    x = T(rng.normal(size=(n, 3)))
+    got = hk.ell_sym_matmat_plain(forward, sym.indices, tr.ptr, tr.src, vt, x)
+    np.testing.assert_allclose(got.numpy(), sym.matvec(x).numpy(), rtol=0, atol=1e-13)
+
+
+@pytest.mark.parametrize("scaled", [False, True], ids=["raw", "scale_sym"])
+@pytest.mark.parametrize("cols", [None, 5], ids=["vector", "block"])
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12), (torch.float32, 1e-5)],
+                         ids=["f64", "f32"])
+def test_sym_product_matches_reference(rng, dtype, tol, cols, scaled):
+    """``ell_sym_matmat_plain`` (on the operator's folded arrays and on the
+    plain transpose) and ``SymCoo.matvec`` against the reference's COO
+    ``SymCoo.matvec`` on a graph with a hub, empty in-rows, duplicate and
+    mutual edges and a self-loop, for a vector and an (n, k) block, before
+    and after ``scale_sym``.  The structure is made once and handed on by
+    ``scale_sym``; only the values are prepared again."""
+    n, r = 40, 4
+    idx, vals = _awkward_graph(rng, n, r)
+    jdt = jnp.float64 if dtype == torch.float64 else jnp.float32
+    sym = symmetrize_knn(T(idx, torch.int32), T(vals, dtype), n)
+    jsym = jsymmetrize_knn(jnp.asarray(idx), jnp.asarray(vals, jdt), n)
+    st = sym_structure(sym.indices, n)
+    sym.structure = st
+    if scaled:
+        d = rng.uniform(0.5, 2.0, size=n)
+        sym, jsym = sym.scale_sym(T(d, dtype)), jsym.scale_sym(jnp.asarray(d, jdt))
+        assert sym.structure is st
+    x = rng.normal(size=n if cols is None else (n, cols))
+    ref = np.asarray(jsym.matvec(jnp.asarray(x, jdt)))
+    got = sym.matvec(T(x, dtype))
+    assert got.shape == x.shape and got.dtype == dtype
+    np.testing.assert_allclose(got.numpy(), ref, rtol=tol, atol=tol)
+    forward, tr, vt = sym.kernel_arrays()
+    assert tr is st.transpose and 0 < int(tr.ptr[-1]) < n * r
+    X = T(x, dtype).reshape(n, -1)
+    for fn in (hk.ell_sym_matmat_plain, hk.ell_sym_matmat):      # the wrapper: plain on the CPU
+        out = fn(forward, sym.indices, tr.ptr, tr.src, vt, X)
+        np.testing.assert_allclose(out.numpy().reshape(x.shape), ref, rtol=tol, atol=tol)
+    # the same product from the whole transpose, nothing folded; a small
+    # entry block exercises the scatter's blocking and its ragged end
+    full = EllMatrix(sym.values, sym.indices, n).transpose_structure()
+    out = hk.ell_sym_matmat_plain(sym.values, sym.indices, full.ptr, full.src,
+                                  sym.values.reshape(-1)[full.perm], X, block=37)
+    np.testing.assert_allclose(out.numpy().reshape(x.shape), ref, rtol=tol, atol=tol)
+
+
+def test_sparse_basis_carries_the_transpose_structure(rng):
+    """``gl_setup`` sorts the kNN indices once; every bandwidth's operator
+    (``symmetrize_knn`` → ``glgp_operator``) reuses that structure.  Every
+    point is its own nearest neighbour, so the self-loops are all mutual."""
+    X = T(rng.normal(size=(80, 3)))
+    basis = spectral.gl_setup(X, True, 0.05)
+    st = basis.structure
+    assert st is not None and bool(st.mutual.reshape(80, 4)[:, 0].all())
+    assert int(st.transpose.ptr[-1]) == 80 * 4 - int(st.mutual.sum())
+    ref = sym_structure(basis.knn_idx, 80)
+    for got, want in zip((*st.transpose, st.mutual, st.twin), (*ref.transpose, ref.mutual, ref.twin)):
+        np.testing.assert_array_equal(got.numpy(), want.numpy())
+    W, _ = glgp_operator(symmetrize_knn(basis.knn_idx, torch.exp(-basis.sq_dists), 80, st))
+    assert W.structure is st
+    assert spectral.gl_setup(X, False, 0.05).structure is None
+    assert SymCoo(basis.knn_idx, basis.sq_dists, 80).structure is None      # built at first need
 
 
 def test_lobpcg_matches_reference_from_the_same_start(rng):
