@@ -2,30 +2,45 @@
 """Smoke test of the PyTorch port (flgp_tpu_torch) on one NVIDIA H100.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --sass build/flgp_tpu_torch/<hash>/libflgp_kernels.so
 
+(the second only counts K2's instructions in a library already built).
 Phases, each of which ends the script with a non-zero exit if it fails:
 
 1. the card: name and power limit from nvidia-smi; a CUDA device is required
    (there is no CPU path) and TF32 is switched off;
 2. build: nvcc compiles the kernels K1–K9 and ``ell_sym_matmat`` from
    flgp_tpu_torch/csrc for sm_90a (one nvcc process per source, all at once);
+   the instructions one FISTA step of K2 issues at r=3 are counted from the
+   library's SASS (``cuobjdump``), for both arithmetic variants;
 3. kernels vs their plain PyTorch versions, on the card, at the shapes the
    main path gives them: the torus config (n=4800, d=2, s=600, r=3, K=100)
    and the large config (n=1e6, d=2, s=1024, r=3, K=128), with both times;
-   K1 also at the n=1e7 path's launch shape (one 65,536-point chunk against
-   1,024 anchors, r=3 and r=1), where most of its launches happen;
+   K2 in the exact variant the fits launch (held to the plain version at
+   2e-4; it is equal bit for bit) and, reported only, in its fused
+   multiply-add variant with the differences of its weights and of the
+   reconstructions zᵀU from the plain version's;
+   K1 and K2 also at the n=1e7 path's launch shape of K1 (one 65,536-point
+   chunk against 1,024 anchors; K1 r=3 and r=1), where most of K1's
+   launches happen;
 4. the torus fit through ``fit_lae_logit_gp`` (error ≤ 0.03; all five
    kernels must be launched by it), then a second, warm fit for its time;
 5. the n=1e6 fit (error ≤ 0.03), its wall time, build_spectrum's time alone
    and the peak device memory;
-6. the chunked feature-major kernels K6–K8 vs their plain versions at the
-   n=1e7 shape (153 chunks of 65536 points, r=3, s=1024, K=128, pads in the
-   last chunk), and the chunked spectrum (K6–K8) vs the point-major one
-   (K3–K5) on one n=1e6 graph;
+6. K2's feature-major entry (one launch over the whole n=1e7 cloud on the
+   chunked layout) vs its plain version, with the per-chunk composition it
+   replaced beside it; the chunked feature-major kernels K6–K8 vs their
+   plain versions at the n=1e7 shape (153 chunks of 65536 points, r=3,
+   s=1024, K=128, pads in the last chunk), K7 with the share of its pair
+   additions that stayed in shared memory and, as a yardstick, with its
+   table forced down to two slots (nearly every addition a global atomic);
+   and the chunked spectrum (K6–K8) vs the point-major one (K3–K5) on one
+   n=1e6 graph;
 7. the n=1e7 fit of the huge-n path (k-means anchors on a column sample,
    full-n cluster sizes, chunked graph, fused K6–K8 spectrum tail, training,
    O(n·K) predict tail) on two anchor draws (error ≤ 0.03 on each; K1, K2
-   and K6–K8 must be launched by it), with stage times and peak memory;
+   and K6–K8 must be launched by it, K2 once), with stage times and peak
+   memory;
 8. K1 as the GLGP graph calls it (self-kNN, s = n = 1e5, d = 3, r = 8) vs
    its plain version: differing rows near-ties only, d² within 1e-5, every
    point its own nearest neighbour at d² ≈ 0; then
@@ -67,9 +82,11 @@ from __future__ import annotations
 
 import json
 import re
+import shutil
 import subprocess
 import sys
 import time
+from collections import Counter
 from pathlib import Path
 
 import numpy as np
@@ -150,11 +167,14 @@ def work(name: str, n: int, r: int, s: int, K: int = 0, d: int = 0, distinct=Non
     if name == "knn":           # d²: 2d for the dot product, 2 to add the norms
         return dict(bytes=4 * (n * d + s * d) + 8 * n * r, flops=n * s * (2 * d + 2))
     if name == "lae_weights":
-        # counted from the body of csrc/lae.cu, every add, multiply, divide,
-        # min/max, compare and sqrt as one operation.  Set-up: G and b
-        # (2d−1)(r²+r), the step bound L 2r²+2.  One of the 150 FISTA steps:
-        # momentum 3r+2, gradient step 2r²+2r, simplex projection (sorting
-        # network r(r−1), running sums r−1, ρ 4r, θ 2, clip 2r), next d 6
+        # the algorithm's count, fixed: every add, multiply, divide, min/max,
+        # compare and sqrt of FISTA as lae_weights_plain writes it is one
+        # operation, whatever a kernel's body does with them (a table for the
+        # momentum, a fused multiply-add), so that every design of K2 stands
+        # against the same bound.  Set-up: G and b (2d−1)(r²+r), the step
+        # bound L 2r²+2.  One of the 150 FISTA steps: momentum 3r+2, gradient
+        # step 2r²+2r, simplex projection (sorting network r(r−1), running
+        # sums r−1, ρ 4r, θ 2, clip 2r), next d 6
         step = 3 * r * r + 11 * r + 9
         return dict(bytes=4 * (n * d + s * d) + 8 * n * r,
                     flops=n * ((2 * d - 1) * (r * r + r) + 2 * r * r + 2 + 150 * step))
@@ -203,11 +223,17 @@ def card_line() -> str:
 
 
 def cuda_ms(fn, reps: int) -> float:
-    """Mean device time of fn over reps launches, after one warm-up call."""
+    """Mean device time of fn over reps launches, after one warm-up call.
+    A long matrix product is queued first, so the timed launches wait behind
+    it and then run back to back: the host's time to issue a launch (tens of
+    microseconds through a wrapper) stays out of a short kernel's number."""
     fn()
     torch.cuda.synchronize()
+    busy = torch.ones((6144, 6144), dtype=torch.float32, device="cuda")
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    busy @ busy
+    del busy                      # freed for the allocator once the product has run
     start.record()
     for _ in range(reps):
         fn()
@@ -225,6 +251,117 @@ def _allclose(name, got, ref, rtol, atol):
     if bool(torch.any(bad)):
         _fail(f"{name}: {int(bad.sum())} entries outside rtol={rtol} atol={atol} "
               f"(max abs err {_maxabs(got, ref):.3e})")
+
+
+def sass_fista_step(lib: Path, r: int = 3) -> dict:
+    """Instructions one FISTA step of K2 issues, per arithmetic variant,
+    counted from the library's SASS: the largest loop (a backward branch and
+    everything back to its target) of each ``lae_kernel<r, ·>`` instance,
+    divided by the steps the compiler unrolled into it (a step has r² FMNMX:
+    the sorting network's r(r−1) and the clip's r).  A report, not a check:
+    {"not counted": reason} where the disassembler is missing or its output
+    is not understood."""
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    try:
+        out = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True, text=True,
+                             timeout=300)
+    except (OSError, subprocess.TimeoutExpired) as e:
+        return {"not counted": repr(e)}
+    if out.returncode != 0:
+        return {"not counted": f"cuobjdump: {out.stderr.strip()[-300:]}"}
+    found = {}
+    for chunk in out.stdout.split("Function : ")[1:]:
+        name = chunk.split("\n", 1)[0].strip()
+        m = re.search(rf"lae_kernelILi{r}E(Lb([01])E)?", name)
+        if not m:
+            continue
+        ins, labels, pending = [], {}, []     # a branch names an address or a label
+        for line in chunk.splitlines():
+            lab = re.match(r"\s*(\.L_\w+):", line)
+            m_ins = re.match(r"\s+/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)"
+                             r"\s*([^;]*);", line)
+            if lab:
+                pending.append(lab.group(1))
+            elif m_ins:
+                addr = int(m_ins.group(1), 16)
+                labels.update({name_: addr for name_ in pending})
+                pending = []
+                ins.append((addr, m_ins.group(2), m_ins.group(3)))
+        loops = []
+        for addr, op, arg in ins:
+            if not op.startswith("BRA"):
+                continue
+            t = re.search(r"0x([0-9a-f]+)", arg)
+            lab = re.search(r"\.L_\w+", arg)
+            target = int(t.group(1), 16) if t else labels.get(lab.group(0)) if lab else None
+            if target is not None and target <= addr:
+                loops.append([o for a, o, _ in ins if target <= a <= addr])
+        if not loops:
+            return {"not counted": f"no loop found in the SASS of {name}"}
+        body = max(loops, key=len)
+        steps = sum(o.startswith("FMNMX") for o in body) / (r * r)
+        variant = {None: "exact", "0": "exact", "1": "fused"}[m.group(2)]
+        found[variant] = dict(loop=len(body), steps=steps, per_step=len(body) / max(steps, 1e-9),
+                              ops=dict(Counter(o.split(".")[0] for o in body).most_common()))
+    return found or {"not counted": f"no lae_kernel<{r}> instance in the SASS of {lib.name}"}
+
+
+def print_sass(lib: Path) -> None:
+    for variant, c in sass_fista_step(lib).items():
+        if variant == "not counted":
+            print(f"  SASS, lae_kernel<r=3>: not counted ({c})", flush=True)
+        else:
+            print(f"  SASS, lae_kernel<r=3> {variant}: {c['per_step']:.1f} instructions a FISTA "
+                  f"step ({c['loop']} in the loop, {c['steps']:g} steps unrolled into it): "
+                  f"{c['ops']}", flush=True)
+
+
+def lae_differences(U, idx, got, ref) -> tuple:
+    """Max abs difference of two sets of LAE weights on point-major arrays,
+    and of the reconstructions zᵀU_i they give."""
+    Ui = U[idx.long()]
+    recon = lambda z: torch.einsum("nr,nrd->nd", z.double(), Ui.double())  # noqa: E731
+    return _maxabs(got, ref), _maxabs(recon(got), recon(ref))
+
+
+def check_lae(label: str, X, U, idx, reps: int, results: dict, key: str) -> tuple:
+    """K2's point-major entry against its plain version: the exact variant
+    (the one the fits launch) held to 2e-4 and to the simplex; the fused
+    variant reported beside it and held to nothing.  Returns (kernel's
+    weights, plain version's weights, kernel ms)."""
+    got = hk.lae_weights(X, U, idx)
+    torch.cuda.synchronize()
+    ref = lae_weights_plain(X, U, idx)
+    _allclose(f"lae_weights {label}", got, ref, 0.0, 2e-4)
+    if float(torch.max(torch.abs(got.sum(1) - 1.0))) > 1e-5 or float(got.min()) < 0.0:
+        _fail(f"lae_weights {label}: rows off the simplex")
+    ms = cuda_ms(lambda: hk.lae_weights(X, U, idx), reps)
+    fused = hk._lae_weights(X, U, idx, 150, fused=True)
+    fused_ms = cuda_ms(lambda: hk._lae_weights(X, U, idx, 150, fused=True), reps)
+    dw, dr = lae_differences(U, idx, fused, ref)
+    ew, er = lae_differences(U, idx, got, ref)
+    off = float(torch.max(torch.abs(fused.sum(1) - 1.0)))
+    print(f"  {label:5s} lae_weights variants (n={X.shape[0]}): exact {ms:.4f} ms, max abs diff "
+          f"from plain {ew:.3e} (weights) {er:.3e} (reconstructions zᵀU); fused {fused_ms:.4f} ms, "
+          f"{dw:.3e} (weights; the gate would be 2e-4) {dr:.3e} (reconstructions), rows off the "
+          f"simplex by at most {off:.3e}", flush=True)
+    results.setdefault("lae_fused", {})[key] = dict(ms=fused_ms, dw=dw, dr=dr)
+    return got, ref, ms
+
+
+def fused_over_draws(X, s: int, r: int, draws: int = 6) -> None:
+    """How far the fused variant's weights lie from the plain version's on
+    further anchor draws from the same cloud (reported only)."""
+    worst = []
+    for seed in range(draws):
+        g = torch.Generator(device=X.device).manual_seed(100 + seed)
+        U = X[torch.randperm(X.shape[0], generator=g, device=X.device)[:s]].contiguous()
+        idx = knn_plain(X, U, r).indices
+        worst.append(_maxabs(hk._lae_weights(X, U, idx, 150, fused=True),
+                             lae_weights_plain(X, U, idx)))
+    print(f"        lae_weights fused variant, {draws} more anchor draws (n={X.shape[0]}, s={s}): "
+          f"max abs diff of the weights from plain " + ", ".join(f"{w:.3e}" for w in worst),
+          flush=True)
 
 
 def check_knn(label: str, X, U, r: int):
@@ -274,6 +411,25 @@ def check_knn_chunk(dev, results: dict) -> None:
         ent.update({f"ms_chunk_r{r}": ms, f"plain_ms_chunk_r{r}": plain_ms, f"work_chunk_r{r}": w})
         print(f"  chunk knn r={r} (n={n}, s={s}, d={X.shape[1]}): kernel {ms:9.4f} ms  plain "
               f"{plain_ms:9.4f} ms  bound {bound(w)[0]:.4f} ms ({bound(w)[1]})", flush=True)
+    check_lae_chunk(X, U, cfg["r"], results)
+
+
+def check_lae_chunk(X, U, r: int, results: dict) -> None:
+    """K2's point-major entry at the same chunk shape (65,536 points, s =
+    1024, d = 2, r = 3): what one launch of the per-chunk composition costs,
+    which the n=1e7 path made 153 times before it took the feature-major
+    entry once."""
+    n, s = X.shape[0], U.shape[0]
+    idx = knn_plain(X, U, r).indices
+    got, ref, ms = check_lae("chunk", X, U, idx, 50, results, "chunk")
+    plain_ms = cuda_ms(lambda: lae_weights_plain(X, U, idx), 3)
+    w = work("lae_weights", n=n, r=r, s=s, d=X.shape[1])
+    ent = results["lae_weights"]
+    ent["max_abs_err"] = max(ent["max_abs_err"], _maxabs(got, ref))
+    ent.update(ms_chunk=ms, plain_ms_chunk=plain_ms, work_chunk=w)
+    print(f"  chunk lae_weights (n={n}, s={s}, d={X.shape[1]}, r={r}): kernel {ms:9.4f} ms  plain "
+          f"{plain_ms:9.4f} ms  bound {bound(w)[0]:.4f} ms ({bound(w)[1]})  max_abs_err "
+          f"{_maxabs(got, ref):.3e}", flush=True)
 
 
 def check_kernels(label: str, cfg: dict, dev, results: dict) -> None:
@@ -317,13 +473,10 @@ def check_kernels(label: str, cfg: dict, dev, results: dict) -> None:
     idx = knn_plain(X, U, r).indices
 
     # K2
-    got = hk.lae_weights(X, U, idx)
-    torch.cuda.synchronize()
-    ref = lae_weights_plain(X, U, idx)
-    _allclose(f"lae_weights {label}", got, ref, 0.0, 2e-4)
-    if float(torch.max(torch.abs(got.sum(1) - 1.0))) > 1e-5 or float(got.min()) < 0.0:
-        _fail(f"lae_weights {label}: rows off the simplex")
-    record("lae_weights", _maxabs(got, ref), cuda_ms(lambda: hk.lae_weights(X, U, idx), reps_k),
+    got, ref, ms = check_lae(label, X, U, idx, reps_k, results, label)
+    if label == "large":
+        fused_over_draws(X, s, r)
+    record("lae_weights", _maxabs(got, ref), ms,
            cuda_ms(lambda: lae_weights_plain(X, U, idx), reps_p))
     w = ref
 
@@ -435,10 +588,59 @@ def _same_subspaces(Vg, Vr, values, rows, gap=1e-3) -> float:
     return worst
 
 
+def check_lae_t(Xt, U, idx, w, results: dict) -> None:
+    """K2's feature-major entry, one launch over the whole chunked cloud
+    (``w`` is what it gave ``build_graph_colmajor``), against its plain
+    version, held to 2e-4, the simplex and exact zeros on the pads; beside
+    it the fused variant (reported only) and the per-chunk composition the
+    entry replaced: a row-major copy of the chunk's columns, a launch of the
+    point-major entry and a transpose of its weights, for every chunk."""
+    n = Xt.shape[1]
+    nch, r, c = idx.shape
+    ref = hk.lae_weights_t_plain(Xt, U, idx)
+    _allclose("lae_weights_t", w, ref, 0.0, 2e-4)
+    flat, flat_ref = col.point_major(w, n), col.point_major(ref, n)
+    if float(torch.max(torch.abs(flat.sum(1) - 1.0))) > 1e-5 or float(flat.min()) < 0.0:
+        _fail("lae_weights_t: rows off the simplex")
+    ms = cuda_ms(lambda: hk.lae_weights_t(Xt, U, idx), 10)
+    fused = hk._lae_weights_t(Xt, U, idx, 150, fused=True)
+    fused_ms = cuda_ms(lambda: hk._lae_weights_t(Xt, U, idx, 150, fused=True), 10)
+    if float(torch.max(torch.abs(col.point_major(fused, nch * c)[n:]))) != 0.0:
+        _fail("lae_weights_t (fused): a nonzero weight on a pad point")
+    flat_idx = col.point_major(idx, n)
+    ew, er = lae_differences(U, flat_idx, flat, flat_ref)
+    dw, dr = lae_differences(U, flat_idx, col.point_major(fused, n), flat_ref)
+    del fused, ref, flat_ref
+
+    def per_chunk():
+        out = torch.zeros_like(w)
+        for i in range(nch):
+            lo, hi = i * c, min((i + 1) * c, n)
+            wc = hk.lae_weights(Xt[:, lo:hi].T.contiguous(), U,
+                                idx[i, :, :hi - lo].T.contiguous())
+            out[i, :, :hi - lo] = wc.T
+        return out
+
+    if not torch.equal(per_chunk(), w):
+        _fail("lae_weights_t differs from the point-major entry run chunk by chunk")
+    chunks_ms = cuda_ms(per_chunk, 3)
+    wk = work("lae_weights", n=n, r=r, s=U.shape[0], d=Xt.shape[0])
+    ent = results["lae_weights"]
+    ent["max_abs_err"] = max(ent["max_abs_err"], ew)
+    ent.update(ms_huge=ms, work_huge=wk, ms_huge_chunks=chunks_ms)
+    results["lae_fused"]["huge"] = dict(ms=fused_ms, dw=dw, dr=dr)
+    print(f"lae_weights_t, one launch over n={n} ({nch} chunks of {c}, d={Xt.shape[0]}, r={r}): "
+          f"kernel {ms:.4f} ms  bound {bound(wk)[0]:.4f} ms ({bound(wk)[1]})  max abs diff from "
+          f"plain {ew:.3e} (weights) {er:.3e} (reconstructions zᵀU); the per-chunk composition it "
+          f"replaced ({nch} copies, launches and transposes) {chunks_ms:.4f} ms, equal bit for "
+          f"bit; fused variant {fused_ms:.4f} ms, {dw:.3e} (weights; the gate would be 2e-4) "
+          f"{dr:.3e} (reconstructions)", flush=True)
+
+
 def check_kernels_t(Xt7, dev, results: dict) -> None:
-    """K6–K8 against their plain versions at the n=1e7 chunked shape, on a
-    graph from K1 + K2 over the torus cloud; then the chunked spectrum
-    against the point-major one on an n=1e6 graph."""
+    """K2's feature-major entry and K6–K8 against their plain versions at the
+    n=1e7 chunked shape, on a graph from K1 + K2 over the torus cloud; then
+    the chunked spectrum against the point-major one on an n=1e6 graph."""
     cfg = SHAPES["huge"]
     n, s, r, K, chunk = Xt7.shape[1], cfg["s"], cfg["r"], cfg["K"], cfg["chunk"]
     U = random_anchors(Xt7, s, dev, seed=7)
@@ -447,6 +649,7 @@ def check_kernels_t(Xt7, dev, results: dict) -> None:
     n_pad = nch * c - n
     if float(torch.max(torch.abs(col.point_major(w, nch * c)[n:]))) != 0.0:
         _fail("build_graph_colmajor left a nonzero weight on a pad point")
+    check_lae_t(Xt7, U, idx, w, results)
     counts = torch.bincount(col.point_major(idx, n)[:, 0].long(), minlength=s).to(torch.float32)
     rows = [f"kernels vs plain, chunked shape (nch={nch}, r={r}, c={c}, s={s}, K={K}; "
             f"{n_pad} pad points), ms per call:"]
@@ -481,8 +684,9 @@ def check_kernels_t(Xt7, dev, results: dict) -> None:
     del flat_i, flat_w
     cscale = (1.0 / (got + EPS) * counts).contiguous()
 
-    G, D = hk.ell_norm_gram_t(w, idx, cscale)
+    G, D, stats = hk._ell_norm_gram_t(w, idx, cscale, EPS, table_slots=0)
     torch.cuda.synchronize()
+    kept, spilled = (int(x) for x in stats)
     Gp, Dp = hk.ell_norm_gram_t_plain(w64, idx, cscale.double())
     for nm, a, b in (("G", G, Gp), ("D", D, Dp)):
         if _maxabs(a, b) > 1e-5 * float(torch.max(torch.abs(b))):
@@ -494,7 +698,17 @@ def check_kernels_t(Xt7, dev, results: dict) -> None:
            cuda_ms(lambda: hk.ell_norm_gram_t_plain(w, idx, cscale), 3),
            f"  (f32 plain {max(_maxabs(G32, Gp), _maxabs(D32, Dp)):.3e}, of max|G| "
            f"{float(torch.max(torch.abs(Gp))):.4g}, max|D| {float(torch.max(torch.abs(Dp))):.4g})")
-    del Gp, Dp, G32, D32, w64
+    # the same kernel with a table of two slots: nearly every pair a global atomic
+    G2, D2, stats2 = hk._ell_norm_gram_t(w, idx, cscale, EPS, table_slots=2)
+    for nm, a, b in (("G", G2, Gp), ("D", D2, Dp)):
+        if _maxabs(a, b) > 1e-5 * float(torch.max(torch.abs(b))):
+            _fail(f"ell_norm_gram_t {nm}, two-slot table: max abs err {_maxabs(a, b):.3e}")
+    rows.append(f"  huge  ell_norm_gram_t: {kept} of {kept + spilled} pair additions "
+                f"({kept / max(kept + spilled, 1):.6f}) stayed in shared memory, "
+                f"{int(torch.count_nonzero(Gp))} of {s * s} cells of G nonzero; with a table of "
+                f"two slots ({int(stats2[0])} kept) "
+                f"{cuda_ms(lambda: hk._ell_norm_gram_t(w, idx, cscale, EPS, 2), 5):9.4f} ms")
+    del Gp, Dp, G32, D32, G2, D2, w64
 
     g = torch.Generator(device=dev).manual_seed(8)
     W = torch.randn((s, K), generator=g, device=dev, dtype=torch.float32)
@@ -624,6 +838,8 @@ def huge_phase(dev, results: dict) -> dict:
     missing = [k for k in HUGE_PATH if launches[k] == 0]
     if missing:
         _fail(f"the n=1e7 fit launched no {missing} kernel")
+    if launches["lae_weights"] != 1:
+        _fail(f"the n=1e7 fit launched lae_weights {launches['lae_weights']} times, not once")
     return launches
 
 
@@ -1005,6 +1221,7 @@ def main() -> None:
     spills = sum(int(b) for b in re.findall(r"(\d+) bytes spill stores", ptxas))
     print(f"  ptxas: {len(regs)} kernels, at most {max(regs)} registers a thread, "
           f"{spills} bytes of spill stores in all", flush=True)
+    print_sass(lib)
 
     # 3. kernels vs plain versions
     results: dict = {}
@@ -1078,4 +1295,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if len(sys.argv) == 3 and sys.argv[1] == "--sass":
+        print_sass(Path(sys.argv[2]))      # K2's step count of any build of the library
+    else:
+        main()

@@ -33,3 +33,54 @@ __device__ __forceinline__ void normalized_point(const float* __restrict__ vals,
 #pragma unroll
   for (int a = 0; a < R; ++a) w[a] *= rinv;
 }
+
+// A block-private table in shared memory for scattered sums whose targets
+// are far too many for a dense shared array but of which one block meets
+// only a few thousand: open addressing over `slots` keys (a power of two
+// >= 2, filled with kEmptyKey by the block beforehand), the sums in an
+// array of the caller's beside it.  smem_table_slot returns the slot of
+// `key` (>= 0), claiming an empty one with atomicCAS on first sight, after
+// at most kTableProbes neighbouring slots; -1 when none of them is free or
+// the key's own, and the caller then adds to the global target itself.  So
+// the sums are right whatever the table's size: it decides only how many
+// additions stay on the SM.  After a __syncthreads() the block walks the
+// slots and adds each non-empty (key, sum) to the global target once.
+// UNROLL: the probe loop unrolled, so that the compiler can overlap the
+// probes of a thread's independent adds (at a few adds a thread that is
+// most of the speed); rolled, an instance with many inlined adds builds in a
+// fraction of the time.
+constexpr int kEmptyKey = -1;
+constexpr int kTableProbes = 8;
+
+template <bool UNROLL>
+__device__ __forceinline__ int smem_table_slot(int* keys, unsigned slots, int key) {
+  // Fibonacci hashing: the top log2(slots) bits of key * 2^32/phi
+  unsigned h = (static_cast<unsigned>(key) * 2654435769u) >> __clz(slots - 1);
+#pragma unroll(UNROLL ? kTableProbes : 1)
+  for (int t = 0; t < kTableProbes; ++t) {
+    h &= slots - 1;
+    int seen = *static_cast<volatile int*>(keys + h);
+    if (seen == kEmptyKey) seen = atomicCAS(keys + h, kEmptyKey, key);
+    if (seen == key || seen == kEmptyKey) return static_cast<int>(h);
+    ++h;
+  }
+  return -1;
+}
+
+// Sums in shared memory as 32-bit fixed point, 2^-24 a unit: an addition is
+// one native integer atomic (a float atomicAdd in shared memory is a loop of
+// read, add and compare-and-swap), exact, and so the same in any order.  A
+// bin holds the sum modulo 2^32 units (256.0); fixed_add returns the carry
+// out of it, -1, 0 or +1, which the caller adds to the global target as
+// carry * kFixedWrap right away.  The block's sum is then the carries plus
+// the bin read as unsigned, times kFixedUnit.  For |v| < kFixedMax only.
+constexpr float kFixedMax = 128.0f;
+constexpr double kFixedUnit = 1.0 / 16777216.0;  // 2^-24
+constexpr double kFixedWrap = 256.0;             // 2^32 units
+
+__device__ __forceinline__ int fixed_add(unsigned* bin, float v) {
+  const int inc = __float2int_rn(v * 16777216.0f);
+  const unsigned old = atomicAdd(bin, static_cast<unsigned>(inc));
+  const unsigned now = old + static_cast<unsigned>(inc);
+  return (inc > 0 && now < old) ? 1 : (inc < 0 && now > old) ? -1 : 0;
+}

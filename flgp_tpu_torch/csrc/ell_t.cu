@@ -11,9 +11,13 @@
 //
 // What bounds them on the H100, at n = 1e7 (nch = 153, r = 3, c = 65536,
 // s = 1024, K = 128): K6 and K7 read the compact graph once (8 bytes per
-// nonzero, 240 MB) and are bound by atomic throughput into an (s,) or
-// (s, s) target that stays in the 50 MB L2; K8 by its 5.13 GB of output
-// writes and the gathered W rows (s * K floats, L2-resident).
+// nonzero, 240 MB, 0.07 ms) and then scatter: 3e7 additions into (s,) for
+// K6, 9e7 into (s, s) for K7.  Straight into device memory that is the L2's
+// atomic rate under contention (5e10 float64 atomics a second: 2.4 ms for
+// K7), so both keep their sums in shared memory, whose atomics each SM
+// serves on its own; K7 then runs at that rate, about four times the time
+// of its bytes.  K8 is bound by its 5.13 GB of output writes and the
+// gathered W rows (s * K floats, L2-resident).
 //
 // Design: the layout keeps the point axis minor, so a thread per point
 // reads vals[i, k, j] and idx[i, k, j] at stride c for each k and a warp's
@@ -23,17 +27,35 @@
 //       histogram in shared memory (s <= 12288 fits the default 48 KB),
 //       flushed with one global atomicAdd per nonzero bin; larger s adds
 //       straight into the global (s,) buffer.
-//   K7: one thread per point; gather cscale, row-normalize in registers
-//       (normalized_point, shared with K4), then atomicAdd D and all r^2
-//       pairs of G, as K4 does, but into float64 buffers that the wrapper
-//       rounds to float32: at n = 1e7 a cell of G sums ~3e4 terms, and
-//       float32 atomics of that length missed the 1e-5 * max|G| gate
-//       against a float64 sum on the H100 (max abs err 0.39; the TPU kernel
-//       adds 512-point block sums from the MXU, a shorter chain).  Double
-//       atomics are native on sm_90 and the 8 MB buffer stays in L2.
+//   K7: one block an SM walks the points, a thread a point: gather cscale,
+//       row-normalize in registers (normalized_point, shared with K4).  The
+//       (s, s) target is 4 MB and does not fit in shared memory, but a
+//       point touches only pairs among its own r anchors, so the cells a
+//       block meets do (about 1e4 of 1,048,576 on the torus): they go into
+//       a block-private hashed table in shared memory (smem_table_slot,
+//       common.cuh; 2^14 slots, 128 KB) and D into an (s,) histogram beside
+//       it, as K6 does.  G is symmetric, so a point adds its r(r+1)/2 pairs
+//       (a <= b) under the key lo*s + hi of the sorted anchor pair, not
+//       r^2; two slots of a row that name one anchor add their product to
+//       the diagonal twice.  The shared sums are 32-bit fixed point, 2^-24
+//       a unit (fixed_add, common.cuh): a float atomicAdd in shared memory
+//       is a loop of read, add and compare-and-swap, an integer one a
+//       single instruction, and its sum is exact and the same in any
+//       order; a bin that wraps (every 256.0) hands its carry to the global
+//       cell at once.  At the end the block adds each non-empty slot to the
+//       global float64 cell and to its mirror: 132 * 1e4 global atomics
+//       instead of 1.2e8.  A pair that finds no slot within the probe
+//       limit (or whose product is 128 or more in magnitude) adds to the
+//       global cells itself, so the result is right for any graph, s and
+//       table size; the kernel counts both kinds for the caller.  The sum
+//       across blocks is float64, of multiples of 2^-24: exact as well, so
+//       G and D are the same bit for bit from run to run as long as no
+//       pair spills; the wrapper rounds them to float32 once (float32
+//       atomics over a cell's ~3e4 terms missed the 1e-5 * max|G| gate
+//       against a float64 sum).
 //   K8: one warp per point, lanes over K, as K5 does; every output offset
 //       is size_t (nch * c * K = 1.28e9 at n = 1e7, within 1.7x of 2^31).
-// Atomic sums reorder additions from run to run; compare with tolerances.
+// K6's float atomics reorder additions from run to run; compare with tolerances.
 
 #include <cuda_runtime.h>
 
@@ -43,6 +65,16 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kMaxSmemBins = 12288;  // 48 KB of float bins
+constexpr int kGramThreads = 1024;   // K7: one block an SM
+constexpr unsigned kGramSlots = 1u << 14;  // K7's table: 128 KB of (key, sum) slots, the most
+constexpr int kGramMaxKeyS = 46340;  // lo*s + hi must fit an int
+// K7's pair loops and the table's probe loop are unrolled (col[] and w[] in
+// registers, the probes of a point's pairs overlapping: with the probe loop
+// rolled the kernel took 2.4 times as long at r = 3 on an H100) up to this
+// fan-in; above it the r(r+1)/2 inlined inserts take ptxas seconds an
+// instance (35 s for r = 1..16 together), so every loop stays rolled there
+// and the two arrays go to local memory
+constexpr int kGramUnrollR = 6;
 
 __global__ void ell_colsum_t_kernel(const float* __restrict__ vals, const int* __restrict__ idx,
                                     long long nnz, int s, float* __restrict__ out) {
@@ -68,27 +100,93 @@ __global__ void ell_colsum_t_kernel(const float* __restrict__ vals, const int* _
   }
 }
 
+// adds v to G[lo, hi] and, off the diagonal, to its mirror
+__device__ __forceinline__ void gram_add(double* __restrict__ G, int s, int lo, int hi, double v) {
+  atomicAdd(G + static_cast<size_t>(lo) * s + hi, v);
+  if (lo != hi) atomicAdd(G + static_cast<size_t>(hi) * s + lo, v);
+}
+
+// Dynamic shared memory: keys[slots] | sums[slots] | dhist[s] (the last only
+// when s <= kMaxSmemBins), the sums and the histogram in fixed point
+// (fixed_add, common.cuh).  slots = 0: no table, every pair goes to G.
+// stats[0] += pair additions kept in shared memory, stats[1] += those that
+// went to the global cells.
 template <int R>
-__global__ void ell_norm_gram_t_kernel(const float* __restrict__ vals,
-                                       const int* __restrict__ idx,
-                                       const float* __restrict__ cscale, long long npts, int c,
-                                       int s, float eps, double* __restrict__ G,
-                                       double* __restrict__ D) {
-  const long long p = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (p >= npts) return;
-  const size_t base = static_cast<size_t>(p / c) * R * c + static_cast<size_t>(p % c);
-  int col[R];
-  float w[R];
-  normalized_point<R>(vals, idx, cscale, base, c, s, eps, col, w);
-#pragma unroll
-  for (int a = 0; a < R; ++a) {
-    if (col[a] < 0) continue;
-    atomicAdd(D + col[a], static_cast<double>(w[a]));
-    double* grow = G + static_cast<size_t>(col[a]) * s;
-#pragma unroll
-    for (int b = 0; b < R; ++b) {
-      if (col[b] >= 0) atomicAdd(grow + col[b], static_cast<double>(w[a]) * w[b]);
+__global__ void __launch_bounds__(kGramThreads)
+ell_norm_gram_t_kernel(const float* __restrict__ vals, const int* __restrict__ idx,
+                       const float* __restrict__ cscale, long long npts, int c, int s, float eps,
+                       unsigned slots, double* __restrict__ G, double* __restrict__ D,
+                       unsigned long long* __restrict__ stats) {
+  extern __shared__ int gram_smem[];
+  int* keys = gram_smem;
+  unsigned* sums = reinterpret_cast<unsigned*>(gram_smem + slots);
+  unsigned* dhist = sums + slots;
+  const bool dlocal = s <= kMaxSmemBins;
+  constexpr bool unrolled = R <= kGramUnrollR;
+  for (unsigned h = threadIdx.x; h < slots; h += blockDim.x) {
+    keys[h] = kEmptyKey;
+    sums[h] = 0u;
+  }
+  if (dlocal) {
+    for (int b = threadIdx.x; b < s; b += blockDim.x) dhist[b] = 0u;
+  }
+  __syncthreads();
+
+  unsigned kept = 0, spilled = 0;
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long p = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x; p < npts;
+       p += stride) {
+    const size_t base = static_cast<size_t>(p / c) * R * c + static_cast<size_t>(p % c);
+    int col[R];
+    float w[R];
+    normalized_point<R>(vals, idx, cscale, base, c, s, eps, col, w);
+#pragma unroll(unrolled ? R : 1)
+    for (int a = 0; a < R; ++a) {
+      if (col[a] < 0) continue;
+      if (dlocal && fabsf(w[a]) < kFixedMax) {
+        const int carry = fixed_add(dhist + col[a], w[a]);
+        if (carry) atomicAdd(D + col[a], carry * kFixedWrap);
+      } else {
+        atomicAdd(D + col[a], static_cast<double>(w[a]));
+      }
+#pragma unroll(unrolled ? R : 1)
+      for (int b = a; b < R; ++b) {
+        if (col[b] < 0) continue;
+        const int lo = min(col[a], col[b]), hi = max(col[a], col[b]);
+        // slots a < b on one anchor: the (a, b) and (b, a) products both
+        // belong on the diagonal
+        const float twice = (b > a && lo == hi) ? 2.0f : 1.0f;
+        const float v = twice * w[a] * w[b];
+        const int h = (slots && fabsf(v) < kFixedMax)
+                          ? smem_table_slot<unrolled>(keys, slots, lo * s + hi)
+                          : -1;
+        if (h >= 0) {
+          ++kept;
+          const int carry = fixed_add(sums + h, v);
+          if (carry) gram_add(G, s, lo, hi, carry * kFixedWrap);
+        } else {
+          ++spilled;
+          gram_add(G, s, lo, hi, static_cast<double>(twice * w[a]) * w[b]);
+        }
+      }
     }
+  }
+  __syncthreads();
+
+  for (unsigned h = threadIdx.x; h < slots; h += blockDim.x) {
+    const int key = keys[h];
+    if (key != kEmptyKey && sums[h]) gram_add(G, s, key / s, key % s, sums[h] * kFixedUnit);
+  }
+  if (dlocal) {
+    for (int b = threadIdx.x; b < s; b += blockDim.x) {
+      if (dhist[b]) atomicAdd(D + b, dhist[b] * kFixedUnit);
+    }
+  }
+  kept = __reduce_add_sync(0xffffffffu, kept);
+  spilled = __reduce_add_sync(0xffffffffu, spilled);
+  if ((threadIdx.x & 31) == 0) {
+    if (kept) atomicAdd(stats, static_cast<unsigned long long>(kept));
+    if (spilled) atomicAdd(stats + 1, static_cast<unsigned long long>(spilled));
   }
 }
 
@@ -133,24 +231,45 @@ extern "C" int flgp_ell_colsum_t(const void* vals, const void* idx, long long nn
   return static_cast<int>(cudaGetLastError());
 }
 
-// vals, idx (nch, r, c); cscale (s,) -> G (s, s), D (s,), both float64 and
-// zeroed by the caller.
+// vals, idx (nch, r, c); cscale (s,) -> G (s, s), D (s,), both float64, and
+// stats (2,) uint64 (pair additions kept in shared memory, sent to global
+// cells), all zeroed by the caller.  table_slots: the shared-memory table's
+// size, a power of two in [2, 2^14], 0 for the default; s above 46340 runs
+// without the table.
 extern "C" int flgp_ell_norm_gram_t(const void* vals, const void* idx, const void* cscale,
-                                    int nch, int r, int c, int s, float eps, void* G, void* D,
-                                    void* stream) {
+                                    int nch, int r, int c, int s, float eps, int table_slots,
+                                    void* G, void* D, void* stats, void* stream) {
   const long long npts = static_cast<long long>(nch) * c;
   if (npts <= 0) return static_cast<int>(cudaSuccess);
-  const dim3 grid(static_cast<unsigned>((npts + kThreads - 1) / kThreads));
+  unsigned slots = table_slots ? static_cast<unsigned>(table_slots) : kGramSlots;
+  if (table_slots < 0 || slots < 2 || slots > kGramSlots || (slots & (slots - 1)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (s > kGramMaxKeyS) slots = 0;
+  const size_t smem = static_cast<size_t>(slots) * (sizeof(int) + sizeof(float)) +
+                      (s <= kMaxSmemBins ? static_cast<size_t>(s) * sizeof(float) : 0);
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  long long blocks = (npts + kGramThreads - 1) / kGramThreads;
+  if (blocks > sms) blocks = sms;
+  const dim3 grid(static_cast<unsigned>(blocks));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* v = static_cast<const float*>(vals);
   const int* ii = static_cast<const int*>(idx);
   const float* cs = static_cast<const float*>(cscale);
   double* g = static_cast<double*>(G);
   double* dd = static_cast<double*>(D);
+  unsigned long long* stt = static_cast<unsigned long long*>(stats);
   switch (r) {
 #define FLGP_GRAM_T_CASE(R)                                                                    \
   case R:                                                                                      \
-    ell_norm_gram_t_kernel<R><<<grid, kThreads, 0, st>>>(v, ii, cs, npts, c, s, eps, g, dd);   \
+    err = cudaFuncSetAttribute(ell_norm_gram_t_kernel<R>,                                      \
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,                    \
+                               static_cast<int>(smem));                                        \
+    if (err != cudaSuccess) return static_cast<int>(err);                                      \
+    ell_norm_gram_t_kernel<R><<<grid, kGramThreads, smem, st>>>(v, ii, cs, npts, c, s, eps,    \
+                                                                slots, g, dd, stt);            \
     break;
     FLGP_R_CASES(FLGP_GRAM_T_CASE)
 #undef FLGP_GRAM_T_CASE

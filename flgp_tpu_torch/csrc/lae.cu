@@ -7,163 +7,117 @@
 // 1/L, L = max row-abs-sum of G + 1e-12, momentum d' = (1 + sqrt(1+4d^2))/2,
 // each step projected onto the probability simplex.
 //
-// What bounds it on the H100: per point ~iters * (r^2 + r log r) flops on
-// data that fits in registers, against r*d + d + r floats read and r written
-// once.  It is compute (issue) bound; under plain PyTorch the same loop is
-// ~15 launches per iteration, each a full pass over (n, r) arrays.
+// What bounds it on the H100: per point ~iters * (3r^2 + 11r + 9) float
+// operations on data that fits in registers, against r*d + d + r floats
+// read and r written once.  With 16 or more warps resident per scheduler
+// the chains of one point hide behind those of the others, so the time is
+// the number of instructions a step issues over the SM's issue rate (one
+// warp instruction per scheduler and cycle).  The design therefore removes
+// every instruction from the loop that is not the algorithm's:
+//   * the momentum alpha_it = (d_{it-1} - 1)/d_it does not depend on the
+//     data.  The wrapper computes the sequence once on the host in float32
+//     (ops/lae.py:fista_momentum, the plain version's own recurrence) and
+//     the block copies it to shared memory: one broadcast shared-memory read
+//     a step instead of an IEEE division, a square root and their chain in
+//     every thread.
+//   * the simplex projection divides only where a division is needed.
+//     theta = (css_rho - 1)/rho is one of the quotients q_k = (css_k - 1)/
+//     (k + 1) that the rho test already formed from the same operands, so
+//     it is selected, not recomputed.  Division by a power of two is a
+//     multiplication; by any other constant k + 1 it is the multiplication
+//     by the rounded reciprocal and one exact-residual correction
+//     (div_const, three instructions, correctly rounded over the range the
+//     loop can reach: flgp_lae_div_check sweeps every float to show it).
+//     The k = 0 test, u_0 - (u_0 - 1) > 0, holds for every |u_0| < 2^24 and
+//     is dropped.
+//   * the loop is unrolled by two so that z and z_prev swap by renaming.
+// One thread per point: the thread gathers its r anchor rows itself, forms
+// G and b in registers (no (n, r, r) array is written), runs every step in
+// registers and writes its r weights once.
 //
-// Design: one thread per point.  The thread gathers its r anchor rows
-// itself, forms G and b in registers (no (n, r, r) array is written), runs
-// every iteration in registers and writes its r weights once, row-major
-// (n, r) like the plain version.  The simplex projection sorts the r values
-// with an odd-even transposition network (fully unrolled, no data-dependent
-// branches) and picks theta from the running cumulative sum, as the plain
-// version does.  The TPU
-// kernel's (r, n) lane-packed layout existed to fill 128-wide vector lanes
-// and is not carried over.
+// Layouts.  One body serves both callers: the graph arrays are read as the
+// chunked feature-major (nch, r, c) layout of ops/colmajor.py, entry
+// (i, k, j) the k-th neighbour of point i*c + j, of which the point-major
+// (n, r) layout is the case c = 1; the cloud is read through two strides
+// ((n, d) row-major or (d, n) feature-major, where a warp's loads of one
+// coordinate are contiguous).  Points past the real n (pads of the last
+// chunk) get weight exactly 0.  So the huge-n path is one launch over the
+// whole cloud instead of a copy, a launch and a transpose per chunk.
+//
+// Two arithmetic variants of the same body (template parameter FUSED):
+//   exact  every product and sum rounded on its own, in the order of the
+//          plain version (ops/lae.py:lae_weights_plain): __fmul_rn/__fadd_rn
+//          keep nvcc from contracting a*b+c.  Equal to the plain version
+//          bit for bit.  With nearly collinear anchors the problem is
+//          ill-conditioned, 150 steps do not converge and the iterate keeps
+//          the imprint of rounding, so this is the variant the wrapper
+//          launches.
+//   fused  fmaf in the momentum and gradient steps, the rho test as
+//          u_k (k+1) > css_k - 1 without a quotient, theta by one
+//          multiplication with 1/rho.  Fewer instructions; close to the
+//          plain version only where FISTA has converged.  Kept for
+//          measurement (hopper_kernels._lae_weights(fused=True)).
+// The body and the launcher are in lae.cuh; this file instantiates the exact
+// variant and lae_fused.cu the fused one, two nvcc processes side by side
+// (the 16 fan-ins of one variant take a compiler about as long as all the
+// other sources of the library).
 
-#include <cuda_runtime.h>
+#include "lae.cuh"
 
-#include "common.cuh"
-
+namespace flgp_k2 {
 namespace {
 
-constexpr int kThreads = 128;
-
-template <int R>
-__device__ __forceinline__ void project_simplex(const float (&w)[R], float (&z)[R]) {
-  float u[R];
-#pragma unroll
-  for (int a = 0; a < R; ++a) u[a] = w[a];
-  // descending odd-even transposition sort
-#pragma unroll
-  for (int p = 0; p < R; ++p) {
-#pragma unroll
-    for (int i = p % 2; i < R - 1; i += 2) {
-      const float hi = fmaxf(u[i], u[i + 1]);
-      const float lo = fminf(u[i], u[i + 1]);
-      u[i] = hi;
-      u[i + 1] = lo;
-    }
+// counts the floats x, over every bit pattern with x = 0 or
+// 2^-60 <= |x| <= 2^60, for which div_const<M>(x) differs in value from x / M
+template <int M>
+__global__ void div_check_kernel(unsigned long long* __restrict__ bad) {
+  unsigned long long mine = 0;
+  const unsigned long long stride = static_cast<unsigned long long>(gridDim.x) * blockDim.x;
+  for (unsigned long long bits = static_cast<unsigned long long>(blockIdx.x) * blockDim.x +
+                                 threadIdx.x;
+       bits < (1ull << 32); bits += stride) {
+    const float x = __uint_as_float(static_cast<unsigned>(bits));
+    const float ax = fabsf(x);
+    if (!(ax == 0.0f || (ax >= 0x1p-60f && ax <= 0x1p60f))) continue;
+    const float want = __fdiv_rn(x, static_cast<float>(M));
+    mine += (div_const<M>(x) != want) ? 1 : 0;  // by value: the zeros' signs may differ
   }
-  // rho = number of k with u_k > (css_k - 1)/k, theta = (css_rho - 1)/rho
-  float css[R];
-  css[0] = u[0];
-#pragma unroll
-  for (int k = 1; k < R; ++k) css[k] = css[k - 1] + u[k];
-  int rho = 0;
-#pragma unroll
-  for (int k = 0; k < R; ++k) rho += (u[k] - (css[k] - 1.0f) / (k + 1.0f) > 0.0f) ? 1 : 0;
-  rho = max(rho, 1);
-  float css_rho = css[0];
-#pragma unroll
-  for (int k = 1; k < R; ++k) css_rho = (k == rho - 1) ? css[k] : css_rho;
-  const float theta = (css_rho - 1.0f) / static_cast<float>(rho);
-#pragma unroll
-  for (int a = 0; a < R; ++a) z[a] = fmaxf(w[a] - theta, 0.0f);
-}
-
-// Every product is rounded on its own and every sum runs in the plain
-// version's order (ops/lae.py:lae_weights_plain): __fmul_rn/__fadd_rn keep
-// nvcc from contracting a*b+c into one FMA.  With nearly collinear anchors
-// the problem is ill-conditioned and 150 steps leave the iterate sensitive
-// to rounding, so matching the order is what keeps the two versions close.
-template <int R>
-__global__ void lae_kernel(const float* __restrict__ X, const float* __restrict__ U,
-                           const int* __restrict__ idx, int n, int s, int d, int iters,
-                           float* __restrict__ out) {
-  const int row = blockIdx.x * blockDim.x + threadIdx.x;
-  if (row >= n) return;
-
-  int ia[R];
-#pragma unroll
-  for (int a = 0; a < R; ++a) {
-    const int c = idx[static_cast<size_t>(row) * R + a];
-    ia[a] = (c >= 0 && c < s) ? c : 0;  // indices come from knn; guard the gather
-  }
-
-  float G[R][R];
-  float b[R];
-  const float* x = X + static_cast<size_t>(row) * d;
-  for (int k = 0; k < d; ++k) {
-    const float xk = x[k];
-    float u[R];
-#pragma unroll
-    for (int a = 0; a < R; ++a) u[a] = U[static_cast<size_t>(ia[a]) * d + k];
-#pragma unroll
-    for (int a = 0; a < R; ++a) {
-      const float pb = __fmul_rn(xk, u[a]);
-      b[a] = (k == 0) ? pb : __fadd_rn(b[a], pb);
-#pragma unroll
-      for (int c = 0; c < R; ++c) {
-        const float pg = __fmul_rn(u[a], u[c]);
-        G[a][c] = (k == 0) ? pg : __fadd_rn(G[a][c], pg);
-      }
-    }
-  }
-
-  // Gershgorin bound on lambda_max(G) -> fixed step 1/L
-  float L = 0.0f;
-#pragma unroll
-  for (int a = 0; a < R; ++a) {
-    float rowsum = fabsf(G[a][0]);
-#pragma unroll
-    for (int c = 1; c < R; ++c) rowsum = __fadd_rn(rowsum, fabsf(G[a][c]));
-    L = fmaxf(L, rowsum);
-  }
-  const float inv_L = 1.0f / (L + 1e-12f);
-
-  float z[R], z_prev[R];
-#pragma unroll
-  for (int a = 0; a < R; ++a) {
-    z[a] = 1.0f / R;
-    z_prev[a] = z[a];
-  }
-  float d_prev = 0.0f, d_curr = 1.0f;
-  for (int it = 0; it < iters; ++it) {
-    const float alpha = (d_prev - 1.0f) / d_curr;
-    float v[R], w[R];
-#pragma unroll
-    for (int a = 0; a < R; ++a) v[a] = __fadd_rn(z[a], __fmul_rn(alpha, z[a] - z_prev[a]));
-#pragma unroll
-    for (int c = 0; c < R; ++c) {
-      float g = __fmul_rn(v[0], G[0][c]);
-#pragma unroll
-      for (int a = 1; a < R; ++a) g = __fadd_rn(g, __fmul_rn(v[a], G[a][c]));
-      w[c] = __fsub_rn(v[c], __fmul_rn(inv_L, g - b[c]));
-    }
-#pragma unroll
-    for (int a = 0; a < R; ++a) z_prev[a] = z[a];
-    project_simplex<R>(w, z);
-    const float d_next =
-        (1.0f + sqrtf(__fadd_rn(1.0f, __fmul_rn(4.0f * d_curr, d_curr)))) / 2.0f;
-    d_prev = d_curr;
-    d_curr = d_next;
-  }
-
-#pragma unroll
-  for (int a = 0; a < R; ++a) out[static_cast<size_t>(row) * R + a] = z[a];
+  if (mine) atomicAdd(bad, mine);
 }
 
 }  // namespace
+}  // namespace flgp_k2
 
-// X (n, d) f32, U (s, d) f32, idx (n, r) i32 -> out (n, r) f32; 1 <= r <= 16.
-extern "C" int flgp_lae(const void* X, const void* U, const void* idx, int n, int s, int d,
-                        int r, int iters, void* out, void* stream) {
-  if (n <= 0) return static_cast<int>(cudaSuccess);
-  const dim3 grid((n + kThreads - 1) / kThreads);
+// X: point p's coordinate k at X[p*xs_p + k*xs_k] (f32); U (s, d) f32;
+// idx (nch, r, c) i32 with nch*c = npts >= n, the (n, r) layout being c = 1;
+// alpha (iters,) f32, the momentum sequence -> out as idx, f32, zero on the
+// npts - n pad points.  1 <= r <= 16.  fused != 0 takes the fused variant.
+extern "C" int flgp_lae(const void* X, long long xs_p, long long xs_k, const void* U,
+                        const void* idx, long long n, long long npts, int c, int s, int d, int r,
+                        int iters, const void* alpha, int fused, void* out, void* stream) {
+  if (npts <= 0) return static_cast<int>(cudaSuccess);
+  if (c <= 0 || iters < 0 || n > npts) return static_cast<int>(cudaErrorInvalidValue);
+  if (static_cast<size_t>(iters) * sizeof(float) > 48 * 1024)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const flgp_k2::Args a{static_cast<const float*>(X), xs_p, xs_k, static_cast<const float*>(U),
+                        static_cast<const int*>(idx), n, npts, c, s, d, r, iters,
+                        static_cast<const float*>(alpha), static_cast<float*>(out),
+                        static_cast<cudaStream_t>(stream)};
+  return fused ? flgp_k2::launch_fused(a) : flgp_k2::launch<false>(a);
+}
+
+// *bad (zeroed by the caller) += the number of floats on which the
+// projection's constant division by m (1 <= m <= 16) is not the IEEE quotient.
+extern "C" int flgp_lae_div_check(int m, void* bad, void* stream) {
+  unsigned long long* out = static_cast<unsigned long long*>(bad);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float* Xf = static_cast<const float*>(X);
-  const float* Uf = static_cast<const float*>(U);
-  const int* ii = static_cast<const int*>(idx);
-  float* o = static_cast<float*>(out);
-  switch (r) {
-#define FLGP_LAE_CASE(R)                                                        \
-  case R:                                                                       \
-    lae_kernel<R><<<grid, kThreads, 0, st>>>(Xf, Uf, ii, n, s, d, iters, o);    \
+  switch (m) {
+#define FLGP_DIV_CASE(M)                                        \
+  case M:                                                       \
+    flgp_k2::div_check_kernel<M><<<132 * 8, 256, 0, st>>>(out); \
     break;
-    FLGP_R_CASES(FLGP_LAE_CASE)
-#undef FLGP_LAE_CASE
+    FLGP_R_CASES(FLGP_DIV_CASE)
+#undef FLGP_DIV_CASE
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

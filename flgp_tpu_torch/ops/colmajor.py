@@ -9,8 +9,10 @@ Points past the real n (the tail of the last chunk) are pads with zero
 weight, so every sum ignores them.  With the point axis minor, a GPU thread
 per point reads ``w[i, k, j]`` for each k at stride c and a warp's loads are
 contiguous; the (n, r) layout of ``ops.spectrum`` strides them by r.  The
-float32 tail runs through kernels K6–K8 (``hopper_kernels.ell_*_t``); float64
-takes the exact op composition, which is also the oracle of that tail.
+float32 LAE weights are one launch of K2 over the whole cloud on this layout
+(``ops.lae.lae_weights_t``), the float32 tail runs through kernels K6–K8
+(``hopper_kernels.ell_*_t``); float64 takes the plain version and the exact
+op composition, which is also the oracle of that tail.
 """
 
 from __future__ import annotations
@@ -25,7 +27,7 @@ from ..types import EigenPair, EllMatrix
 from . import hopper_kernels as hk
 from .kmeans import kmeans
 from .knn import KERNEL_MAX_R, knn
-from .lae import lae_weights
+from .lae import lae_weights_t
 from .spectrum import _top_k_eigh, spectrum_from_Z
 
 
@@ -89,7 +91,8 @@ def build_graph_colmajor(
     chunk: int = 1 << 16,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """kNN (K1) and kernel weights (K2 for LAE) of Xt (d, n) against the
-    anchors U (s, d), one column chunk at a time.
+    anchors U (s, d): K1 one column chunk at a time, the SE weights with it,
+    the LAE weights afterwards over the whole chunked index array at once.
 
     Returns (idx (nch, r, c) int32, w (nch, r, c)): the raw, un-normalized
     ELL graph.  Pad points get index 0 and weight exactly 0.
@@ -101,15 +104,16 @@ def build_graph_colmajor(
     c = _chunk_size(n, chunk)
     nch = -(-n // c)
     idx = torch.zeros((nch, r, c), dtype=torch.int32, device=Xt.device)
-    w = torch.zeros((nch, r, c), dtype=Xt.dtype, device=Xt.device)
+    se = kernel == KernelType.SE
+    w = torch.zeros((nch, r, c), dtype=Xt.dtype, device=Xt.device) if se else None
     for i, xc in _column_chunks(Xt, c):
         res = knn(xc, U, r)
-        if kernel == KernelType.SE:
-            wc = torch.exp(torch.clamp(-res.sqdists, max=0.0) / epsilon_sq4)
-        else:
-            wc = lae_weights(xc, U, res.indices, lae_iters)
         idx[i, :, :xc.shape[0]] = res.indices.T
-        w[i, :, :xc.shape[0]] = wc.T
+        if se:
+            w[i, :, :xc.shape[0]] = (torch.exp(torch.clamp(-res.sqdists, max=0.0)
+                                               / epsilon_sq4)).T
+    if not se:
+        w = lae_weights_t(Xt, U, idx, lae_iters)
     return idx, w
 
 

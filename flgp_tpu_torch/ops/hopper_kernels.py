@@ -30,7 +30,7 @@ from ..config import EPS
 from ..types import EllMatrix
 from . import _build
 from .knn import KERNEL_MAX_R, KnnResult, knn_plain
-from .lae import lae_weights_plain
+from .lae import fista_momentum, lae_weights_plain
 
 # Launches of each kernel since the last reset_launches().
 LAUNCHES = {"knn": 0, "lae_weights": 0, "ell_colsum": 0, "ell_norm_gram": 0,
@@ -107,23 +107,95 @@ def _knn(X: torch.Tensor, U: torch.Tensor, r: int, split: int) -> KnnResult:
 # ---------------------------------------------------------------------------
 
 
+_MOMENTUM = {}   # (iters, device) -> the FISTA momentum table on that device
+
+
+def _momentum_table(iters: int, device: torch.device) -> torch.Tensor:
+    key = (int(iters), device)
+    if key not in _MOMENTUM:
+        _MOMENTUM[key] = torch.as_tensor(fista_momentum(int(iters)), device=device)
+    return _MOMENTUM[key]
+
+
 def lae_weights(X: torch.Tensor, anchors: torch.Tensor, knn_idx: torch.Tensor,
                 iters: int = 150) -> torch.Tensor:
     """FISTA simplex weights (K2), (n, r) row-major; see ``ops.lae.lae_weights``."""
     if X.device.type == "cpu":
         return lae_weights_plain(X, anchors, knn_idx, iters)
+    return _lae_weights(X, anchors, knn_idx, iters, fused=False)
+
+
+def _lae_weights(X: torch.Tensor, anchors: torch.Tensor, knn_idx: torch.Tensor, iters: int,
+                 fused: bool) -> torch.Tensor:
+    """K2 on CUDA tensors, point-major.  ``fused`` takes the kernel's
+    fused-multiply-add variant, which is not the plain version bit for bit;
+    no fit uses it, the smoke test and the card tests measure it."""
     n, d = X.shape
-    s = anchors.shape[0]
     r = knn_idx.shape[1]
-    _check_fan_in(r)
     _check("X", X, torch.float32, (n, d), X.device)
-    _check("anchors", anchors, torch.float32, (s, d), X.device)
     _check("knn_idx", knn_idx, torch.int32, (n, r), X.device)
     out = torch.empty((n, r), dtype=torch.float32, device=X.device)
-    _launch("lae_weights", X.device, _build.load().flgp_lae,
-            X.data_ptr(), anchors.data_ptr(), knn_idx.data_ptr(), n, s, d, r, int(iters),
-            out.data_ptr())
+    # the (n, r) layout is the chunked one with c = 1
+    _launch_lae(X, d, 1, d, anchors, knn_idx, n, n, 1, r, iters, fused, out)
     return out
+
+
+def lae_weights_t_plain(Xt: torch.Tensor, anchors: torch.Tensor, knn_idx_t: torch.Tensor,
+                        iters: int = 150) -> torch.Tensor:
+    """``lae_weights_plain`` on each chunk's point-major view, laid back into
+    (nch, r, c); the pad points keep weight 0.  One chunk at a time, so the
+    (c, r, r) Gram arrays stay one chunk's size."""
+    n = Xt.shape[1]
+    nch, r, c = knn_idx_t.shape
+    w = torch.zeros((nch, r, c), dtype=Xt.dtype, device=Xt.device)
+    for i in range(nch):
+        lo, hi = i * c, min((i + 1) * c, n)
+        if hi > lo:
+            w[i, :, :hi - lo] = lae_weights_plain(Xt[:, lo:hi].T, anchors,
+                                                  knn_idx_t[i, :, :hi - lo].T, iters).T
+    return w
+
+
+def lae_weights_t(Xt: torch.Tensor, anchors: torch.Tensor, knn_idx_t: torch.Tensor,
+                  iters: int = 150) -> torch.Tensor:
+    """FISTA simplex weights (K2) of a feature-major cloud Xt (d, n) on the
+    chunked (nch, r, c) layout, nch·c ≥ n: one launch over all points, exact
+    zeros on the pads; see ``ops.lae.lae_weights_t``."""
+    if Xt.device.type == "cpu":
+        return lae_weights_t_plain(Xt, anchors, knn_idx_t, iters)
+    return _lae_weights_t(Xt, anchors, knn_idx_t, iters, fused=False)
+
+
+def _lae_weights_t(Xt: torch.Tensor, anchors: torch.Tensor, knn_idx_t: torch.Tensor, iters: int,
+                   fused: bool) -> torch.Tensor:
+    """K2 on CUDA tensors, feature-major; ``fused`` as in ``_lae_weights``."""
+    d, n = Xt.shape
+    if knn_idx_t.dim() != 3:
+        raise ValueError(f"knn_idx_t must be (nch, r, c), got shape {tuple(knn_idx_t.shape)}")
+    nch, r, c = knn_idx_t.shape
+    if not (nch - 1) * c < n <= nch * c:
+        raise ValueError(f"{nch} chunks of {c} points do not hold n={n} points")
+    _check("Xt", Xt, torch.float32, (d, n), Xt.device)
+    _check("knn_idx_t", knn_idx_t, torch.int32, (nch, r, c), Xt.device)
+    out = torch.empty((nch, r, c), dtype=torch.float32, device=Xt.device)
+    _launch_lae(Xt, 1, n, d, anchors, knn_idx_t, n, nch * c, c, r, iters, fused, out)
+    return out
+
+
+def _launch_lae(X: torch.Tensor, xs_p: int, xs_k: int, d: int, anchors: torch.Tensor,
+                idx: torch.Tensor, n: int, npts: int, c: int, r: int, iters: int, fused: bool,
+                out: torch.Tensor) -> None:
+    """Both K2 entries: coordinate k < d of point p is at X[p·xs_p + k·xs_k];
+    idx and out are (npts/c, r, c), of which (n, r) is the case c = 1."""
+    s = anchors.shape[0]
+    _check_fan_in(r)
+    _check("anchors", anchors, torch.float32, (s, d), X.device)
+    if not 0 <= int(iters) <= 12288:
+        raise ValueError(f"the CUDA kernel takes 0 <= iters <= 12288, got iters={iters}")
+    _launch("lae_weights", X.device, _build.load().flgp_lae,
+            X.data_ptr(), xs_p, xs_k, anchors.data_ptr(), idx.data_ptr(), n, npts, c, s, d, r,
+            int(iters), _momentum_table(iters, X.device).data_ptr(), int(bool(fused)),
+            out.data_ptr())
 
 
 # ---------------------------------------------------------------------------
@@ -259,17 +331,29 @@ def ell_norm_gram_t(values: torch.Tensor, indices: torch.Tensor, cscale: torch.T
     """(Ĝ = ZₙᵀZₙ (s, s), D = colsum(Zₙ) (s,)) on the chunked layout (K7)."""
     if values.device.type == "cpu":
         return ell_norm_gram_t_plain(values, indices, cscale, eps)
+    return _ell_norm_gram_t(values, indices, cscale, eps, table_slots=0)[:2]
+
+
+def _ell_norm_gram_t(values: torch.Tensor, indices: torch.Tensor, cscale: torch.Tensor,
+                     eps: float, table_slots: int) -> Tuple[torch.Tensor, ...]:
+    """K7 on CUDA tensors.  ``table_slots`` is the size of the kernel's
+    shared-memory table of pair sums (a power of two in [2, 16384]; 0 lets the
+    entry point choose).  The result does not depend on it, only the share of
+    additions that stay in shared memory; the tests force it.  Also returns
+    the kernel's counts (pair additions kept in shared memory, sent straight
+    to the global cells) as an int64 tensor on the device."""
     nch, r, c = _check_t(values, indices)
     s = cscale.shape[0]
     _check_fan_in(r)
     _check("cscale", cscale, torch.float32, (s,), values.device)
-    # float64 accumulators, rounded to float32 once (see csrc/ell_t.cu)
-    G = torch.zeros((s, s), dtype=torch.float64, device=values.device)
-    D = torch.zeros((s,), dtype=torch.float64, device=values.device)
+    # float64 accumulators, rounded to float32 once (see csrc/ell_t.cu); the
+    # two counts ride in the same zeroed buffer
+    buf = torch.zeros((s * s + s + 2,), dtype=torch.float64, device=values.device)
+    G, D, stats = buf[:s * s].view(s, s), buf[s * s:s * s + s], buf[s * s + s:].view(torch.int64)
     _launch("ell_norm_gram_t", values.device, _build.load().flgp_ell_norm_gram_t,
             values.data_ptr(), indices.data_ptr(), cscale.data_ptr(), nch, r, c, s, float(eps),
-            G.data_ptr(), D.data_ptr())
-    return G.to(torch.float32), D.to(torch.float32)
+            int(table_slots), G.data_ptr(), D.data_ptr(), stats.data_ptr())
+    return G.to(torch.float32), D.to(torch.float32), stats
 
 
 def ell_norm_matmat_t_plain(values: torch.Tensor, indices: torch.Tensor, cscale: torch.Tensor,

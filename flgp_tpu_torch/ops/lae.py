@@ -54,6 +54,41 @@ def lae_weights(
     return lae_weights_plain(X, anchors, knn_idx, iters)
 
 
+def fista_momentum(iters: int) -> np.ndarray:
+    """The momentum factors α_it = (d_{it−1} − 1)/d_it, it < iters, of
+    ``lae_weights_plain``'s recurrence d' = (1 + √(1 + 4d²))/2 from d = 1,
+    computed on the host in float32 exactly as that loop computes them for
+    float32 data.  They do not depend on the data: the CUDA kernel reads
+    them as a table."""
+    one = np.float32(1.0)
+    d_prev, d_curr = one * 0, one
+    alpha = np.empty((iters,), dtype=np.float32)
+    for it in range(iters):
+        alpha[it] = (d_prev - 1) / d_curr
+        d_prev, d_curr = d_curr, (1 + np.sqrt(1 + 4 * d_curr * d_curr)) / 2
+    return alpha
+
+
+def lae_weights_t(
+    Xt: torch.Tensor,
+    anchors: torch.Tensor,
+    knn_idx_t: torch.Tensor,
+    iters: int = 150,
+) -> torch.Tensor:
+    """``lae_weights`` on the chunked feature-major layout of
+    ``ops.colmajor``: Xt (d, n), knn_idx_t (nch, r, c) with nch·c ≥ n →
+    weights (nch, r, c), exactly 0 on the pad points past n.
+
+    float32 with r ≤ 16 is one launch of the hand-written kernel over the
+    whole cloud; float64 and wider r take the plain version chunk by chunk."""
+    from . import hopper_kernels
+
+    if (Xt.dtype == torch.float32 and anchors.dtype == torch.float32
+            and knn_idx_t.shape[1] <= KERNEL_MAX_R):
+        return hopper_kernels.lae_weights_t(Xt, anchors, knn_idx_t.to(torch.int32), iters)
+    return hopper_kernels.lae_weights_t_plain(Xt, anchors, knn_idx_t, iters)
+
+
 def lae_weights_plain(
     X: torch.Tensor,
     anchors: torch.Tensor,

@@ -21,7 +21,7 @@ from flgp_tpu.ops import colmajor as jcol
 from flgp_tpu.ops import pallas_kernels as pk
 from flgp_tpu.ops.knn import knn as jknn
 
-from flgp_tpu_torch.config import KernelType, LaplacianType
+from flgp_tpu_torch.config import EPS, KernelType, LaplacianType
 from flgp_tpu_torch.ops import colmajor as col
 from flgp_tpu_torch.ops import hopper_kernels as hk
 from flgp_tpu_torch.ops.spectrum import spectrum_fused
@@ -87,6 +87,31 @@ def test_tail_t_plain_matches_pallas_interpret(rng, kernel, r):
         assert got.shape == (3 * 128, 8)
         np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=3e-5)
         np.testing.assert_array_equal(got.numpy()[-64:], 0.0)     # pad rows
+
+
+@pytest.mark.parametrize("r", [2, 4])
+def test_norm_gram_t_with_a_repeated_anchor_matches_pallas_interpret(rng, r):
+    """Rows that name one anchor twice (every third point's first two
+    slots): the two slots' product belongs on Ĝ's diagonal twice, which the
+    CUDA kernel's upper-triangle accumulation has to repeat; here the plain
+    version against the Pallas kernel."""
+    w, idx, cs, s = _chunked_graph(rng, r=r)
+    idx[:, 1, ::3] = idx[:, 0, ::3]
+    G, D = hk.ell_norm_gram_t(T(w, torch.float32), T(idx, torch.int32), T(cs, torch.float32))
+    Gr, Dr = pk.ell_norm_gram_t(jnp.asarray(w), jnp.asarray(idx), jnp.asarray(cs), block=64,
+                                interpret=True)
+    np.testing.assert_allclose(D.numpy(), np.asarray(Dr), atol=3e-5)
+    np.testing.assert_allclose(G.numpy(), np.asarray(Gr), atol=3e-5)
+    # the upper triangle with doubled repeated-anchor products, mirrored, is Ĝ
+    wn = hk._normalized_t(T(w, torch.float32), T(idx, torch.int32), T(cs, torch.float32),
+                          EPS).double().numpy()
+    up = np.zeros((s, s))
+    for a in range(r):
+        for b in range(a, r):
+            lo, hi = np.minimum(idx[:, a], idx[:, b]), np.maximum(idx[:, a], idx[:, b])
+            twice = np.where((b > a) & (lo == hi), 2.0, 1.0)
+            np.add.at(up, (lo.ravel(), hi.ravel()), (twice * wn[:, a] * wn[:, b]).ravel())
+    np.testing.assert_allclose(up + np.triu(up, 1).T, G.double().numpy(), atol=3e-5)
 
 
 def test_tail_t_plain_versions_equal_point_major_ones_f64(rng):

@@ -120,7 +120,47 @@ def test_knn_kernel_self_neighbours(dev, gen, r):
 
 
 @pytest.mark.parametrize("r", [2, 3, 6])
-def test_lae_kernel_matches_plain(dev, gen, r):
+@pytest.mark.parametrize("d", [2, 3])
+def test_lae_kernel_matches_plain(dev, gen, r, d):
+    """K2's two entries against the plain version: point-major (n, r), and
+    feature-major over a chunked index array whose n is not a multiple of c.
+    The kernel repeats the plain version's roundings: equal bit for bit, the
+    stated gate being 2e-4."""
+    from flgp_tpu_torch.ops import hopper_kernels as hk
+    from flgp_tpu_torch.ops.knn import knn_plain
+    from flgp_tpu_torch.ops.lae import lae_weights_plain
+
+    n, c = 5000, 768
+    X = _cuda(gen.normal(size=(n, d)), dev)
+    U = _cuda(gen.normal(size=(200, d)), dev)
+    idx = knn_plain(X, U, r).indices
+    before = hk.LAUNCHES["lae_weights"]
+    got = hk.lae_weights(X, U, idx)
+    torch.cuda.synchronize()
+    assert hk.LAUNCHES["lae_weights"] == before + 1
+    ref = lae_weights_plain(X, U, idx)
+    torch.testing.assert_close(got, ref, rtol=0, atol=2e-4)
+    assert float(torch.max(torch.abs(got.sum(1) - 1))) <= 1e-5 and float(got.min()) >= 0
+    assert float(torch.max(torch.abs(got - ref))) == 0.0
+
+    nch = -(-n // c)
+    padded = torch.zeros((nch * c, r), dtype=torch.int32, device=dev)
+    padded[:n] = idx
+    idx_t = padded.view(nch, c, r).transpose(1, 2).contiguous()
+    got_t = hk.lae_weights_t(X.T.contiguous(), U, idx_t)
+    torch.cuda.synchronize()
+    assert hk.LAUNCHES["lae_weights"] == before + 2
+    flat = got_t.transpose(1, 2).reshape(nch * c, r)
+    assert torch.equal(flat[:n], got)
+    assert float(torch.max(torch.abs(flat[n:]))) == 0.0              # the pad points
+    assert torch.equal(hk.lae_weights_t_plain(X.T.contiguous(), U, idx_t), got_t)
+
+
+@pytest.mark.parametrize("r", [2, 3, 6])
+def test_lae_kernel_fused_variant(dev, gen, r):
+    """The fused-multiply-add variant, which no fit launches: on
+    well-conditioned data (Gaussian anchors at d = 3, FISTA converged) it
+    meets the same 2e-4 gate and its rows lie on the simplex."""
     from flgp_tpu_torch.ops import hopper_kernels as hk
     from flgp_tpu_torch.ops.knn import knn_plain
     from flgp_tpu_torch.ops.lae import lae_weights_plain
@@ -128,11 +168,45 @@ def test_lae_kernel_matches_plain(dev, gen, r):
     X = _cuda(gen.normal(size=(5000, 3)), dev)
     U = _cuda(gen.normal(size=(200, 3)), dev)
     idx = knn_plain(X, U, r).indices
-    got = hk.lae_weights(X, U, idx)
+    got = hk._lae_weights(X, U, idx, 150, fused=True)
     torch.cuda.synchronize()
-    ref = lae_weights_plain(X, U, idx)
-    torch.testing.assert_close(got, ref, rtol=0, atol=2e-4)
+    torch.testing.assert_close(got, lae_weights_plain(X, U, idx), rtol=0, atol=2e-4)
     assert float(torch.max(torch.abs(got.sum(1) - 1))) <= 1e-5 and float(got.min()) >= 0
+
+
+@pytest.mark.parametrize("m", list(range(1, 17)))
+def test_lae_constant_division_is_the_ieee_quotient(dev, m):
+    """The simplex projection divides by the constants 2..r with a
+    multiplication by the rounded reciprocal and one residual correction;
+    the kernel source carries a sweep over every float x = 0 or
+    2^-60 <= |x| <= 2^60 that counts where this is not x / m."""
+    from flgp_tpu_torch.ops import _build
+
+    bad = torch.zeros((1,), dtype=torch.int64, device=dev)
+    err = _build.load().flgp_lae_div_check(m, bad.data_ptr(),
+                                           torch.cuda.current_stream(dev).cuda_stream)
+    torch.cuda.synchronize()
+    assert err == 0 and int(bad) == 0
+
+
+def test_lae_wrappers_reject_what_the_kernel_does_not_take(dev, gen):
+    from flgp_tpu_torch.ops import hopper_kernels as hk
+
+    Xt = _cuda(gen.normal(size=(2, 300)), dev)
+    U = _cuda(gen.normal(size=(20, 2)), dev)
+    idx_t = _cuda(gen.integers(0, 20, size=(3, 3, 128)), dev, torch.int32)
+    with pytest.raises(ValueError):
+        hk.lae_weights_t(Xt, U, idx_t[:2])                      # 256 slots for 300 points
+    with pytest.raises(ValueError):
+        hk.lae_weights_t(Xt, U, idx_t[0])                       # (r, c), not (nch, r, c)
+    with pytest.raises(TypeError):
+        hk.lae_weights_t(Xt, U, idx_t.long())
+    with pytest.raises(ValueError):
+        hk.lae_weights_t(Xt.T.contiguous().T, U, idx_t)         # a point-major cloud's view
+    with pytest.raises(ValueError):
+        hk.lae_weights_t(Xt, _cuda(gen.normal(size=(20, 3)), dev), idx_t)   # anchors of another d
+    with pytest.raises(ValueError):
+        hk.lae_weights(Xt.T.contiguous(), U, idx_t[0, :, :3].contiguous())  # 3 rows for 300 points
 
 
 @pytest.mark.parametrize("r", [1, 3, 5])
@@ -222,6 +296,45 @@ def test_ell_t_kernels_match_plain(dev, gen, r, s):
     torch.testing.assert_close(out, hk.ell_norm_matmat_t_plain(vals, idx, cs, W), rtol=1e-5,
                                atol=1e-5)
     assert float(torch.max(torch.abs(out[-333:]))) == 0.0            # pad rows
+
+
+@pytest.mark.parametrize("table_slots", [0, 2, 64, 16384])
+@pytest.mark.parametrize("r,s", [(2, 64), (4, 64), (4, 13000), (9, 64)])
+def test_ell_norm_gram_t_table_and_repeated_anchors(dev, gen, r, s, table_slots):
+    """K7's shared-memory table: the default, forced so small that most pair
+    additions find no slot and go to the global cells, and in between; rows
+    that name one anchor twice (their product belongs on the diagonal
+    twice); s = 13000 keeps D out of shared memory; r = 9 takes the
+    instances whose pair loops stay rolled.  The result does not
+    depend on the table; the counts add up to the r(r+1)/2 pairs of every
+    point with a weight."""
+    from flgp_tpu_torch.config import EPS
+    from flgp_tpu_torch.ops import hopper_kernels as hk
+
+    nch, c, n_pad = 5, 1000, 333
+    vals, idx = _chunked_graph(gen, dev, nch, r, c, s, n_pad)
+    idx[:, 1, ::3] = idx[:, 0, ::3]                     # a repeated anchor in every third row
+    idx[0, 0, 5] = s                                    # out of range: the entry adds nothing
+    cs = _cuda(gen.uniform(0.5, 2.0, size=s), dev)
+    G, D, stats = hk._ell_norm_gram_t(vals, idx, cs, EPS, table_slots)
+    torch.cuda.synchronize()
+    v0, i0 = vals.clone(), idx.clone()
+    v0[0, 0, 5], i0[0, 0, 5] = 0.0, 0
+    Gp, Dp = hk.ell_norm_gram_t_plain(v0.double(), i0, cs.double(), EPS)
+    assert float(torch.max(torch.abs(G - Gp))) <= 1e-5 * float(torch.max(torch.abs(Gp)))
+    assert float(torch.max(torch.abs(D - Dp))) <= 1e-5 * float(torch.max(torch.abs(Dp)))
+    kept, spilled = (int(x) for x in stats)
+    assert kept + spilled == (nch * c - n_pad) * r * (r + 1) // 2 - r
+    if table_slots == 2:
+        assert spilled > 0.9 * (kept + spilled)
+    if table_slots in (0, 16384) and s == 64:
+        assert spilled == 0
+        # sums kept in shared memory are fixed point, the flush adds multiples
+        # of 2^-24 in float64: exact, so a second launch gives the same bits
+        G2, D2, _ = hk._ell_norm_gram_t(vals, idx, cs, EPS, table_slots)
+        assert torch.equal(G, G2) and torch.equal(D, D2)
+    with pytest.raises(RuntimeError, match="cudaError"):
+        hk._ell_norm_gram_t(vals, idx, cs, EPS, 48)     # not a power of two
 
 
 def test_ell_t_wrappers_reject_what_the_kernels_do_not_take(dev, gen):

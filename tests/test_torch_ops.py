@@ -30,7 +30,8 @@ from flgp_tpu_torch.ops import _build
 from flgp_tpu_torch.ops import hopper_kernels as hk
 from flgp_tpu_torch.ops import kmeans
 from flgp_tpu_torch.ops.knn import knn, knn_plain
-from flgp_tpu_torch.ops.lae import lae_weights, project_simplex
+from flgp_tpu_torch.ops.lae import (fista_momentum, lae_weights, lae_weights_plain,
+                                    lae_weights_t, project_simplex)
 from flgp_tpu_torch.ops.spectrum import spectrum_fused
 from flgp_tpu_torch.types import EllMatrix
 
@@ -200,6 +201,60 @@ def test_lae_f32_matches_pallas_interpret(rng, n, d, s, r, iters):
     np.testing.assert_allclose(got, np.asarray(ref), atol=2e-4)
     np.testing.assert_allclose(got.sum(1), 1.0, atol=1e-5)
     assert got.min() >= 0.0
+
+
+@pytest.mark.parametrize("iters", [1, 100, 150])
+def test_lae_momentum_table_is_the_plain_versions_sequence(rng, iters):
+    """The table K2's wrapper hands the kernel equals, element for element,
+    the momentum factors of ``lae_weights_plain``'s recurrence in float32,
+    and FISTA driven by the table gives that function's weights bit for bit."""
+    table = hk._momentum_table(iters, torch.device("cpu"))
+    assert table.dtype == torch.float32 and table.shape == (iters,)
+    assert hk._momentum_table(iters, torch.device("cpu")) is table       # built once
+    d_prev, d_curr = np.float32(0.0), np.float32(1.0)
+    for it in range(iters):
+        assert table[it].item() == float(np.float32((d_prev - 1) / d_curr))
+        d_prev, d_curr = d_curr, (1 + np.sqrt(1 + 4 * d_curr * d_curr)) / 2
+        assert d_curr.dtype == np.float32
+    np.testing.assert_array_equal(table.numpy(), fista_momentum(iters))
+
+    X, U = _points(rng, 200, 24, 2, dup_anchor=False)
+    X32, U32 = T(X, torch.float32), T(U, torch.float32)
+    idx = knn(X32, U32, 3).indices
+    Ui = U32[idx.long()]
+    G = Ui[:, :, None, 0] * Ui[:, None, :, 0] + Ui[:, :, None, 1] * Ui[:, None, :, 1]
+    b = X32[:, None, 0] * Ui[:, :, 0] + X32[:, None, 1] * Ui[:, :, 1]
+    absG = torch.abs(G)
+    inv_L = (1.0 / (torch.amax(absG[:, :, 0] + absG[:, :, 1] + absG[:, :, 2], dim=1)
+                    + 1e-12))[:, None]
+    z_prev = z = torch.full_like(b, 1.0 / 3)
+    for it in range(iters):
+        v = z + table[it] * (z - z_prev)
+        grad = v[:, 0:1] * G[:, 0, :] + v[:, 1:2] * G[:, 1, :] + v[:, 2:3] * G[:, 2, :]
+        z_prev, z = z, project_simplex(v - inv_L * (grad - b))
+    assert torch.equal(z, lae_weights_plain(X32, U32, idx, iters))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n,c", [(700, 256), (512, 256), (90, 128)])
+def test_lae_feature_major_plain_equals_point_major_plain(rng, n, c, dtype):
+    """K2's feature-major entry on the CPU (its plain version): the weights
+    of ``lae_weights_plain`` on the same points, bit for bit, laid out
+    (nch, r, c), and exact zeros on the pad points past n."""
+    X, U = _points(rng, n, 32, 3, dup_anchor=False)
+    Xp, Up = T(X, dtype), T(U, dtype)
+    r = 4
+    idx = knn_plain(Xp, Up, r).indices
+    nch = -(-n // c)
+    padded = torch.zeros((nch * c, r), dtype=torch.int32)
+    padded[:n] = idx
+    idx_t = padded.view(nch, c, r).transpose(1, 2).contiguous()
+    for fn in (lae_weights_t, hk.lae_weights_t_plain):
+        got = fn(Xp.T.contiguous(), Up, idx_t, 60)
+        assert got.shape == (nch, r, c) and got.dtype == dtype
+        flat = got.transpose(1, 2).reshape(nch * c, r)
+        assert torch.equal(flat[:n], lae_weights_plain(Xp, Up, idx, 60))
+        assert torch.equal(flat[n:], torch.zeros((nch * c - n, r), dtype=dtype))
 
 
 # ---------------------------------------------------------------------------
