@@ -15,6 +15,7 @@ from .config import (
     NoiseModel,
     Subsample,
     TrainConfig,
+    default_a2s,
 )
 from .fit.drivers import (
     FitResult,
@@ -41,6 +42,7 @@ __all__ = [
     "NoiseModel",
     "Subsample",
     "TrainConfig",
+    "default_a2s",
     "fit_gl_logit_gp",
     "fit_gl_regression_gp",
     "fit_lae_logit_gp",

@@ -74,6 +74,12 @@ __device__ __forceinline__ int smem_table_slot(int* keys, unsigned slots, int ke
 // out of it, -1, 0 or +1, which the caller adds to the global target as
 // carry * kFixedWrap right away.  The block's sum is then the carries plus
 // the bin read as unsigned, times kFixedUnit.  For |v| < kFixedMax only.
+// A term that goes to a float64 global cell instead (no bin, no table slot,
+// or |v| >= kFixedMax) adds fixed_value(v): the same amount a bin would
+// have taken.  So every term of a sum is a multiple of 2^-24, every partial
+// sum in float64 is exact while the cell's sum of |terms| stays below 2^29,
+// and the result is the same bits whatever the order, the grid or the path
+// each term took.
 constexpr float kFixedMax = 128.0f;
 constexpr double kFixedUnit = 1.0 / 16777216.0;  // 2^-24
 constexpr double kFixedWrap = 256.0;             // 2^32 units
@@ -83,4 +89,12 @@ __device__ __forceinline__ int fixed_add(unsigned* bin, float v) {
   const unsigned old = atomicAdd(bin, static_cast<unsigned>(inc));
   const unsigned now = old + static_cast<unsigned>(inc);
   return (inc > 0 && now < old) ? 1 : (inc < 0 && now > old) ? -1 : 0;
+}
+
+// v rounded to a whole number of 2^-24 units, ties to even, as fixed_add
+// rounds it; v itself from kFixedMax on (a float32 of that size is a
+// multiple of 2^-16)
+__device__ __forceinline__ double fixed_value(float v) {
+  return fabsf(v) < kFixedMax ? __float2int_rn(v * 16777216.0f) * kFixedUnit
+                              : static_cast<double>(v);
 }

@@ -1,61 +1,71 @@
-// K6-K8: the spectral-stage graph tail on the chunked feature-major
-// (nch, r, c) ELL layout of the huge-n path (ops/colmajor.py).
+// K3, K4 and K6-K8: the spectral-stage graph tail.  K6-K8 run on the
+// chunked feature-major (nch, r, c) ELL layout of the huge-n path
+// (ops/colmajor.py), K3 and K4 on the point-major (n, r) layout of the main
+// path through the same bodies: (n, r) is the chunked layout with nch = n,
+// c = 1.
 //
 // Replaces the TPU kernels in flgp_tpu/ops/pallas_kernels.py:
+//   K3 ell_colsum         (_ell_colsum_kernel)        C = colsum(Z)
+//   K4 ell_norm_gram      (_ell_norm_gram_kernel)     G = Zn^T Zn, D = colsum(Zn)
 //   K6 ell_colsum_t       (_ell_colsum_t_kernel)      C = colsum(Z)
 //   K7 ell_norm_gram_t    (_ell_norm_gram_t_kernel)   G = Zn^T Zn, D = colsum(Zn)
 //   K8 ell_norm_matmat_t  (_ell_norm_matmat_t_kernel) Zn @ W, point-major (nch*c, K)
-// with Zn = rownorm(Z diag(cscale)) as in K3-K5 (ell.cu).  Entry (i, k, j)
-// of the layout is the k-th neighbour of point i*c + j; pad points (past the
-// real n, in the last chunk) carry zero weights and add nothing.
+// with Zn = rownorm(Z diag(cscale)): w1 = w * cscale[idx],
+// wn = w1 / (sum w1 + eps) (normalized_point, common.cuh; K5, the
+// point-major Zn @ W, is in ell.cu).  Entry (i, k, j) of the chunked layout
+// is the k-th neighbour of point i*c + j; pad points (past the real n, in the
+// last chunk) carry zero weights and add nothing.
 //
-// What bounds them on the H100, at n = 1e7 (nch = 153, r = 3, c = 65536,
-// s = 1024, K = 128): K6 and K7 read the compact graph once (8 bytes per
-// nonzero, 240 MB, 0.07 ms) and then scatter: 3e7 additions into (s,) for
-// K6, 9e7 into (s, s) for K7.  Straight into device memory that is the L2's
-// atomic rate under contention (5e10 float64 atomics a second: 2.4 ms for
-// K7), so both keep their sums in shared memory, whose atomics each SM
-// serves on its own; K7 then runs at that rate, about four times the time
-// of its bytes.  K8 is bound by its 5.13 GB of output writes and the
-// gathered W rows (s * K floats, L2-resident).
+// What bounds them on the H100: each reads the compact graph once (8 bytes
+// per nonzero: 24 MB at n = 1e6, r = 3; 240 MB at n = 1e7 with
+// nch = 153, c = 65536) and then scatters: n*r additions into (s,) for the
+// column sums, n*r(r+1)/2 into (s, s) for the Gram (9e7 at n = 1e7).
+// Straight into device memory that is the L2's atomic rate under
+// contention: K3 as one float atomicAdd a nonzero took 0.33 ms at n = 1e6,
+// as long as index_add_, all of it queueing on 1,024 addresses.  So the
+// sums are kept in shared memory, whose atomics each SM serves on its own,
+// as 32-bit fixed point, 2^-24 a unit (fixed_add, common.cuh): a float
+// atomicAdd in shared memory is a loop of read, add and compare-and-swap
+// (ATOMS.CAST.SPIN in the SASS), an integer one a single ATOMS.ADD, and
+// the sum is exact.  A block flushes its bins once into float64 global
+// cells; every term that goes to a global cell directly adds fixed_value,
+// the amount a bin would have taken, so every sum is exact and C, G and D
+// are the same bits from run to run, whatever the grid, the table's size or
+// s (see common.cuh for the bound).  The wrappers round the float64 buffers
+// to float32 once.  K8 is bound by its 5.13 GB of output writes at n = 1e7
+// and the gathered W rows (s * K floats, L2-resident).
 //
-// Design: the layout keeps the point axis minor, so a thread per point
-// reads vals[i, k, j] and idx[i, k, j] at stride c for each k and a warp's
-// loads are contiguous.  The TPU kernels carried their sums in VMEM across
-// a grid that runs in order; here blocks run in no order, so:
-//   K6: a grid-stride loop over the nnz entries into a block-private (s,)
-//       histogram in shared memory (s <= 12288 fits the default 48 KB),
-//       flushed with one global atomicAdd per nonzero bin; larger s adds
-//       straight into the global (s,) buffer.
-//   K7: one block an SM walks the points, a thread a point: gather cscale,
-//       row-normalize in registers (normalized_point, shared with K4).  The
-//       (s, s) target is 4 MB and does not fit in shared memory, but a
-//       point touches only pairs among its own r anchors, so the cells a
-//       block meets do (about 1e4 of 1,048,576 on the torus): they go into
-//       a block-private hashed table in shared memory (smem_table_slot,
-//       common.cuh; 2^14 slots, 128 KB) and D into an (s,) histogram beside
-//       it, as K6 does.  G is symmetric, so a point adds its r(r+1)/2 pairs
-//       (a <= b) under the key lo*s + hi of the sorted anchor pair, not
-//       r^2; two slots of a row that name one anchor add their product to
-//       the diagonal twice.  The shared sums are 32-bit fixed point, 2^-24
-//       a unit (fixed_add, common.cuh): a float atomicAdd in shared memory
-//       is a loop of read, add and compare-and-swap, an integer one a
-//       single instruction, and its sum is exact and the same in any
-//       order; a bin that wraps (every 256.0) hands its carry to the global
-//       cell at once.  At the end the block adds each non-empty slot to the
-//       global float64 cell and to its mirror: 132 * 1e4 global atomics
-//       instead of 1.2e8.  A pair that finds no slot within the probe
-//       limit (or whose product is 128 or more in magnitude) adds to the
-//       global cells itself, so the result is right for any graph, s and
-//       table size; the kernel counts both kinds for the caller.  The sum
-//       across blocks is float64, of multiples of 2^-24: exact as well, so
-//       G and D are the same bit for bit from run to run as long as no
-//       pair spills; the wrapper rounds them to float32 once (float32
-//       atomics over a cell's ~3e4 terms missed the 1e-5 * max|G| gate
-//       against a float64 sum).
+// Design: a thread walks entries (column sums) or points (the Gram), so a
+// warp's loads are contiguous in both layouts: the chunked layout keeps the
+// point axis minor and a thread reads vals[i, k, j] at stride c for each k.
+// The TPU kernels carried their sums in VMEM across a grid that runs in
+// order; here blocks run in no order, so:
+//   K3/K6: one 1024-thread block an SM in a grid-stride loop over the nnz
+//       entries (four loads in flight a thread) into a block-private (s,)
+//       histogram of fixed-point bins (s <= 12288: 48 KB), flushed with one
+//       float64 atomicAdd per nonzero bin; larger s adds straight into the
+//       global (s,) buffer.  One block an SM and not more: at n = 1e6 that
+//       is 22 entries a thread, and every further block is another s
+//       global atomics at the flush on the same s addresses.
+//   K4/K7: one 1024-thread block an SM walks the points, a thread a point:
+//       gather cscale, row-normalize in registers.  The (s, s) target does
+//       not fit in shared memory, but a point touches only pairs among its
+//       own r anchors, so the cells a block meets do (about 5e3 of
+//       1,048,576 on the torus at s = 1024): they go into a block-private
+//       hashed table in shared memory (smem_table_slot, common.cuh; 2^14
+//       slots, 128 KB) and D into an (s,) histogram beside it, as K6 does.
+//       G is symmetric, so a point adds its r(r+1)/2 pairs (a <= b) under
+//       the key lo*s + hi of the sorted anchor pair, not r^2; two slots of a
+//       row that name one anchor add their product to the diagonal twice.
+//       At the end the block adds each non-empty slot to the global float64
+//       cell and to its mirror: 132 * 1e4 global atomics instead of 1.2e8
+//       at n = 1e7.  A pair that finds no slot within the probe limit (or
+//       whose product is 128 or more in magnitude) adds to the global cells
+//       itself, so the result is right for any graph, s and table size; the
+//       kernel counts both kinds for the caller.  The float64 buffer is
+//       8 s^2 bytes: 8 MB at s = 1024, 1.2 GB at s = 12288.
 //   K8: one warp per point, lanes over K, as K5 does; every output offset
 //       is size_t (nch * c * K = 1.28e9 at n = 1e7, within 1.7x of 2^31).
-// K6's float atomics reorder additions from run to run; compare with tolerances.
 
 #include <cuda_runtime.h>
 
@@ -64,8 +74,10 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kMaxSmemBins = 12288;  // 48 KB of float bins
-constexpr int kGramThreads = 1024;   // K7: one block an SM
+constexpr int kMaxSmemBins = 12288;  // 48 KB of fixed-point bins
+constexpr int kColsumThreads = 1024; // K3/K6: one block an SM
+constexpr int kColsumLoads = 4;      // entries a thread loads before it adds them
+constexpr int kGramThreads = 1024;   // K4/K7: one block an SM
 constexpr unsigned kGramSlots = 1u << 14;  // K7's table: 128 KB of (key, sum) slots, the most
 constexpr int kGramMaxKeyS = 46340;  // lo*s + hi must fit an int
 // K7's pair loops and the table's probe loop are unrolled (col[] and w[] in
@@ -76,26 +88,46 @@ constexpr int kGramMaxKeyS = 46340;  // lo*s + hi must fit an int
 // and the two arrays go to local memory
 constexpr int kGramUnrollR = 6;
 
-__global__ void ell_colsum_t_kernel(const float* __restrict__ vals, const int* __restrict__ idx,
-                                    long long nnz, int s, float* __restrict__ out) {
-  extern __shared__ float hist[];
-  const bool local = s <= kMaxSmemBins;
-  if (local) {
-    for (int b = threadIdx.x; b < s; b += blockDim.x) hist[b] = 0.0f;
+// adds v to column c: into the block's fixed-point bin (hist != nullptr),
+// else, or at |v| >= kFixedMax, fixed_value(v) into the float64 cell
+__device__ __forceinline__ void colsum_add(unsigned* hist, double* __restrict__ out, int s, int c,
+                                           float v) {
+  if (v == 0.0f || c < 0 || c >= s) return;
+  if (hist && fabsf(v) < kFixedMax) {
+    const int carry = fixed_add(hist + c, v);
+    if (carry) atomicAdd(out + c, carry * kFixedWrap);
+  } else {
+    atomicAdd(out + c, fixed_value(v));
+  }
+}
+
+__global__ void __launch_bounds__(kColsumThreads)
+ell_colsum_t_kernel(const float* __restrict__ vals, const int* __restrict__ idx, long long nnz,
+                    int s, double* __restrict__ out) {
+  extern __shared__ unsigned hist[];
+  unsigned* bins = s <= kMaxSmemBins ? hist : nullptr;
+  if (bins) {
+    for (int b = threadIdx.x; b < s; b += blockDim.x) bins[b] = 0u;
     __syncthreads();
   }
-  float* target = local ? hist : out;
   const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long e = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x; e < nnz;
-       e += stride) {
-    const int c = idx[e];
-    const float v = vals[e];
-    if (v != 0.0f && c >= 0 && c < s) atomicAdd(target + c, v);
+  long long e = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  for (; e + (kColsumLoads - 1) * stride < nnz; e += kColsumLoads * stride) {
+    int c[kColsumLoads];
+    float v[kColsumLoads];
+#pragma unroll
+    for (int u = 0; u < kColsumLoads; ++u) {
+      c[u] = idx[e + u * stride];
+      v[u] = vals[e + u * stride];
+    }
+#pragma unroll
+    for (int u = 0; u < kColsumLoads; ++u) colsum_add(bins, out, s, c[u], v[u]);
   }
-  if (local) {
+  for (; e < nnz; e += stride) colsum_add(bins, out, s, idx[e], vals[e]);
+  if (bins) {
     __syncthreads();
     for (int b = threadIdx.x; b < s; b += blockDim.x) {
-      if (hist[b] != 0.0f) atomicAdd(out + b, hist[b]);
+      if (bins[b]) atomicAdd(out + b, bins[b] * kFixedUnit);
     }
   }
 }
@@ -136,7 +168,9 @@ ell_norm_gram_t_kernel(const float* __restrict__ vals, const int* __restrict__ i
   const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
   for (long long p = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x; p < npts;
        p += stride) {
-    const size_t base = static_cast<size_t>(p / c) * R * c + static_cast<size_t>(p % c);
+    // the point-major layout (c = 1, K4) without a 64-bit division a point
+    const size_t base = c == 1 ? static_cast<size_t>(p) * R
+                               : static_cast<size_t>(p / c) * R * c + static_cast<size_t>(p % c);
     int col[R];
     float w[R];
     normalized_point<R>(vals, idx, cscale, base, c, s, eps, col, w);
@@ -147,7 +181,7 @@ ell_norm_gram_t_kernel(const float* __restrict__ vals, const int* __restrict__ i
         const int carry = fixed_add(dhist + col[a], w[a]);
         if (carry) atomicAdd(D + col[a], carry * kFixedWrap);
       } else {
-        atomicAdd(D + col[a], static_cast<double>(w[a]));
+        atomicAdd(D + col[a], fixed_value(w[a]));
       }
 #pragma unroll(unrolled ? R : 1)
       for (int b = a; b < R; ++b) {
@@ -166,7 +200,7 @@ ell_norm_gram_t_kernel(const float* __restrict__ vals, const int* __restrict__ i
           if (carry) gram_add(G, s, lo, hi, carry * kFixedWrap);
         } else {
           ++spilled;
-          gram_add(G, s, lo, hi, static_cast<double>(twice * w[a]) * w[b]);
+          gram_add(G, s, lo, hi, fixed_value(v));
         }
       }
     }
@@ -214,25 +248,35 @@ __global__ void ell_norm_matmat_t_kernel(const float* __restrict__ vals,
   }
 }
 
+cudaError_t sm_count(int* sms) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  return err;
+}
+
 }  // namespace
 
-// vals, idx: (nch, r, c) flattened to nnz entries (f32, i32); out (s,) f32,
-// zeroed by the caller.
+// vals, idx: nnz entries (f32, i32), the (n, r) or (nch, r, c) layout
+// flattened; out (s,) float64, zeroed by the caller.
 extern "C" int flgp_ell_colsum_t(const void* vals, const void* idx, long long nnz, int s,
                                  void* out, void* stream) {
   if (nnz <= 0) return static_cast<int>(cudaSuccess);
-  long long blocks = (nnz + kThreads - 1) / kThreads;
-  if (blocks > 132 * 4) blocks = 132 * 4;
-  const size_t smem = s <= kMaxSmemBins ? static_cast<size_t>(s) * sizeof(float) : 0;
-  ell_colsum_t_kernel<<<static_cast<unsigned>(blocks), kThreads, smem,
+  int sms = 0;
+  const cudaError_t err = sm_count(&sms);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  long long blocks = (nnz + kColsumThreads - 1) / kColsumThreads;
+  if (blocks > sms) blocks = sms;
+  const size_t smem = s <= kMaxSmemBins ? static_cast<size_t>(s) * sizeof(unsigned) : 0;
+  ell_colsum_t_kernel<<<static_cast<unsigned>(blocks), kColsumThreads, smem,
                         static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(vals), static_cast<const int*>(idx), nnz, s,
-      static_cast<float*>(out));
+      static_cast<double*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 
-// vals, idx (nch, r, c); cscale (s,) -> G (s, s), D (s,), both float64, and
-// stats (2,) uint64 (pair additions kept in shared memory, sent to global
+// vals, idx (nch, r, c), or (n, r) with nch = n, c = 1; cscale (s,) -> G (s, s),
+// D (s,), both float64, and stats (2,) uint64 (pair additions kept in shared memory, sent to global
 // cells), all zeroed by the caller.  table_slots: the shared-memory table's
 // size, a power of two in [2, 2^14], 0 for the default; s above 46340 runs
 // without the table.
@@ -245,11 +289,10 @@ extern "C" int flgp_ell_norm_gram_t(const void* vals, const void* idx, const voi
   if (table_slots < 0 || slots < 2 || slots > kGramSlots || (slots & (slots - 1)))
     return static_cast<int>(cudaErrorInvalidValue);
   if (s > kGramMaxKeyS) slots = 0;
-  const size_t smem = static_cast<size_t>(slots) * (sizeof(int) + sizeof(float)) +
-                      (s <= kMaxSmemBins ? static_cast<size_t>(s) * sizeof(float) : 0);
-  int dev = 0, sms = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const size_t smem = static_cast<size_t>(slots) * (sizeof(int) + sizeof(unsigned)) +
+                      (s <= kMaxSmemBins ? static_cast<size_t>(s) * sizeof(unsigned) : 0);
+  int sms = 0;
+  cudaError_t err = sm_count(&sms);
   if (err != cudaSuccess) return static_cast<int>(err);
   long long blocks = (npts + kGramThreads - 1) / kGramThreads;
   if (blocks > sms) blocks = sms;

@@ -36,8 +36,6 @@ _SIGNATURES = {
     "flgp_knn": [_P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P],
     "flgp_lae": [_P, _L, _L, _P, _P, _L, _L, _I, _I, _I, _I, _I, _P, _I, _P, _P],
     "flgp_lae_div_check": [_I, _P, _P],
-    "flgp_ell_colsum": [_P, _P, _L, _I, _P, _P],
-    "flgp_ell_norm_gram": [_P, _P, _P, _I, _I, _I, ctypes.c_float, _P, _P, _P],
     "flgp_ell_norm_matmat": [_P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_float, _P, _P],
     "flgp_ell_colsum_t": [_P, _P, _L, _I, _P, _P],
     "flgp_ell_norm_gram_t": [_P, _P, _P, _I, _I, _I, _I, ctypes.c_float, _I, _P, _P, _P, _P],

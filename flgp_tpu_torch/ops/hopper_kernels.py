@@ -2,14 +2,18 @@
 operator product ``ell_sym_matmat``, with their plain versions.
 
 K1 ``knn`` (csrc/knn.cu), K2 ``lae_weights`` (csrc/lae.cu), K3–K5
-``ell_colsum``, ``ell_norm_gram``, ``ell_norm_matmat`` (csrc/ell.cu), their
-chunked feature-major variants K6–K8 ``ell_colsum_t``, ``ell_norm_gram_t``,
-``ell_norm_matmat_t`` (csrc/ell_t.cu) and K9 ``ell_matmat``
-(csrc/ell_matmat.cu) replace the TPU kernels of the same names in
-flgp_tpu/ops/pallas_kernels.py (K2: ``fused_lae_tiles``, with the Gram
-assembly that feeds it).  ``ell_sym_matmat`` (csrc/ell_matmat.cu) is K9's
-gather applied to a graph and to its transpose in one launch: the product
-(Z + Zᵀ)·X of the sparse GLGP operator.
+``ell_colsum``, ``ell_norm_gram``, ``ell_norm_matmat``, their chunked
+feature-major variants K6–K8 ``ell_colsum_t``, ``ell_norm_gram_t``,
+``ell_norm_matmat_t`` (csrc/ell_t.cu; K5 in csrc/ell.cu) and K9
+``ell_matmat`` (csrc/ell_matmat.cu) replace the TPU kernels of the same
+names in flgp_tpu/ops/pallas_kernels.py (K2: ``fused_lae_tiles``, with the
+Gram assembly that feeds it).  K3 and K4 launch the bodies of K6 and K7 on
+the point-major (n, r) layout, which is the chunked one with c = 1; their
+sums are exact (fixed point in shared memory, float64 across blocks), so
+C, Ĝ and D are the same bits on every launch.  ``ell_sym_matmat``
+(csrc/ell_matmat.cu) is K9's gather applied to a graph and to its
+transpose in one launch: the product (Z + Zᵀ)·X of the sparse GLGP
+operator.
 
 Each wrapper takes its plain PyTorch version for tensors on the CPU, and only
 then.  For CUDA tensors it checks device, dtype (float32 values, int32
@@ -207,6 +211,39 @@ def ell_colsum_plain(values: torch.Tensor, indices: torch.Tensor, s: int) -> tor
     return EllMatrix(values, indices, s).colsum()
 
 
+_FIXED_SCALE = 2.0 ** 24         # the kernels' fixed-point unit is 2^-24
+_FIXED_MAX = 128.0               # from this magnitude on a term is added as it is
+
+
+def _colsum_fixed_plain(values: torch.Tensor, indices: torch.Tensor, s: int) -> torch.Tensor:
+    """The column sums of K3 and K6 with their exact arithmetic, for the
+    tests and the smoke test only: each float32 term with |v| < 128 rounded
+    to a whole number of 2^-24 units (ties to even, as ``__float2int_rn``)
+    and the units summed in int64, a larger term added as it is in float64,
+    the total rounded to float32 once.  Any layout, any order of entries:
+    the kernels' C equals this bit for bit while a column's sum of |terms|
+    stays below 2^29."""
+    v = values.reshape(-1).double()
+    idx = indices.reshape(-1).long()
+    keep = (idx >= 0) & (idx < s) & (v != 0.0)
+    v, idx = v[keep], idx[keep]
+    small = torch.abs(v) < _FIXED_MAX
+    units = torch.where(small, torch.round(v * _FIXED_SCALE), 0.0).long()
+    total = torch.zeros((s,), dtype=torch.int64, device=v.device).index_add_(0, idx, units)
+    large = torch.zeros((s,), dtype=torch.float64, device=v.device).index_add_(
+        0, idx, torch.where(small, 0.0, v))
+    return (total.double() / _FIXED_SCALE + large).to(torch.float32)
+
+
+def _colsum(name: str, values: torch.Tensor, indices: torch.Tensor, s: int) -> torch.Tensor:
+    """K3 and K6: one launch over the flat entries of either layout into a
+    zeroed float64 (s,) buffer, rounded to float32 once."""
+    out = torch.zeros((s,), dtype=torch.float64, device=values.device)
+    _launch(name, values.device, _build.load().flgp_ell_colsum_t,
+            values.data_ptr(), indices.data_ptr(), values.numel(), s, out.data_ptr())
+    return out.to(torch.float32)
+
+
 def ell_colsum(values: torch.Tensor, indices: torch.Tensor, s: int) -> torch.Tensor:
     """Column sums C = 1ᵀZ of an (n, r) ELL graph (K3), shape (s,)."""
     if values.device.type == "cpu":
@@ -214,10 +251,7 @@ def ell_colsum(values: torch.Tensor, indices: torch.Tensor, s: int) -> torch.Ten
     n, r = values.shape
     _check("values", values, torch.float32, (n, r), values.device)
     _check("indices", indices, torch.int32, (n, r), values.device)
-    out = torch.zeros((s,), dtype=torch.float32, device=values.device)
-    _launch("ell_colsum", values.device, _build.load().flgp_ell_colsum,
-            values.data_ptr(), indices.data_ptr(), n * r, s, out.data_ptr())
-    return out
+    return _colsum("ell_colsum", values, indices, s)
 
 
 def _normalized(values: torch.Tensor, indices: torch.Tensor, cscale: torch.Tensor,
@@ -237,18 +271,33 @@ def ell_norm_gram(values: torch.Tensor, indices: torch.Tensor, cscale: torch.Ten
     """(Ĝ = ZₙᵀZₙ (s, s), D = colsum(Zₙ) (s,)) for Zₙ = rownorm(Z·diag(cscale)) (K4)."""
     if values.device.type == "cpu":
         return ell_norm_gram_plain(values, indices, cscale, eps)
+    return _ell_norm_gram(values, indices, cscale, eps, table_slots=0)[:2]
+
+
+def _ell_norm_gram(values: torch.Tensor, indices: torch.Tensor, cscale: torch.Tensor,
+                   eps: float, table_slots: int) -> Tuple[torch.Tensor, ...]:
+    """K4 on CUDA tensors: K7's body on the (n, r) layout; ``table_slots``
+    and the counts returned beside Ĝ and D as in ``_ell_norm_gram_t``."""
     n, r = values.shape
-    s = cscale.shape[0]
-    _check_fan_in(r)
     _check("values", values, torch.float32, (n, r), values.device)
     _check("indices", indices, torch.int32, (n, r), values.device)
+    return _gram("ell_norm_gram", values, indices, cscale, eps, table_slots, n, r, 1)
+
+
+def _gram(name: str, values: torch.Tensor, indices: torch.Tensor, cscale: torch.Tensor,
+          eps: float, table_slots: int, nch: int, r: int, c: int) -> Tuple[torch.Tensor, ...]:
+    """K4 and K7: one launch into a zeroed float64 buffer that holds Ĝ, D
+    and the two counts; Ĝ and D rounded to float32 once, in one cast."""
+    s = cscale.shape[0]
+    _check_fan_in(r)
     _check("cscale", cscale, torch.float32, (s,), values.device)
-    G = torch.zeros((s, s), dtype=torch.float32, device=values.device)
-    D = torch.zeros((s,), dtype=torch.float32, device=values.device)
-    _launch("ell_norm_gram", values.device, _build.load().flgp_ell_norm_gram,
-            values.data_ptr(), indices.data_ptr(), cscale.data_ptr(), n, r, s, float(eps),
-            G.data_ptr(), D.data_ptr())
-    return G, D
+    buf = torch.zeros((s * s + s + 2,), dtype=torch.float64, device=values.device)
+    stats = buf[s * s + s:].view(torch.int64)
+    _launch(name, values.device, _build.load().flgp_ell_norm_gram_t,
+            values.data_ptr(), indices.data_ptr(), cscale.data_ptr(), nch, r, c, s, float(eps),
+            int(table_slots), buf.data_ptr(), buf[s * s:].data_ptr(), stats.data_ptr())
+    out = buf[:s * s + s].to(torch.float32)
+    return out[:s * s].view(s, s), out[s * s:], stats
 
 
 def ell_norm_matmat_plain(values: torch.Tensor, indices: torch.Tensor, cscale: torch.Tensor,
@@ -306,11 +355,8 @@ def ell_colsum_t(values: torch.Tensor, indices: torch.Tensor, s: int) -> torch.T
     """Column sums C = 1ᵀZ of a chunked (nch, r, c) ELL graph (K6), shape (s,)."""
     if values.device.type == "cpu":
         return ell_colsum_t_plain(values, indices, s)
-    nch, r, c = _check_t(values, indices)
-    out = torch.zeros((s,), dtype=torch.float32, device=values.device)
-    _launch("ell_colsum_t", values.device, _build.load().flgp_ell_colsum_t,
-            values.data_ptr(), indices.data_ptr(), nch * r * c, s, out.data_ptr())
-    return out
+    _check_t(values, indices)
+    return _colsum("ell_colsum_t", values, indices, s)
 
 
 def ell_norm_gram_t_plain(values: torch.Tensor, indices: torch.Tensor, cscale: torch.Tensor,
@@ -338,22 +384,13 @@ def _ell_norm_gram_t(values: torch.Tensor, indices: torch.Tensor, cscale: torch.
                      eps: float, table_slots: int) -> Tuple[torch.Tensor, ...]:
     """K7 on CUDA tensors.  ``table_slots`` is the size of the kernel's
     shared-memory table of pair sums (a power of two in [2, 16384]; 0 lets the
-    entry point choose).  The result does not depend on it, only the share of
-    additions that stay in shared memory; the tests force it.  Also returns
-    the kernel's counts (pair additions kept in shared memory, sent straight
-    to the global cells) as an int64 tensor on the device."""
+    entry point choose).  The result does not depend on it, bit for bit: only
+    the share of additions that stay in shared memory does; the tests force
+    it.  Also returns the kernel's counts (pair additions kept in shared
+    memory, sent straight to the global cells) as an int64 tensor on the
+    device."""
     nch, r, c = _check_t(values, indices)
-    s = cscale.shape[0]
-    _check_fan_in(r)
-    _check("cscale", cscale, torch.float32, (s,), values.device)
-    # float64 accumulators, rounded to float32 once (see csrc/ell_t.cu); the
-    # two counts ride in the same zeroed buffer
-    buf = torch.zeros((s * s + s + 2,), dtype=torch.float64, device=values.device)
-    G, D, stats = buf[:s * s].view(s, s), buf[s * s:s * s + s], buf[s * s + s:].view(torch.int64)
-    _launch("ell_norm_gram_t", values.device, _build.load().flgp_ell_norm_gram_t,
-            values.data_ptr(), indices.data_ptr(), cscale.data_ptr(), nch, r, c, s, float(eps),
-            int(table_slots), G.data_ptr(), D.data_ptr(), stats.data_ptr())
-    return G.to(torch.float32), D.to(torch.float32), stats
+    return _gram("ell_norm_gram_t", values, indices, cscale, eps, table_slots, nch, r, c)
 
 
 def ell_norm_matmat_t_plain(values: torch.Tensor, indices: torch.Tensor, cscale: torch.Tensor,

@@ -230,6 +230,96 @@ def test_ell_kernels_match_plain(dev, gen, r):
                                atol=1e-5)
 
 
+def _point_major_graph(gen, dev, n, r, s):
+    """An (n, r) graph with duplicates, a repeated anchor in every third row
+    and an out-of-range index at [0, 0]; also the plain versions' inputs,
+    where that entry is a zero weight on anchor 0 (it adds nothing)."""
+    vals = gen.uniform(0.1, 1.0, size=(n, r))
+    idx = gen.integers(0, s, size=(n, r))
+    if r > 1:
+        idx[::3, 1] = idx[::3, 0]
+    idx[0, 0] = s
+    v, i = _cuda(vals, dev), _cuda(idx, dev, torch.int32)
+    v0, i0 = v.clone(), i.clone()
+    v0[0, 0], i0[0, 0] = 0.0, 0
+    return v, i, v0, i0
+
+
+def _chunked(a, c):
+    """The (nch, r, c) layout of an (n, r) array, zero pads past n."""
+    n, r = a.shape
+    nch = -(-n // c)
+    out = a.new_zeros((nch * c, r))
+    out[:n] = a
+    return out.view(nch, c, r).transpose(1, 2).contiguous()
+
+
+@pytest.mark.parametrize("s", [64, 13000])
+@pytest.mark.parametrize("r", [1, 3, 5, 9, 16])
+def test_ell_colsum_is_exact(dev, gen, r, s):
+    """K3 (and K6, on the chunked layout of the same graph) sum in fixed
+    point: C equals ``_colsum_fixed_plain`` bit for bit, whatever the layout,
+    the launch or s (s = 13000 keeps the histogram out of shared memory and
+    every term goes to the float64 cells), and lies within 1e-5·max|C| of the
+    float64 plain version.  A few negative terms and one of 200 (beyond the
+    fixed-point range) ride along; an out-of-range index adds nothing."""
+    from flgp_tpu_torch.ops import hopper_kernels as hk
+
+    v, i, v0, i0 = _point_major_graph(gen, dev, 4000, r, s)
+    v[1::97, -1] *= -1.0
+    v0[1::97, -1] *= -1.0
+    v[2, 0] = v0[2, 0] = 200.0
+    before = dict(hk.LAUNCHES)
+    C = hk.ell_colsum(v, i, s)
+    C_t = hk.ell_colsum_t(_chunked(v, 768), _chunked(i, 768), s)
+    torch.cuda.synchronize()
+    assert hk.LAUNCHES["ell_colsum"] == before["ell_colsum"] + 1
+    assert hk.LAUNCHES["ell_colsum_t"] == before["ell_colsum_t"] + 1
+    assert torch.equal(C, hk._colsum_fixed_plain(v, i, s))
+    assert torch.equal(C_t, C)
+    assert torch.equal(hk.ell_colsum(v, i, s), C)
+    ref = hk.ell_colsum_plain(v0.double(), i0, s)
+    assert float(torch.max(torch.abs(C - ref))) <= 1e-5 * float(torch.max(torch.abs(ref)))
+
+
+@pytest.mark.parametrize("table_slots", [0, 2, 64, 16384])
+@pytest.mark.parametrize("s", [64, 13000])
+@pytest.mark.parametrize("r", [1, 3, 5, 9, 16])
+def test_ell_norm_gram_is_exact(dev, gen, r, s, table_slots):
+    """K4 through K7's body with c = 1: within 1e-5·max of the float64 plain
+    version; repeated anchors (their product on the diagonal twice) and an
+    out-of-range index; r = 9, 16 take the rolled instances; s = 13000 keeps
+    D out of shared memory.  Every sum is exact, so Ĝ and D are the same
+    bits on a second launch, with any table size, and on K7 over the chunked
+    layout of the same graph; the counts add up to the r(r+1)/2 pairs of
+    every point with a weight."""
+    from flgp_tpu_torch.config import EPS
+    from flgp_tpu_torch.ops import hopper_kernels as hk
+
+    n = 4000
+    v, i, v0, i0 = _point_major_graph(gen, dev, n, r, s)
+    cs = _cuda(gen.uniform(0.5, 2.0, size=s), dev)
+    before = hk.LAUNCHES["ell_norm_gram"]
+    G, D, stats = hk._ell_norm_gram(v, i, cs, EPS, table_slots)
+    torch.cuda.synchronize()
+    assert hk.LAUNCHES["ell_norm_gram"] == before + 1
+    Gp, Dp = hk.ell_norm_gram_plain(v0.double(), i0, cs.double(), EPS)
+    assert float(torch.max(torch.abs(G - Gp))) <= 1e-5 * float(torch.max(torch.abs(Gp)))
+    assert float(torch.max(torch.abs(D - Dp))) <= 1e-5 * float(torch.max(torch.abs(Dp)))
+    kept, spilled = (int(x) for x in stats)
+    assert kept + spilled == n * r * (r + 1) // 2 - r
+    if table_slots == 2:
+        assert spilled > 0.9 * (kept + spilled)
+    if table_slots in (0, 16384) and s == 64:
+        assert spilled == 0
+    G2, D2 = hk.ell_norm_gram(v, i, cs)
+    assert torch.equal(G, G2) and torch.equal(D, D2)
+    G3, D3 = hk.ell_norm_gram_t(_chunked(v, 768), _chunked(i, 768), cs)
+    assert torch.equal(G, G3) and torch.equal(D, D3)
+    with pytest.raises(RuntimeError, match="cudaError"):
+        hk._ell_norm_gram(v, i, cs, EPS, 48)            # not a power of two
+
+
 def test_wrappers_reject_what_the_kernels_do_not_take(dev, gen):
     from flgp_tpu_torch.ops import hopper_kernels as hk
 
