@@ -3,8 +3,12 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --sass build/flgp_tpu_torch/<hash>/libflgp_kernels.so
+    python3 chip_smoke.py --subsample-times
 
-(the second only counts K2's instructions in a library already built).
+(the second only counts K2's instructions in a library already built; the
+third only times the n=1e6 subsample stage, four calls from one seed, with
+the package beside the script: a copy of the script in another tree of the
+repo times that tree's subsampler).
 Phases, each of which ends the script with a non-zero exit if it fails:
 
 1. the card: name and power limit from nvidia-smi; a CUDA device is required
@@ -32,9 +36,10 @@ Phases, each of which ends the script with a non-zero exit if it fails:
    kernels must be launched by it), then a second, warm fit for its time;
 5. the n=1e6 fit (error ≤ 0.03), its wall time, build_spectrum's time alone
    and the peak device memory; then the port's subsampler twice from one
-   seed, two fits on the first draw's anchors from one generator seed (both
-   learned t's printed) and two ``spectrum_fused`` calls on that graph,
-   which must give the same eigenvalues and vectors bit for bit;
+   seed, timed, which must return the same anchors bit for bit, two fits on
+   the first draw's anchors from one generator seed (both learned t's
+   printed) and two ``spectrum_fused`` calls on that graph, which must give
+   the same eigenvalues and vectors bit for bit;
 6. K2's feature-major entry (one launch over the whole n=1e7 cloud on the
    chunked layout) vs its plain version, with the per-chunk composition it
    replaced beside it; the chunked feature-major kernels K6–K8 vs their
@@ -76,7 +81,23 @@ Phases, each of which ends the script with a non-zero exit if it fails:
 10. fits through the entry points, f32 graph and f64 tail, cold and warm:
     ``fit_gl_logit_gp`` (sparse LOBPCG; ``ell_sym_matmat`` must be launched)
     and ``fit_se_logit_gp`` (K9 must be) on the torus, ``fit_lae_regression_gp``,
-    ``fit_se_regression_gp`` and ``fit_nystrom_regression_gp`` on the spiral.
+    ``fit_se_regression_gp`` and ``fit_nystrom_regression_gp`` on the spiral;
+11. multiclass and the extras: K1–K5 vs their plain versions at the
+    multiclass shape (``mnist_like``: n = 7e4, d = 16, s = 600, r = 3,
+    K = 100; K1's differing rows near-ties only, at most 0.1% of them;
+    side rows, the kernels line keeps its shapes); the BASELINE multiclass
+    fit through ``fit_lae_logit_mult_gp`` (f32 graph, f64 tail, sigma 1e-3,
+    50 sweeps, ten classes) cold and warm from one generator seed, which
+    must give the same t, labels and posterior means bit for bit, must
+    launch K1–K5 and must reach the same fit's error in float64 on the card
+    (plain versions only) + 0.01; the fit stage by stage, its peak memory,
+    and its device activities (``torch.profiler``) beside the binary torus
+    fit's; ``fit_se_logit_mult_gp`` (K9 must be launched),
+    ``fit_nystrom_logit_mult_gp`` and ``fit_gl_logit_mult_gp`` (sparse
+    LOBPCG; ``ell_sym_matmat`` must be launched) at n = 5000, s = 500, each
+    held to its float64 run + 0.01; ``heat_kernel_covariance`` on the torus
+    (t = 1, (4800, 100), K1–K5 launched) and ``lae_eigenmap`` (s = 600,
+    r = 3, ten dimensions: eigenvalues sorted in [0, 2]).
 
 Beside each kernel's time stand its bound (the least time the card could
 take: compulsory bytes at 3.35 TB/s or operations at the 67 TFLOP/s float32
@@ -161,6 +182,10 @@ ERR_GATE = 0.03
 # the sparse GLGP spectrum's shape (a Gaussian cloud) and the README-size fits
 LOBPCG = dict(n=100_000, d=3, r=8, K=128, iters=60)
 SPIRAL = dict(n=4000, m=200, s=500, r=3, K=100)
+# the BASELINE multiclass configuration (n = 7e4, ten classes, d = 16) and the
+# grid drivers' smaller depth
+MNIST = dict(n=70_000, m=500, seed=0, s=600, r=3, K=100)
+MNIST_GRID = dict(n=5000, m=500, seed=0, s=500, r=3, K=100)
 RMSE_GATES = {"fit_lae_regression_gp": 0.60, "fit_se_regression_gp": 0.61,
               "fit_nystrom_regression_gp": 2.5}
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
@@ -407,10 +432,11 @@ def fused_over_draws(X, s: int, r: int, draws: int = 6) -> None:
           flush=True)
 
 
-def check_knn(label: str, X, U, r: int):
+def check_knn(label: str, X, U, r: int, max_share: float = 1e-4):
     """K1 against its plain version on the same inputs: rows may differ on
-    near-ties only, and none may at d = 2, where the kernel's d² is the
-    plain version's bit for bit; d² within 1e-5."""
+    near-ties only (at most ``max_share`` of them), and none may at d = 2,
+    where the kernel's d² is the plain version's bit for bit; d² within
+    1e-5."""
     n = X.shape[0]
     got = hk.knn(X, U, r)
     torch.cuda.synchronize()
@@ -426,8 +452,8 @@ def check_knn(label: str, X, U, r: int):
           f"not near-ties", flush=True)
     if X.shape[1] == 2 and n_differ:
         _fail(f"knn r={r} {label}: indices differ on {n_differ} of {n} rows at d = 2")
-    if n_differ > 1e-4 * n:
-        _fail(f"knn r={r} {label}: indices differ on {n_differ} of {n} rows (> 0.01%)")
+    if n_differ > max_share * n:
+        _fail(f"knn r={r} {label}: indices differ on {n_differ} of {n} rows (> {max_share:.2%})")
     if n_far:
         _fail(f"knn r={r} {label}: {n_far} differing rows are not near-ties")
     _allclose(f"knn d² r={r} {label}", got.sqdists, ref.sqdists, 1e-5, 1e-5)
@@ -475,11 +501,16 @@ def check_lae_chunk(X, U, r: int, results: dict) -> None:
           f"{_maxabs(got, ref):.3e}", flush=True)
 
 
-def check_kernels(label: str, cfg: dict, dev, results: dict) -> None:
-    """Each kernel against its plain version on the same device inputs."""
-    ds = torus_rings(n=cfg["n"], m_train=cfg["m"], seed=cfg["seed"])
-    X = torch.as_tensor(np.concatenate([ds.x_train, ds.x_test]), dtype=torch.float32,
-                        device=dev).contiguous()
+def cloud(ds, dev) -> torch.Tensor:
+    """The (n, d) float32 points [train; test] of a split on the card."""
+    return torch.as_tensor(np.concatenate([ds.x_train, ds.x_test]), dtype=torch.float32,
+                           device=dev).contiguous()
+
+
+def check_kernels(label: str, X, cfg: dict, dev, results: dict, max_share: float = 1e-4) -> None:
+    """Each kernel against its plain version on the same device inputs: the
+    points X at the config's s, r and K (K1's differing rows at most
+    ``max_share``)."""
     n, s, r, K = X.shape[0], cfg["s"], cfg["r"], cfg["K"]
     g = torch.Generator(device=dev).manual_seed(7)
     U = X[torch.randperm(n, generator=g, device=dev)[:s]].contiguous()
@@ -504,7 +535,7 @@ def check_kernels(label: str, cfg: dict, dev, results: dict) -> None:
 
     # K1 at the graph's r and at k-means‖'s r = 1 over the candidate set
     for rr, UU in ((r, U), (1, Uc)):
-        got, ref = check_knn(label, X, UU, rr)
+        got, ref = check_knn(label, X, UU, rr, max_share)
         if rr == r:
             record("knn", _maxabs(got.sqdists, ref.sqdists),
                    cuda_ms(lambda: hk.knn(X, U, r), reps_k),
@@ -584,7 +615,7 @@ def check_kernels(label: str, cfg: dict, dev, results: dict) -> None:
            cuda_ms(lambda: torch.sparse.mm(csr, W), reps_k))
     rows.append(f"  {label:5s} torch.sparse.mm (CSR of the normalized graph) vs plain: "
                 f"max abs diff {lib_err:.3e}")
-    print(f"kernels vs plain, {label} shape (n={n}, s={s}, r={r}, K={K}), ms per call:")
+    print(f"kernels vs plain, {label} shape (n={n}, d={d}, s={s}, r={r}, K={K}), ms per call:")
     print("\n".join(rows), flush=True)
 
 
@@ -629,15 +660,28 @@ def large_fit(dev) -> None:
     same_anchors_fits(X_all, ds, big_cfg, dev)
 
 
+def timed_subsamples(X_all, g, dev, calls: int, seed: int = 2) -> tuple:
+    """The subsample stage (k-means‖ seeding + Lloyd) ``calls`` times from one
+    generator seed: (results, host seconds of each call, synchronized)."""
+    subs, times = [], []
+    for _ in range(calls):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        subs.append(subsample(torch.Generator(device=dev).manual_seed(seed), X_all, g.s,
+                              g.subsample, g.nstart, g.kmeans_iters))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return subs, times
+
+
 def same_anchors_fits(X_all, ds, cfg, dev) -> None:
-    """Whether the learned t at n=1e6 is a deterministic function of the
-    anchors: the port's subsampler twice from one seed (are the anchors
-    themselves the same?), then two fits on the first draw's anchors from
-    one generator seed, and two ``spectrum_fused`` calls on that draw's
-    graph.  Fails if the two spectra differ in any bit; t is reported."""
+    """Whether one seed gives one fit at n=1e6: the port's subsampler twice
+    from one seed must return the same anchors bit for bit (its cluster sums
+    add in an order fixed by the data), two fits on the first draw's anchors
+    from one generator seed, and two ``spectrum_fused`` calls on that draw's
+    graph, must give the same spectra bit for bit; t is reported."""
     g = cfg.graph
-    subs = [subsample(torch.Generator(device=dev).manual_seed(2), X_all, g.s, g.subsample,
-                      g.nstart, g.kmeans_iters) for _ in range(2)]
+    subs, sub_s = timed_subsamples(X_all, g, dev, 2)
     anchors_same = all(torch.equal(a, b) for a, b in zip(subs[0], subs[1]))
     sub = subs[0]
     fits = [ft.fit_lae_logit_gp(torch.Generator(device=dev).manual_seed(5), ds.x_train, ds.y_train,
@@ -665,11 +709,13 @@ def same_anchors_fits(X_all, ds, cfg, dev) -> None:
           f"two spectrum_fused calls on that graph (K3, K4, eigh, K5: {tail_s[0]:.4f} s, "
           f"{tail_s[1]:.4f} s): eigenvalues and vectors {'identical' if same else 'differ'} (max "
           f"abs diff of the eigenvalues {_maxabs(spectra[0].values, spectra[1].values):.3e}); "
-          f"the subsampler twice from one seed: anchors {'identical' if anchors_same else 'differ'} "
-          f"(max abs diff of the centers {_maxabs(subs[0].centers, subs[1].centers):.3e})",
-          flush=True)
+          f"the subsampler twice from one seed ({sub_s[0]:.3f} s, {sub_s[1]:.3f} s): anchors "
+          f"{'identical' if anchors_same else 'differ'} (max abs diff of the centers "
+          f"{_maxabs(subs[0].centers, subs[1].centers):.3e})", flush=True)
     if not (same and fit_same):
         _fail("n=1e6: two spectra of one graph differ")
+    if not anchors_same:
+        _fail("n=1e6: the subsampler twice from one seed returned anchors that differ")
     if max(errs) > ERR_GATE:
         _fail(f"n=1e6 test error {max(errs)} > {ERR_GATE} (fits on one anchor set)")
 
@@ -1241,7 +1287,9 @@ def lobpcg_spectrum(dev, op) -> None:
 
 def entry_fit(name: str, ds, cfg, dev, seed: int, cold_and_warm: bool = True) -> dict:
     """One driver through its entry point, on the card by default (no
-    ``device=`` argument), cold then warm; launches are the cold fit's."""
+    ``device=`` argument), cold then warm from the same generator seed;
+    launches are the cold fit's, ``first`` its result.  A multiclass driver's
+    moments are (n_test, J)."""
     out = {}
     for label in ("cold", "warm") if cold_and_warm else ("cold",):
         hk.reset_launches()
@@ -1253,15 +1301,18 @@ def entry_fit(name: str, ds, cfg, dev, seed: int, cold_and_warm: bool = True) ->
         out[f"{label}_s"] = time.perf_counter() - t0
         if label == "cold":
             out["launches"] = {k: v for k, v in hk.LAUNCHES.items() if v}
+            out["first"] = res
     n_test = ds.x_test.shape[0]
-    for nm in ("y_test", "posterior_mean", "posterior_cov"):
+    moments = (n_test, int(np.max(ds.y_train)) + 1) if "_mult_" in name else (n_test,)
+    for nm, shape in (("y_test", (n_test,)), ("posterior_mean", moments),
+                      ("posterior_cov", moments)):
         arr = getattr(res, nm)
-        if arr.shape != (n_test,) or not np.all(np.isfinite(arr)):
+        if arr.shape != shape or not np.all(np.isfinite(arr)):
             _fail(f"{name} {nm}: shape {arr.shape} or non-finite values")
     if res.eigenpair.vectors.device.type != "cuda":
         _fail(f"{name} ran on {res.eigenpair.vectors.device}, not on the card")
     out["res"] = res
-    if name.endswith("logit_gp"):
+    if "_logit_" in name:
         out["score"] = float(np.mean(res.y_test != ds.y_test))
     else:
         out["score"] = float(np.sqrt(np.mean((res.y_test - ds.y_test) ** 2)))
@@ -1269,10 +1320,11 @@ def entry_fit(name: str, ds, cfg, dev, seed: int, cold_and_warm: bool = True) ->
 
 
 def _report_fit(name: str, what: str, f: dict) -> None:
-    pars = {k: float(v) if np.ndim(v) == 0 else f"({np.size(v)},)" for k, v in f["res"].pars.items()}
+    pars = {k: float(v) if np.ndim(v) == 0 else [float(f"{x:.6g}") for x in np.ravel(v)]
+            for k, v in f["res"].pars.items()}
     metrics = "" if f["res"].metrics is None else f"  metrics {f['res'].metrics}"
     warm = f"  warm {f['warm_s']:.3f} s" if "warm_s" in f else ""
-    print(f"{name} ({what}): {'err' if name.endswith('logit_gp') else 'rmse'} {f['score']:.6f}  "
+    print(f"{name} ({what}): {'err' if '_logit_' in name else 'rmse'} {f['score']:.6f}  "
           f"cold {f['cold_s']:.3f} s{warm}  pars {pars}{metrics}  launches {f['launches']}",
           flush=True)
 
@@ -1325,6 +1377,205 @@ def grid_fits(dev) -> dict:
             "ell_matmat": se["launches"]["ell_matmat"]}
 
 
+def mult_cfg(shape: dict, dtype, **kw):
+    """The BASELINE multiclass configuration (sigma 1e-3, 50 sweeps, the last
+    25 averaged) at a shape; float32 takes the float64 solve tail."""
+    return ft.FitConfig(graph=ft.GraphConfig(s=shape["s"], r=shape["r"], K=shape["K"]),
+                        sigma=1e-3, n_gibbs=50, gibbs_avg_sweeps=25, dtype=dtype,
+                        solve_dtype=torch.float64 if dtype == torch.float32 else None, **kw)
+
+
+def mult_stages(ds, cfg, dev, seed: int) -> dict:
+    """The LAE multiclass fit stage by stage, as ``fit_lae_logit_mult_gp``
+    runs it (the same generator draws in the same order), with a sync after
+    each stage: host seconds per stage, the learned t and the labels."""
+    from flgp_tpu_torch.fit import multiclass as mc
+
+    g, times = cfg.graph, {}
+
+    def stage(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times[name] = time.perf_counter() - t0
+        return out
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    X_all = cloud(ds, dev)
+    m, n = len(ds.y_train), X_all.shape[0]
+    K = min(g.resolved_K(), g.s, n)
+    Y = torch.as_tensor(ds.y_train, dtype=cfg.dtype, device=dev)
+    aug = mc.one_hot_labels(Y, int(torch.max(Y)) + 1)
+    sub = stage("subsample", lambda: subsample(gen, X_all, g.s, g.subsample, g.nstart,
+                                               g.kmeans_iters))
+    centers = sub.centers.contiguous()
+
+    def graph():
+        idx = knn(X_all, centers, g.r).indices
+        return idx, lae_weights(X_all, centers, idx)
+
+    idx, w = stage("graph", graph)
+    eig = stage("spectrum", lambda: spectrum_fused(w, idx, g.s, g.resolved_K(), g.gl, g.root,
+                                                   sub.counts))
+    scfg, seig, (aug_s,) = _solve_cast(cfg, eig, aug)
+    res = stage("train", lambda: mc._train_mult(seig, aug_s, m, K, scfg))
+    labels, _ = stage("predict", lambda: mc._predict_mult(gen, seig, aug_s, res.x, m, n, K, scfg))
+    stage("posterior", lambda: mc._posterior_mult(seig, aug_s, res.x, m, n, K, scfg.sigma))
+    return dict(times=times, t=res.x.cpu().numpy(), y_test=labels[m:].cpu().numpy())
+
+
+def device_activities(fn) -> int:
+    """Device activities (kernels, copies, memsets) that ``fn`` queues,
+    counted by ``torch.profiler``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA)
+
+
+def gated_mult_fit(name: str, what: str, ds, shape: dict, dev, cold_and_warm: bool = False,
+                   **kw) -> dict:
+    """A multiclass driver with the float32 graph and float64 tail, held to
+    the same fit in float64 on the card (plain versions only) + 0.01."""
+    f = entry_fit(name, ds, mult_cfg(shape, torch.float32, **kw), dev, seed=0,
+                  cold_and_warm=cold_and_warm)
+    _report_fit(name, what, f)
+    f64 = entry_fit(name, ds, mult_cfg(shape, torch.float64, **kw), dev, seed=0,
+                    cold_and_warm=False)
+    _report_fit(name, "the same in float64, plain versions only", f64)
+    gate = f64["score"] + 0.01
+    print(f"{name} gate: err {f['score']:.6f} <= {gate:.6f}", flush=True)
+    if f["score"] > gate:
+        _fail(f"{name} test error {f['score']} > {gate} (float64 + 0.01)")
+    if not np.all(np.isfinite(f["res"].pars["t"])) or np.shape(f["res"].pars["t"]) != (
+            int(np.max(ds.y_train)) + 1,):
+        _fail(f"{name}: pars['t'] {f['res'].pars['t']} is not finite and one a class")
+    return f
+
+
+def multiclass_phase(dev, results: dict) -> dict:
+    """Phase 11: K1–K5 at the multiclass shape, the BASELINE multiclass fit
+    (n = 7e4, d = 16, ten classes) through ``fit_lae_logit_mult_gp`` cold and
+    warm from one seed (the same bits), stage by stage, its device
+    activities beside the binary torus fit's, the grid drivers at n = 5000,
+    and the extras.  Returns the LAE fit's launches."""
+    from flgp_tpu_torch.datasets import mnist_like
+
+    cfg = MNIST
+    ds = mnist_like(n=cfg["n"], m_train=cfg["m"], seed=cfg["seed"])
+    X = cloud(ds, dev)
+    # at d = 16 K1's fmaf chain and the plain version's GEMM of depth 16 round
+    # x·u differently: near-ties may swap, up to 0.1% of rows, as for self-kNN
+    check_kernels("mnist", X, cfg, dev, results, max_share=1e-3)
+    del X
+    torch.cuda.empty_cache()
+
+    torch.cuda.reset_peak_memory_stats()
+    lae = gated_mult_fit("fit_lae_logit_mult_gp", "mnist_like n=70000, d=16, J=10, s=600",
+                         ds, cfg, dev, cold_and_warm=True)
+    peak = torch.cuda.max_memory_allocated()
+    first, warm = lae["first"], lae["res"]
+    same = (np.array_equal(first.pars["t"], warm.pars["t"])
+            and np.array_equal(first.y_test, warm.y_test)
+            and np.array_equal(first.posterior_mean, warm.posterior_mean))
+    print(f"fit_lae_logit_mult_gp twice from one generator seed: t, labels and posterior means "
+          f"{'the same bits' if same else 'differ'}; peak memory {peak / 2**30:.2f} GiB "
+          f"(cold and warm fit and the float64 one)", flush=True)
+    if not same:
+        _fail("fit_lae_logit_mult_gp: two fits from one seed differ (t or labels)")
+    missing = [k for k in MAIN_PATH if lae["launches"].get(k, 0) == 0]
+    if missing:
+        _fail(f"fit_lae_logit_mult_gp launched no {missing} kernel")
+    if lae["res"].eigenpair.vectors.device.type != "cuda":
+        _fail("fit_lae_logit_mult_gp: the eigenpair is not on the card")
+
+    f32 = mult_cfg(cfg, torch.float32)
+    torch.cuda.reset_peak_memory_stats()
+    st = mult_stages(ds, f32, dev, seed=0)
+    peak1 = torch.cuda.max_memory_allocated()
+    same = np.array_equal(st["t"], first.pars["t"]) and np.array_equal(st["y_test"], first.y_test)
+    print("fit_lae_logit_mult_gp stage by stage (s): " + "  ".join(
+        f"{k} {v:.3f}" for k, v in st["times"].items()) + f"  sum {sum(st['times'].values()):.3f};"
+          f" t and labels {'the entry point' + chr(39) + 's bits' if same else 'differ'}; peak "
+          f"memory of this one fit {peak1 / 2**30:.2f} GiB", flush=True)
+    tor = SHAPES["torus"]
+    tds = torus_rings(n=tor["n"], m_train=tor["m"], seed=tor["seed"])
+    tor_cfg = ft.FitConfig(graph=ft.GraphConfig(s=tor["s"], r=tor["r"], K=tor["K"]), sigma=1e-3,
+                           dtype=torch.float32, solve_dtype=torch.float64)
+    acts = {label: device_activities(lambda: getattr(ft, nm)(
+        torch.Generator(device=dev).manual_seed(0), d.x_train, d.y_train, d.x_test, cfg=c))
+        for label, nm, d, c in (("multiclass n=7e4", "fit_lae_logit_mult_gp", ds, f32),
+                                ("binary torus", "fit_lae_logit_gp", tds, tor_cfg))}
+    print(f"device activities a fit (torch.profiler: kernels, copies, memsets): {acts}",
+          flush=True)
+
+    ds5 = mnist_like(n=MNIST_GRID["n"], m_train=MNIST_GRID["m"], seed=MNIST_GRID["seed"])
+    what = "mnist_like n=5000, d=16, J=10, s=500, 10 bandwidths"
+    se = gated_mult_fit("fit_se_logit_mult_gp", what, ds5, MNIST_GRID, dev)
+    if se["launches"].get("ell_matmat", 0) == 0:
+        _fail(f"fit_se_logit_mult_gp launched no ell_matmat kernel: {se['launches']}")
+    gated_mult_fit("fit_nystrom_logit_mult_gp", what, ds5, MNIST_GRID, dev)
+    gl = gated_mult_fit("fit_gl_logit_mult_gp", what + ", sparse LOBPCG", ds5, MNIST_GRID, dev,
+                        gl_sparse=True, gl_solver="lobpcg")
+    if gl["launches"].get("ell_sym_matmat", 0) == 0:
+        _fail(f"fit_gl_logit_mult_gp launched no ell_sym_matmat kernel: {gl['launches']}")
+
+    extras(dev)
+    return lae["launches"]
+
+
+def extras(dev) -> None:
+    """``heat_kernel_covariance`` (torus, t = 1) and ``lae_eigenmap`` (torus,
+    s = 600, r = 3, ten dimensions) on float32 points, through the entry
+    points."""
+    tor = SHAPES["torus"]
+    ds = torus_rings(n=tor["n"], m_train=tor["m"], seed=tor["seed"])
+    hk.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    H = ft.heat_kernel_covariance(torch.Generator(device=dev).manual_seed(0),
+                                  ds.x_train.astype(np.float32), ds.x_test.astype(np.float32), 1.0,
+                                  ft.GraphConfig(s=tor["s"], r=tor["r"], K=tor["K"]))
+    torch.cuda.synchronize()
+    hk_s, hk_launches = time.perf_counter() - t0, {k: v for k, v in hk.LAUNCHES.items() if v}
+    sym = _maxabs(H[:tor["m"]], H[:tor["m"]].T)
+    print(f"heat_kernel_covariance (torus, t=1): shape {tuple(H.shape)}, {hk_s:.3f} s, "
+          f"max|H[:m] - H[:m]ᵀ| {sym:.3e}, launches {hk_launches}", flush=True)
+    if tuple(H.shape) != (tor["n"], tor["m"]) or not bool(torch.all(torch.isfinite(H))):
+        _fail(f"heat_kernel_covariance: shape {tuple(H.shape)} or non-finite values")
+    missing = [k for k in MAIN_PATH if hk_launches.get(k, 0) == 0]
+    if missing:
+        _fail(f"heat_kernel_covariance launched no {missing} kernel")
+    hk.reset_launches()
+    vals, vecs = ft.lae_eigenmap(torch.Generator(device=dev).manual_seed(0),
+                                 cloud(ds, dev), tor["s"], tor["r"], 10)
+    torch.cuda.synchronize()
+    v = vals.double().cpu().numpy()
+    print(f"lae_eigenmap (torus, s=600, r=3, 10 dimensions): eigenvalues {np.array2string(v, precision=6)}, "
+          f"vectors {tuple(vecs.shape)}, launches {({k: x for k, x in hk.LAUNCHES.items() if x})}",
+          flush=True)
+    # 1 − σ, σ ≤ 1 up to the float32 rounding of the (s, s) Gram's eigenvalues
+    if not (np.all(np.diff(v) >= 0) and v[0] >= -1e-4 and v[-1] <= 2.0) or vecs.shape != (
+            tor["n"], 10):
+        _fail("lae_eigenmap: eigenvalues not sorted in [0, 2] or vectors of the wrong shape")
+
+
+def subsample_stage_times(dev, calls: int = 4) -> None:
+    """The n=1e6 subsample stage alone, ``calls`` times from one seed: the
+    times, and whether every call gave the first one's anchors."""
+    big = SHAPES["large"]
+    X_all = cloud(torus_rings(n=big["n"], m_train=big["m"], seed=big["seed"]), dev)
+    subs, times = timed_subsamples(X_all, ft.GraphConfig(s=big["s"], r=big["r"], K=big["K"]), dev,
+                                   calls)
+    same = all(torch.equal(a.centers, subs[0].centers) for a in subs)
+    print(f"n=1e6 subsample stage (k-means‖ + Lloyd, s={big['s']}), {calls} calls from one seed: "
+          + ", ".join(f"{t:.4f}" for t in times) + f" s; anchors "
+          f"{'identical' if same else 'differ'}", flush=True)
+
+
 def main() -> None:
     # 1. the card
     if not torch.cuda.is_available():
@@ -1352,7 +1603,10 @@ def main() -> None:
     # 3. kernels vs plain versions
     results: dict = {}
     for label in ("torus", "large"):
-        check_kernels(label, SHAPES[label], dev, results)
+        cfg = SHAPES[label]
+        X = cloud(torus_rings(n=cfg["n"], m_train=cfg["m"], seed=cfg["seed"]), dev)
+        check_kernels(label, X, cfg, dev, results)
+        del X
     check_knn_chunk(dev, results)
 
     # 4. torus fit: the main path, through the entry point a user calls
@@ -1392,6 +1646,16 @@ def main() -> None:
 
     # 10. the bandwidth-grid and regression drivers through their entry points
     launches.update(grid_fits(dev))
+    torch.cuda.empty_cache()
+
+    # 11. multiclass and the extras
+    mult_launches = multiclass_phase(dev, results)
+    print("K1–K5 at the multiclass shape (side rows of the kernels line; launches per "
+          "fit_lae_logit_mult_gp): " + "; ".join(
+              f"{k} {results[k]['ms_mnist']:.4f} ms (bound {bound(results[k]['work_mnist'])[0]:.4f},"
+              f" plain {results[k]['plain_ms_mnist']:.4f}, library "
+              f"{'none' if results[k]['library_ms_mnist'] is None else format(results[k]['library_ms_mnist'], '.4f')}"
+              f") x {mult_launches.get(k, 0)}" for k in MAIN_PATH), flush=True)
 
     # K1–K5: launches of the torus fit, times at the n=1e6 shape; K6–K8:
     # launches of the first n=1e7 fit, times at the n=1e7 shape; K9: launches
@@ -1423,5 +1687,11 @@ def main() -> None:
 if __name__ == "__main__":
     if len(sys.argv) == 3 and sys.argv[1] == "--sass":
         print_sass(Path(sys.argv[2]))      # K2's step count of any build of the library
+    elif sys.argv[1:] == ["--subsample-times"]:
+        if not torch.cuda.is_available():
+            _fail("torch.cuda.is_available() is false: this smoke test needs an NVIDIA GPU")
+        pin_full_precision()
+        print(f"card: {card_line()}", flush=True)
+        subsample_stage_times(torch.device("cuda", 0))
     else:
         main()

@@ -2,6 +2,12 @@
 
 The chain alternates f | ω (a Gaussian draw, GPML Eq 3.27) and
 ω | f ~ PG(N, f), then predicts with the collapsed mean under the ω states.
+
+Every function also takes a leading class axis: C (J, m, m), Y (J, m) and
+Cnv (J, n, m) run J independent chains as the lanes of one chain (one
+batched Cholesky a sweep, one host loop), as the JAX package vmaps them over
+the classes.  Without the axis each call is the single chain it always was,
+with the same random stream.
 """
 
 from __future__ import annotations
@@ -15,8 +21,8 @@ from ..ops.polya_gamma import polya_gamma, polya_gamma_counts
 
 
 class PGChainState(NamedTuple):
-    f: torch.Tensor       # (m,) latent function values
-    omega: torch.Tensor   # (m,) PG auxiliaries
+    f: torch.Tensor       # (..., m) latent function values
+    omega: torch.Tensor   # (..., m) PG auxiliaries
 
 
 def _conditional_draw(C, L_C, kappa, omega, eps1, eps2):
@@ -31,14 +37,17 @@ def _conditional_draw(C, L_C, kappa, omega, eps1, eps2):
     whose covariance is exactly Σ, and μ = Cκ − C√ω B⁻¹ √ω(Cκ).  No ω
     division anywhere, so tiny PG draws stay safe."""
     sqrt_om = torch.sqrt(omega)
-    L_B = linalg.cholesky(linalg.add_diag(sqrt_om[:, None] * C * sqrt_om[None, :], 1.0))
+    L_B = linalg.cholesky(linalg.add_diag(sqrt_om[..., :, None] * C * sqrt_om[..., None, :], 1.0))
 
-    a = linalg.pdot(C, kappa[:, None])[:, 0]
-    mu = a - linalg.pdot(C, (sqrt_om * linalg.chol_solve(L_B, (sqrt_om * a)[:, None])[:, 0])[:, None])[:, 0]
+    def mv(A, v):
+        return linalg.pdot(A, v[..., None])[..., 0]
 
-    g = linalg.pdot(L_C, eps1[:, None])[:, 0]
-    c = linalg.chol_solve(L_B, (sqrt_om * g + eps2)[:, None])[:, 0]
-    f0 = g - linalg.pdot(C, (sqrt_om * c)[:, None])[:, 0]
+    a = mv(C, kappa)
+    mu = a - mv(C, sqrt_om * linalg.chol_solve(L_B, (sqrt_om * a)[..., None])[..., 0])
+
+    g = mv(L_C, eps1)
+    c = linalg.chol_solve(L_B, (sqrt_om * g + eps2)[..., None])[..., 0]
+    f0 = g - mv(C, sqrt_om * c)
     return mu + f0
 
 
@@ -58,14 +67,14 @@ def pg_gibbs_chain_trace(
 ):
     """Run the PG Gibbs chain from ω₀ = 1, f₀ = 0 (no burn-in or thinning).
 
-    Returns (final state, f trace (sweeps, m), ω trace (sweeps, m))."""
-    m = Y.shape[0]
+    Returns (final state, f trace (sweeps, ..., m), ω trace (sweeps, ..., m))."""
+    m = Y.shape[-1]
     if N is None:
         N = torch.ones((m,), dtype=C.dtype, device=C.device)
     kappa = Y - N / 2.0
     L_C = linalg.cholesky(linalg.add_diag(C, 1e-10))
 
-    state = PGChainState(C.new_zeros((m,)), C.new_ones((m,)))
+    state = PGChainState(C.new_zeros(Y.shape), C.new_ones(Y.shape))
     f_trace, omega_trace = [], []
     for _ in range(n_sweeps):
         f = _resample_f(generator, C, L_C, kappa, state.omega)
@@ -81,7 +90,7 @@ def pg_gibbs_chain_trace(
 
 def pg_gibbs_chain(generator, C, Y, n_sweeps: int = 100, N=None, max_count: int = 1
                    ) -> Tuple[PGChainState, torch.Tensor]:
-    """Run the PG Gibbs chain; returns final state and the f trace (sweeps, m)."""
+    """Run the PG Gibbs chain; returns final state and the f trace (sweeps, ..., m)."""
     state, f_trace, _ = pg_gibbs_chain_trace(generator, C, Y, n_sweeps, N, max_count)
     return state, f_trace
 
@@ -90,22 +99,30 @@ def collapsed_adjoints(C, Y, omega, N=None) -> torch.Tensor:
     """Dual weights adj = κ − √ω B⁻¹√ω (Cκ) of the collapsed mean under ω, so
     that the latent mean at any row x is C[x, train]·adj.
 
-    ω may carry leading batch dimensions (several states at once); the
-    result then has the same leading dimensions."""
-    m = Y.shape[0]
+    ω may carry leading batch dimensions (several states at once) before
+    the class axis of C and Y, if any; the result then has the same leading
+    dimensions."""
+    m = Y.shape[-1]
     if N is None:
         N = torch.ones((m,), dtype=C.dtype, device=C.device)
     kappa = Y - N / 2.0
     sqrt_om = torch.sqrt(omega)
     L_B = linalg.cholesky(linalg.add_diag(sqrt_om[..., :, None] * C * sqrt_om[..., None, :], 1.0))
-    Ck = linalg.pdot(C, kappa[:, None])[:, 0]
+    Ck = linalg.pdot(C, kappa[..., None])[..., 0]
     return kappa - sqrt_om * linalg.chol_solve(L_B, (sqrt_om * Ck)[..., None])[..., 0]
 
 
 def collapsed_predict(C, Cnv, Y, omega, N=None) -> torch.Tensor:
     """Collapsed posterior-mean probabilities at the rows of Cnv under ω
     (batched over leading dimensions of ω, as ``collapsed_adjoints``)."""
-    return torch.sigmoid(linalg.pdot(collapsed_adjoints(C, Y, omega, N), Cnv.T))
+    adj = collapsed_adjoints(C, Y, omega, N)
+    if Cnv.dim() == 2:
+        return torch.sigmoid(linalg.pdot(adj, Cnv.T))
+    # a class axis: one product a class, adj (..., J, m) against Cnv (J, n, m),
+    # as J batched GEMMs (broadcasting Cnv over the states would copy it)
+    lead, (J, m) = adj.shape[:-2], adj.shape[-2:]
+    out = linalg.pdot(adj.reshape(-1, J, m).transpose(0, 1), Cnv.mT)      # (J, states, n)
+    return torch.sigmoid(out.transpose(0, 1).reshape(lead + (J, Cnv.shape[1])))
 
 
 def test_pgbinary(
@@ -119,7 +136,7 @@ def test_pgbinary(
     avg_sweeps: int = 50,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Fit the PG chain and predict labels/probabilities at the rows of Cnv.
-    Returns (labels, probabilities).
+    Returns (labels, probabilities), each (..., n).
 
     With ``avg_sweeps > 0`` the collapsed probabilities are averaged over the
     last ``avg_sweeps`` ω states (Rao-Blackwellized); ``avg_sweeps=0``

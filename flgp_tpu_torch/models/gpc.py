@@ -20,7 +20,7 @@ import torch.nn.functional as F
 
 from ..config import EPS
 from ..ops import linalg
-from ..ops.heat_kernel import heat_kernel
+from ..ops.heat_kernel import heat_kernel, heat_kernel_diag
 from ..types import EigenPair
 
 
@@ -83,12 +83,25 @@ def _laplace_marginal(st: NewtonState, Y: torch.Tensor, N: torch.Tensor) -> torc
     return amll - st.logdet_half
 
 
+def gpc_marginal_log_likelihood(C, Y, N, tol: float = 1e-5, max_iter: int = 100) -> torch.Tensor:
+    """Laplace-approximate marginal log likelihood of the binomial-logit GP
+    (C includes the σ ridge); ``flgp_tpu.models.gpc.gpc_marginal_log_likelihood``."""
+    return gpc_marginal_log_likelihood_status(C, Y, N, tol, max_iter)[0]
+
+
 def gpc_marginal_log_likelihood_status(C, Y, N, tol: float = 1e-5, max_iter: int = 100):
     """Laplace-approximate marginal log likelihood of the binomial-logit GP
     (C includes the σ ridge), with the Newton status (iterations, final
     Σ|Δf|)."""
     st = _newton_mode(C, Y, N, tol, max_iter)
     return _laplace_marginal(st, Y, N), st.it, st.delta
+
+
+def gpc_marginal_log_likelihood_lowrank(Phi, Y, N, sigma: float, tol: float = 1e-5,
+                                        max_iter: int = 100) -> torch.Tensor:
+    """The Laplace marginal for C = ΦΦᵀ + σI by the K-dim Woodbury dual
+    (below); ``flgp_tpu.models.gpc.gpc_marginal_log_likelihood_lowrank``."""
+    return gpc_marginal_log_likelihood_lowrank_status(Phi, Y, N, sigma, tol, max_iter)[0]
 
 
 def gpc_marginal_log_likelihood_lowrank_status(Phi, Y, N, sigma: float, tol: float = 1e-5,
@@ -167,16 +180,28 @@ def gpc_nlp_objective(eigenpair: EigenPair, Y, N, idx, K: int, t, sigma: float,
 def gpc_posterior_moments(C11, C21, C22_diag, Y, tol: float = 1e-5, max_iter: int = 100
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Laplace predictive mean/variance at test points (GPML Alg 3.2),
-    Bernoulli counts (N = 1)."""
-    m = Y.shape[0]
+    Bernoulli counts (N = 1).  A leading batch axis (one lane per class) on
+    every argument gives one Newton run over the lanes."""
+    m = Y.shape[-1]
     N = torch.ones((m,), dtype=C11.dtype, device=C11.device)
     st = _newton_mode(C11, Y, N, tol, max_iter)
     pi = torch.sigmoid(st.f)
     sqrt_W = torch.sqrt(pi * (1.0 - pi))
-    L_B = linalg.cholesky(linalg.add_diag(sqrt_W[:, None] * C11 * sqrt_W[None, :], 1.0))
-    mean = linalg.pdot(C21, (Y - pi)[:, None])[:, 0]
+    L_B = linalg.cholesky(linalg.add_diag(sqrt_W[..., :, None] * C11 * sqrt_W[..., None, :], 1.0))
+    mean = linalg.pdot(C21, (Y - pi)[..., None])[..., 0]
     Binv = linalg.chol_solve(L_B, torch.eye(m, dtype=C11.dtype, device=C11.device))
-    beta = sqrt_W[:, None] * Binv * sqrt_W[None, :]
-    cov = C22_diag - torch.sum(linalg.pdot(C21, beta) * C21, dim=1)
+    beta = sqrt_W[..., :, None] * Binv * sqrt_W[..., None, :]
+    cov = C22_diag - torch.sum(linalg.pdot(C21, beta) * C21, dim=-1)
     return mean, cov
 
+
+def gpc_posterior_from_spectrum(eigenpair: EigenPair, Y, idx0, idx1, K: int, t, sigma: float
+                                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Assemble (C11 + σI, C21, diag C22 + σ) from the spectrum and return the
+    Laplace moments at the rows ``idx1``; ``flgp_tpu.models.gpc.
+    gpc_posterior_from_spectrum``.  A batch of times t (J,) with labels Y
+    (J, m) gives (J, len(idx1)) moments."""
+    C11 = linalg.add_diag(heat_kernel(eigenpair, t, K, idx0, idx0), sigma)
+    C21 = heat_kernel(eigenpair, t, K, idx1, idx0)
+    C22 = heat_kernel_diag(eigenpair, t, K, idx1) + sigma
+    return gpc_posterior_moments(C11, C21, C22, Y)

@@ -5,6 +5,10 @@ cluster-normalized graph Laplacian consumes.  Every random draw comes from
 the caller's ``torch.Generator``, which must live on the data's device.
 Data-dependent loops (Lloyd's early exit) check their condition on the host
 once per round.
+
+Every sum over a cluster's points adds in an order fixed by the data alone
+(``_segment_sums``), so one seed gives one set of anchors, bit for bit, on
+the CUDA device as on the CPU.
 """
 
 from __future__ import annotations
@@ -45,13 +49,29 @@ def _assign(X: torch.Tensor, centers: torch.Tensor, block: int = 1 << 16
 
 
 def _counts(assign: torch.Tensor, s: int, dtype: torch.dtype) -> torch.Tensor:
+    """Points per cluster.  The summands are 1.0, which float32 adds exactly
+    while a count stays below 2^24, so the order of the device's atomics
+    cannot change the result."""
     ones = torch.ones(assign.shape, dtype=dtype, device=assign.device)
     return torch.zeros((s,), dtype=dtype, device=assign.device).index_add_(0, assign, ones)
 
 
+def _segment_sums(values: torch.Tensor, assign: torch.Tensor, s: int) -> torch.Tensor:
+    """Σ of the rows of ``values`` (n, d) in each of the s clusters, (s, d) in
+    float64.  The rows are stably sorted by cluster and each cluster's sum
+    runs over them one after the other, in row order: no atomics, so the
+    result is the same bits on every run (``index_add_`` on a CUDA tensor
+    adds in the order its atomics land).  On float64 input this is the sum
+    ``index_add_`` gives on the CPU, bit for bit."""
+    order = torch.sort(assign, stable=True).indices
+    lengths = torch.bincount(assign, minlength=s)
+    return torch.segment_reduce(values[order].to(torch.float64), "sum", lengths=lengths,
+                                axis=0, unsafe=True)
+
+
 def _update(X: torch.Tensor, assign: torch.Tensor, s: int, old: torch.Tensor):
     counts = _counts(assign, s, X.dtype)
-    sums = torch.zeros((s, X.shape[1]), dtype=X.dtype, device=X.device).index_add_(0, assign, X)
+    sums = _segment_sums(X, assign, s).to(X.dtype)
     centers = torch.where(counts[:, None] > 0, sums / torch.clamp(counts, min=1.0)[:, None], old)
     return centers, counts
 
@@ -147,9 +167,8 @@ def _kmeanspar_rows(
     # weighted Lloyd polish on the candidate set
     for _ in range(polish_iters):
         a = torch.argmin(sqdist(cands, centers), dim=1)
-        cw = torch.zeros((s,), dtype=X.dtype, device=X.device).index_add_(0, a, w)
-        csum = torch.zeros((s, d), dtype=X.dtype, device=X.device).index_add_(
-            0, a, w[:, None] * cands)
+        sums = _segment_sums(torch.cat([w[:, None], w[:, None] * cands], dim=1), a, s).to(X.dtype)
+        cw, csum = sums[:, 0], sums[:, 1:]
         centers = torch.where(cw[:, None] > 0, csum / torch.clamp(cw, min=1.0)[:, None], centers)
     return centers
 
@@ -205,7 +224,7 @@ def minibatch_kmeans(
             Xb = X[bidx]
             assign, _ = _assign(Xb, centers)
             bc = _counts(assign, s, X.dtype)
-            bsum = torch.zeros_like(centers).index_add_(0, assign, Xb)
+            bsum = _segment_sums(Xb, assign, s).to(X.dtype)
             ncounts = ncounts + bc
             lr = torch.where(ncounts > 0, bc / torch.clamp(ncounts, min=1.0), 0.0)
             bmean = bsum / torch.clamp(bc, min=1.0)[:, None]

@@ -138,7 +138,7 @@ def polya_gamma(g: torch.Generator, c: torch.Tensor) -> torch.Tensor:
 def polya_gamma_counts(g: torch.Generator, N: torch.Tensor, c: torch.Tensor,
                        max_n: int) -> torch.Tensor:
     """PG(N_i, c_i) with per-element integer counts N_i ≤ max_n: masked sum of
-    max_n PG(1, c) draws."""
-    draws = polya_gamma(g, c.expand((max_n,) + c.shape))     # (max_n, m)
-    mask = torch.arange(max_n, device=c.device)[:, None] < N[None, :]
+    max_n PG(1, c) draws.  N broadcasts against c (counts (m,) for c (J, m))."""
+    draws = polya_gamma(g, c.expand((max_n,) + c.shape))     # (max_n, ..., m)
+    mask = torch.arange(max_n, device=c.device).reshape((max_n,) + (1,) * N.dim()) < N[None]
     return torch.sum(draws * mask, dim=0)

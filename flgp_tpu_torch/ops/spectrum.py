@@ -14,8 +14,32 @@ import torch
 from ..config import EPS, LaplacianType
 from ..types import EigenPair, EllMatrix
 from . import hopper_kernels as hk
-from .knn import KERNEL_MAX_R
+from .knn import KERNEL_MAX_R, knn
+from .lae import lae_weights
 from .laplacian import normalize_graph_laplacian
+
+
+def cross_similarity_lae(X: torch.Tensor, anchors: torch.Tensor, r: int, gl: LaplacianType,
+                         cluster_sizes: Optional[torch.Tensor] = None,
+                         lae_iters: int = 150) -> EllMatrix:
+    """The LAE-weighted, normalized sparse graph Z (n, s) between the points
+    and the anchors; ``flgp_tpu.ops.spectrum.cross_similarity_lae``."""
+    anchors = anchors.contiguous()
+    idx = knn(X, anchors, r).indices
+    w = lae_weights(X, anchors, idx, iters=lae_iters)
+    return normalize_graph_laplacian(EllMatrix(w, idx, anchors.shape[0]), gl, cluster_sizes)
+
+
+def cross_similarity_se(X: torch.Tensor, anchors: torch.Tensor, r: int, gl: LaplacianType,
+                        epsilon: float, cluster_sizes: Optional[torch.Tensor] = None
+                        ) -> EllMatrix:
+    """Z with weights exp(−d²/(4ε²)) on the kNN squared distances;
+    ``flgp_tpu.ops.spectrum.cross_similarity_se``."""
+    anchors = anchors.contiguous()
+    res = knn(X, anchors, r)
+    vals = torch.exp(-res.sqdists / (4.0 * epsilon * epsilon))
+    return normalize_graph_laplacian(EllMatrix(vals, res.indices, anchors.shape[0]), gl,
+                                     cluster_sizes)
 
 
 def _top_k_eigh(G: torch.Tensor, K: int):

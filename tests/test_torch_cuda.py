@@ -720,3 +720,62 @@ def test_every_entry_point_fits_on_the_card_by_default(dev, name, gl_solver):
     if "_gl_" in name:
         resid = res.metrics["gl_eigensolve_max_residual"]
         assert resid == 0.0 if gl_solver == "dense" else 0.0 < resid < 1.0
+
+
+@pytest.mark.parametrize("method", ["kmeans", "minibatchkmeans"])
+def test_subsample_twice_from_one_seed_is_the_same_bits(dev, method):
+    """k-means‖ + Lloyd (and mini-batch k-means) sum every cluster in an order
+    fixed by the data: one seed gives one set of centers and counts, bit for
+    bit, on the card."""
+    from flgp_tpu_torch.ops.kmeans import subsample
+
+    rng = np.random.default_rng(7)
+    X = _cuda(rng.normal(size=(200_000, 2)) + 6.0 * rng.integers(0, 4, size=(200_000, 1)), dev)
+    subs = [subsample(torch.Generator(device=dev).manual_seed(3), X, 1024, method=method)
+            for _ in range(2)]
+    assert torch.equal(subs[0].centers, subs[1].centers)
+    assert torch.equal(subs[0].counts, subs[1].counts)
+    assert float(subs[0].counts.sum()) == 200_000
+
+
+@pytest.mark.parametrize("name,graph", [
+    ("fit_lae_logit_mult_gp", dict(s=30, r=3, K=15)), ("fit_se_logit_mult_gp", dict(s=30, r=3, K=15)),
+    ("fit_nystrom_logit_mult_gp", dict(s=30, r=3, K=15)), ("fit_gl_logit_mult_gp", dict(K=20))])
+def test_multiclass_entry_point_on_the_card(dev, name, graph):
+    """Three blobs, no ``device=`` argument: f32 graph stage, f64 tail, the
+    reference tests' gate."""
+    import flgp_tpu_torch as ft
+    from flgp_tpu_torch.datasets import gaussian_blobs
+
+    data = gaussian_blobs(n_per_class=40, n_classes=3, sep=6.0)
+    cfg = ft.FitConfig(graph=ft.GraphConfig(**graph), train=ft.TrainConfig(grid_size=16),
+                       dtype=torch.float32, solve_dtype=torch.float64)
+    res = getattr(ft, name)(torch.Generator(device=dev).manual_seed(0), data.x_train,
+                            data.y_train, data.x_test, cfg=cfg)
+    assert res.eigenpair.vectors.device.type == "cuda"
+    assert np.mean(res.y_test != data.y_test) < 0.15
+    assert res.posterior_mean.shape == res.posterior_cov.shape == (60, 3)
+    assert np.all(np.isfinite(res.posterior_mean)) and np.all(np.isfinite(res.pars["t"]))
+
+
+def test_extras_on_the_card(dev):
+    """``heat_kernel_covariance`` on float32 points launches K1–K5;
+    ``lae_eigenmap`` gives sorted Laplacian eigenvalues in [0, 2]."""
+    import flgp_tpu_torch as ft
+    from flgp_tpu_torch.datasets import torus_rings
+    from flgp_tpu_torch.ops import hopper_kernels as hk
+
+    tor = torus_rings(n=2400, m_train=100, seed=1)
+    hk.reset_launches()
+    H = ft.heat_kernel_covariance(torch.Generator(device=dev).manual_seed(0),
+                                  tor.x_train.astype(np.float32), tor.x_test.astype(np.float32),
+                                  1.0, ft.GraphConfig(s=300, r=3, K=60))
+    assert H.shape == (2400, 100) and H.is_cuda and bool(torch.all(torch.isfinite(H)))
+    assert all(hk.LAUNCHES[k] > 0 for k in ("knn", "lae_weights", "ell_colsum", "ell_norm_gram",
+                                             "ell_norm_matmat")), hk.LAUNCHES
+    X = np.concatenate([tor.x_train, tor.x_test]).astype(np.float32)
+    vals, vecs = ft.lae_eigenmap(torch.Generator(device=dev).manual_seed(0), X, 300, 3, 10)
+    assert vecs.shape == (2400, 10) and vecs.is_cuda
+    # 1 − σ, σ ≤ 1 up to the float32 rounding of the (s, s) Gram's eigenvalues
+    assert bool(torch.all(vals[1:] >= vals[:-1])) and float(vals[0]) >= -1e-4
+    assert float(vals[-1]) <= 2.0

@@ -489,19 +489,18 @@ def test_port_imports_neither_jax_nor_flgp_tpu():
     assert not offenders, offenders
 
 
-# the public names the port does not have yet (ROADMAP queue 1, items 4 and 5)
-KNOWN_GAPS = {"fit_gl_logit_mult_gp", "fit_lae_logit_mult_gp", "fit_nystrom_logit_mult_gp",
-              "fit_se_logit_mult_gp", "heat_kernel_covariance", "lae_eigenmap"}
+# the public names the port does not have yet: none since the multiclass
+# drivers and the extras landed
+KNOWN_GAPS = set()
 
 
 def test_public_names_are_the_reference_s_but_the_known_gaps():
-    """A name the reference exports and the port lacks fails here unless it
-    is a known gap; the set shrinks as the missing modules land."""
+    """The port exports exactly the reference's public names."""
     import flgp_tpu
     import flgp_tpu_torch
 
     assert set(flgp_tpu.__all__) - set(flgp_tpu_torch.__all__) == KNOWN_GAPS
-    assert set(flgp_tpu_torch.__all__) <= set(flgp_tpu.__all__)
+    assert set(flgp_tpu_torch.__all__) == set(flgp_tpu.__all__)
     assert all(hasattr(flgp_tpu_torch, name) for name in flgp_tpu_torch.__all__)
 
 
