@@ -4,11 +4,13 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --sass build/flgp_tpu_torch/<hash>/libflgp_kernels.so
     python3 chip_smoke.py --subsample-times
+    python3 chip_smoke.py --sampling
 
 (the second only counts K2's instructions in a library already built; the
 third only times the n=1e6 subsample stage, four calls from one seed, with
 the package beside the script: a copy of the script in another tree of the
-repo times that tree's subsampler).
+repo times that tree's subsampler; the fourth builds, fits the torus and
+runs phase 12 alone).
 Phases, each of which ends the script with a non-zero exit if it fails:
 
 1. the card: name and power limit from nvidia-smi; a CUDA device is required
@@ -97,7 +99,25 @@ Phases, each of which ends the script with a non-zero exit if it fails:
     LOBPCG; ``ell_sym_matmat`` must be launched) at n = 5000, s = 500, each
     held to its float64 run + 0.01; ``heat_kernel_covariance`` on the torus
     (t = 1, (4800, 100), K1–K5 launched) and ``lae_eigenmap`` (s = 600,
-    r = 3, ten dimensions: eigenvalues sorted in [0, 2]).
+    r = 3, ten dimensions: eigenvalues sorted in [0, 2]);
+12. the posterior-sampling path: the torus fit again from phase 4's seed
+    (K1–K5 must be launched, the spectrum must be phase 4's bit for bit),
+    its whitened GPC posterior (``make_whitened``, K = 100; ``GpcLogPost``,
+    dim 101, float32), whose analytic gradient must agree with autograd to
+    1e-4 of max|grad| and whose TF32 variant must agree with float32 to 1e-2
+    relative and leave ``allow_tf32`` off; then ``run_hmc`` (16 chains, 256
+    warmup, 512 draws, 16 leapfrog steps), ``run_nuts`` (16 chains, 256
+    warmup, 64 draws, max_depth 8), ``run_chees`` (128 chains, 512 warmup,
+    64 draws) and ``run_chees_fixed`` (4096 chains, 128 draws), each with its
+    warmup and sampling walls, chain-gradients a second, min-ESS a second
+    and accept beside the card; split-R̂ < 1.1 for HMC and ChEES; the three
+    samplers' means of f at the train points within 6 Monte Carlo errors +
+    0.05 and their median variance ratios in (0.6, 1.6); train error of
+    sign(mean f) ≤ 0.03; NUTS's host syncs and lockstep leapfrog steps a
+    transition; device activities a leapfrog step and device busy share of
+    one HMC transition (``torch.profiler``); ``run_hmc_checkpointed`` (three
+    segments) and a run resumed from a copy of its first two, which must be
+    the same bits.
 
 Beside each kernel's time stand its bound (the least time the card could
 take: compulsory bytes at 3.35 TB/s or operations at the 67 TFLOP/s float32
@@ -117,6 +137,7 @@ import re
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from collections import Counter
 from pathlib import Path
@@ -143,6 +164,10 @@ from flgp_tpu_torch.datasets import spiral, torus_rings  # noqa: E402
 from flgp_tpu_torch.fit.drivers import _solve_cast, _train_gpc  # noqa: E402
 from flgp_tpu_torch.fit.spectral import build_spectrum  # noqa: E402
 from flgp_tpu_torch.fit.streaming import _gpc_lowrank_tail  # noqa: E402
+from flgp_tpu_torch.inference import chees, hmc, nuts, resume  # noqa: E402
+from flgp_tpu_torch.inference.diagnostics import ess, split_rhat  # noqa: E402
+from flgp_tpu_torch.models.latent import (  # noqa: E402
+    GpcLogPost, latent_f, logpost_with_precision, make_whitened)
 from flgp_tpu_torch.ops import _build  # noqa: E402
 from flgp_tpu_torch.ops import colmajor as col  # noqa: E402
 from flgp_tpu_torch.ops import hopper_kernels as hk  # noqa: E402
@@ -1563,6 +1588,284 @@ def extras(dev) -> None:
         _fail("lae_eigenmap: eigenvalues not sorted in [0, 2] or vectors of the wrong shape")
 
 
+# phase 12: the posterior-sampling path on the torus GPC posterior
+SAMPLERS = dict(hmc=dict(chains=16, n_warmup=256, n_samples=512, n_leapfrog=16),
+                nuts=dict(chains=16, n_warmup=256, n_samples=64, max_depth=8),
+                chees=dict(chains=128, n_warmup=512, n_samples=64, max_steps=256),
+                chees_fixed=dict(chains=4096, n_samples=128),
+                resume=dict(chains=16, n_warmup=64, n_samples=192, segment=64, n_leapfrog=16))
+RHAT_GATE = 1.1
+
+
+class CountedPost:
+    """The posterior with a count of the chain-gradients it evaluates
+    (rows of x a ``value_and_grad`` call gets); nothing on the device."""
+
+    def __init__(self, post):
+        self.post, self.device, self.rows = post, post.device, 0
+
+    def __call__(self, x):
+        return self.post(x)
+
+    def value_and_grad(self, x):
+        self.rows += x.shape[0]
+        return self.post.value_and_grad(x)
+
+
+def _synced() -> float:
+    torch.cuda.synchronize()
+    return time.perf_counter()
+
+
+def timed_sampler(run, counted: CountedPost) -> dict:
+    """``run(on_warmup_end)`` with its warmup and sampling walls and
+    chain-gradient counts apart."""
+    marks = {}
+
+    def warmup_end():
+        marks["t"], marks["rows"] = _synced(), counted.rows
+
+    counted.rows = 0
+    t0 = _synced()
+    out = run(warmup_end)
+    t1 = _synced()
+    return dict(out=out, warm_s=marks["t"] - t0, samp_s=t1 - marks["t"],
+                warm_rows=marks["rows"], samp_rows=counted.rows - marks["rows"])
+
+
+def f_moments(gp, samples: torch.Tensor) -> dict:
+    """Mean, variance and Monte Carlo error of f at the train points over the
+    draws (n, C, dim) of x = [u, log t]."""
+    K = gp.V.shape[1]
+    f = latent_f(gp, samples[..., :K], torch.exp(samples[..., K])).double().cpu().numpy()
+    flat = f.reshape(-1, f.shape[-1])
+    mean, var = flat.mean(0), flat.var(0)
+    return dict(mean=mean, var=var, mc=np.sqrt(var / np.maximum(ess(f), 10.0)))
+
+
+def one_transition_profile(post, state, step, inv_mass, n_leapfrog: int, dev) -> tuple:
+    """(device activities per leapfrog step, device busy share) of one HMC
+    transition: the activities and their summed device time from
+    ``torch.profiler``, over the wall of the same transition unprofiled."""
+    from torch.profiler import ProfilerActivity, profile
+
+    g = torch.Generator(device=dev).manual_seed(9)
+    for _ in range(3):
+        hmc.hmc_kernel(post, g, state, step, inv_mass, n_leapfrog)
+    t0 = _synced()
+    hmc.hmc_kernel(post, g, state, step, inv_mass, n_leapfrog)
+    wall = _synced() - t0
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        hmc.hmc_kernel(post, g, state, step, inv_mass, n_leapfrog)
+        torch.cuda.synchronize()
+    acts = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(e.time_range.elapsed_us() for e in acts)
+    return len(acts) / n_leapfrog, busy_us * 1e-6 / wall, wall, busy_us * 1e-6
+
+
+def _report_sampler(name: str, what: str, t: dict, samples, accept, step, card: str) -> None:
+    min_ess = float(np.min(ess(samples)))
+    total = t["warm_s"] + t["samp_s"]
+    print(f"{name} ({what}): warmup {t['warm_s']:.3f} s, sampling {t['samp_s']:.3f} s; "
+          f"chain-gradients/s {(t['warm_rows'] + t['samp_rows']) / total:.4g} "
+          f"(sampling alone {t['samp_rows'] / t['samp_s']:.4g}); min-ESS {min_ess:.1f}, "
+          f"min-ESS/s {min_ess / total:.4g} with warmup, {min_ess / t['samp_s']:.4g} sampling "
+          f"alone; accept {float(accept.float().mean()):.4f}; step "
+          f"{float(step.float().mean()):.4g} (chains {float(step.min()):.4g}–"
+          f"{float(step.max()):.4g}) [{card}]", flush=True)
+
+
+def _gate_rhat(name: str, samples, gate: bool = True) -> None:
+    """Print split-R̂ of the draws and, if ``gate``, fail at RHAT_GATE."""
+    rhat = split_rhat(samples.double()).cpu().numpy()
+    worst = int(np.argmax(rhat))
+    print(f"  {name} split-R̂: max {rhat[worst]:.4f} (coordinate {worst}), median "
+          f"{float(np.median(rhat)):.4f}", flush=True)
+    if gate and not np.all(rhat < RHAT_GATE):
+        _fail(f"{name}: split-R̂ {rhat[worst]:.4f} >= {RHAT_GATE} at coordinate {worst}")
+
+
+def sampling_phase(dev, torus_eig: EigenPair, card: str) -> None:
+    """Phase 12: the torus fit again from phase 4's seed (K1–K5 launched, the
+    same spectrum bit for bit), its whitened GPC posterior (K = 100, dim 101,
+    float32), the analytic gradient against autograd and the TF32 variant
+    against full float32, then HMC, NUTS, ChEES (adaptive, then fixed at 4096
+    chains) and checkpointed HMC with a resumed run, each timed beside the
+    card; R̂, agreement of f's moments at the train points across the three
+    samplers, train error and bit-exact resume are gates."""
+    tor = SHAPES["torus"]
+    m, K = tor["m"], tor["K"]
+    hk.reset_launches()
+    res, err, wall, ds = fit(tor, torus_fit_cfg(), dev, seed=0)
+    launches = {k: hk.LAUNCHES[k] for k in MAIN_PATH}
+    same = (torch.equal(res.eigenpair.values, torus_eig.values)
+            and torch.equal(res.eigenpair.vectors, torus_eig.vectors))
+    print(f"sampling path: torus fit err {err:.6f}, {wall:.3f} s, launches {launches}, spectrum "
+          f"{'the same bits as phase 4' if same else 'DIFFERS from phase 4'}", flush=True)
+    if any(v == 0 for v in launches.values()):
+        _fail(f"the sampling path's fit launched no {[k for k, v in launches.items() if not v]}")
+    if not same:
+        _fail("the torus fit from phase 4's seed gave another spectrum")
+
+    gp = make_whitened(res.eigenpair, torch.arange(m), K, 1e-3)
+    Y = torch.as_tensor(ds.y_train, dtype=torch.float32, device=dev)
+    post = GpcLogPost(gp, Y, torch.ones((m,), dtype=torch.float32, device=dev), 1e-2, 10.0, 2.0)
+    counted = CountedPost(post)
+    x0 = 0.1 * torch.randn((SAMPLERS["chees"]["chains"], post.dim), device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(1))
+
+    # the analytic gradient against autograd, and the TF32 variant
+    lp, grad = post.value_and_grad(x0)
+    xg = x0.clone().requires_grad_(True)
+    (auto,) = torch.autograd.grad(post(xg).sum(), xg)
+    g_err = float(torch.max(torch.abs(grad - auto)) / torch.max(torch.abs(auto)))
+    lp_tf, grad_tf = logpost_with_precision(post, "tf32").value_and_grad(x0)
+    tf_err = float(torch.max(torch.abs(lp_tf - lp) / torch.abs(lp)))
+    flag = torch.backends.cuda.matmul.allow_tf32
+    print(f"GpcLogPost (m={m}, dim={post.dim}, {x0.shape[0]} points, float32): analytic gradient "
+          f"vs autograd max abs diff / max|grad| {g_err:.3e} (gate 1e-4); TF32 values vs full "
+          f"float32 max relative diff {tf_err:.3e} (gate 1e-2); allow_tf32 after: {flag}",
+          flush=True)
+    if not g_err <= 1e-4:
+        _fail(f"analytic gradient differs from autograd by {g_err:.3e} of max|grad|")
+    if not tf_err <= 1e-2:
+        _fail(f"the TF32 density differs from float32 by {tf_err:.3e} relative")
+    if flag:
+        _fail("allow_tf32 is still on after the TF32 density")
+    wide = 0.1 * torch.randn((SAMPLERS["chees_fixed"]["chains"], post.dim), device=dev,
+                             generator=torch.Generator(device=dev).manual_seed(3))
+    vg_ms = {name: cuda_ms(lambda p=p: p.value_and_grad(wide), 50)
+             for name, p in (("float32", post), ("tf32", logpost_with_precision(post, "tf32")))}
+    print(f"  value_and_grad at {wide.shape[0]} chains: float32 {vg_ms['float32']:.4f} ms, "
+          f"TF32 {vg_ms['tf32']:.4f} ms [{card}]", flush=True)
+
+    moments = {}
+    # HMC
+    c = SAMPLERS["hmc"]
+    t = timed_sampler(lambda end: hmc.run_hmc(
+        torch.Generator(device=dev).manual_seed(2), counted, x0[:c["chains"]], n_warmup=c["n_warmup"],
+        n_samples=c["n_samples"], n_leapfrog=c["n_leapfrog"], on_warmup_end=end), counted)
+    run = t["out"]
+    _report_sampler("run_hmc", f"{c['chains']} chains, {c['n_warmup']} warmup, "
+                    f"{c['n_samples']} draws, {c['n_leapfrog']} leapfrog steps", t, run.samples,
+                    run.accept_prob, run.step, card)
+    _gate_rhat("run_hmc", run.samples)
+    moments["hmc"] = f_moments(gp, run.samples)
+    per_step, busy, one_wall, one_busy = one_transition_profile(
+        post, hmc.init_state(post, run.samples[-1]), run.step, run.inv_mass, c["n_leapfrog"], dev)
+    print(f"  one HMC transition ({c['n_leapfrog']} leapfrog steps, {c['chains']} chains): "
+          f"{one_wall * 1e3:.3f} ms wall, {one_busy * 1e3:.3f} ms of device activity, busy share "
+          f"{busy:.4f}; {per_step:.1f} device activities a leapfrog step [{card}]", flush=True)
+
+    # NUTS
+    c = SAMPLERS["nuts"]
+    nuts.reset_stats()
+    at_end = {}
+
+    def nuts_run(end):
+        def mark():
+            at_end.update(nuts.STATS)
+            end()
+
+        return nuts.run_nuts(torch.Generator(device=dev).manual_seed(4), counted, x0[:c["chains"]],
+                             n_warmup=c["n_warmup"], n_samples=c["n_samples"],
+                             max_depth=c["max_depth"], on_warmup_end=mark)
+
+    t = timed_sampler(nuts_run, counted)
+    run = t["out"]
+    _report_sampler("run_nuts", f"{c['chains']} chains, {c['n_warmup']} warmup, "
+                    f"{c['n_samples']} draws, max_depth {c['max_depth']}", t, run.samples,
+                    run.accept_stat, run.step, card)
+    samp = {k: nuts.STATS[k] - at_end.get(k, 0) for k in ("transitions", "host_syncs",
+                                                            "lockstep_leaves")}
+    own = float(run.n_leapfrog.double().mean())
+    print(f"  NUTS sampling: per transition {samp['host_syncs'] / samp['transitions']:.2f} host "
+          f"syncs, {samp['lockstep_leaves'] / samp['transitions']:.2f} lockstep leapfrog steps, "
+          f"{own:.2f} of a chain's own (max {int(run.n_leapfrog.max())}); the whole run "
+          f"{nuts.STATS['host_syncs']} syncs over {nuts.STATS['transitions']} transitions",
+          flush=True)
+    moments["nuts"] = f_moments(gp, run.samples)
+
+    # ChEES, adaptive then fixed at many chains
+    c = SAMPLERS["chees"]
+    t = timed_sampler(lambda end: chees.run_chees(
+        torch.Generator(device=dev).manual_seed(5), counted, x0, n_warmup=c["n_warmup"],
+        n_samples=c["n_samples"], max_steps=c["max_steps"], on_warmup_end=end), counted)
+    run = t["out"]
+    _report_sampler("run_chees", f"{c['chains']} chains, {c['n_warmup']} warmup, "
+                    f"{c['n_samples']} draws, max_steps {c['max_steps']}", t, run.samples,
+                    run.accept_prob, run.step.reshape(1), card)
+    print(f"  ChEES adapted: step {float(run.step):.4g}, trajectory length "
+          f"{float(run.traj_len):.4g}, {run.n_leapfrog_total} leapfrog steps in sampling",
+          flush=True)
+    _gate_rhat("run_chees", run.samples)
+    cf = SAMPLERS["chees_fixed"]
+    x_wide = run.samples[-1].repeat(cf["chains"] // c["chains"], 1)
+    counted.rows = 0
+    t0 = _synced()
+    fixed = chees.run_chees_fixed(torch.Generator(device=dev).manual_seed(6), counted, x_wide,
+                                  run.step, run.traj_len, run.inv_mass, n_samples=cf["n_samples"],
+                                  max_steps=c["max_steps"])
+    fixed_s = _synced() - t0
+    fixed_ess = float(np.min(ess(fixed.samples)))
+    print(f"run_chees_fixed ({cf['chains']} chains, {cf['n_samples']} draws): {fixed_s:.3f} s, "
+          f"{fixed.n_leapfrog_total} leapfrog steps, chain-gradients/s "
+          f"{counted.rows / fixed_s:.4g}, min-ESS {fixed_ess:.1f}, min-ESS/s "
+          f"{fixed_ess / fixed_s:.4g}; accept {float(fixed.accept_prob.mean()):.4f} [{card}]",
+          flush=True)
+    _gate_rhat("run_chees_fixed", fixed.samples)
+    moments["chees"] = f_moments(gp, fixed.samples)
+    del fixed, x_wide
+
+    # one posterior: f's moments agree across the samplers, and the labels
+    y = ds.y_train
+    for name, mo in moments.items():
+        train_err = float(np.mean((mo["mean"] > 0) != (y > 0.5)))
+        print(f"  {name}: train error of sign(mean f) {train_err:.4f} (gate 0.03)", flush=True)
+        if train_err > 0.03:
+            _fail(f"{name}: train error {train_err} > 0.03")
+    names = list(moments)
+    for i, a in enumerate(names):
+        for b in names[i + 1:]:
+            A, B = moments[a], moments[b]
+            tol = 6.0 * np.sqrt(A["mc"] ** 2 + B["mc"] ** 2) + 0.05
+            gap = np.abs(A["mean"] - B["mean"])
+            ratio = float(np.median(A["var"] / B["var"]))
+            print(f"  {a} vs {b}: max |mean f gap| {gap.max():.4f}, max gap / bound "
+                  f"{float(np.max(gap / tol)):.3f}; median variance ratio {ratio:.4f} "
+                  f"(gate (0.6, 1.6))", flush=True)
+            if not np.all(gap < tol):
+                _fail(f"{a} and {b}: mean f differs beyond 6 MC errors + 0.05 at "
+                      f"{int(np.sum(gap >= tol))} train points")
+            if not 0.6 < ratio < 1.6:
+                _fail(f"{a} and {b}: median variance ratio {ratio}")
+
+    # checkpointed HMC, then a run resumed from a copy of its first segments
+    c = SAMPLERS["resume"]
+    kw = dict(n_warmup=c["n_warmup"], n_samples=c["n_samples"], segment=c["segment"],
+              n_leapfrog=c["n_leapfrog"])
+    with tempfile.TemporaryDirectory(prefix="flgp_phase12_") as tmp:
+        t0 = _synced()
+        full = resume.run_hmc_checkpointed(7, post, x0[:c["chains"]], f"{tmp}/full", **kw)
+        full_s = _synced() - t0
+        keep = c["n_samples"] // c["segment"] - 1
+        for i in range(keep):
+            for name in (f"seg_{i}", f"phase_{i}"):
+                shutil.copytree(f"{tmp}/full/{name}", f"{tmp}/resumed/{name}")
+        t0 = _synced()
+        again = resume.run_hmc_checkpointed(7, post, x0[:c["chains"]], f"{tmp}/resumed", **kw)
+        again_s = _synced() - t0
+    same = all(torch.equal(a, b) for a, b in zip(full, again))
+    print(f"run_hmc_checkpointed ({c['chains']} chains, {c['n_warmup']} warmup, "
+          f"{c['n_samples'] // c['segment']} segments of {c['segment']}): {full_s:.3f} s; resumed "
+          f"after {keep} segments: {again_s:.3f} s, draws, accepts, steps and masses "
+          f"{'the same bits' if same else 'DIFFER'}; accept {float(full.accept_prob.mean()):.4f} "
+          f"[{card}]", flush=True)
+    if not same:
+        _fail("the resumed checkpointed HMC run differs from the uninterrupted one")
+    _gate_rhat("run_hmc_checkpointed", full.samples, gate=False)
+
+
 def subsample_stage_times(dev, calls: int = 4) -> None:
     """The n=1e6 subsample stage alone, ``calls`` times from one seed: the
     times, and whether every call gave the first one's anchors."""
@@ -1574,6 +1877,28 @@ def subsample_stage_times(dev, calls: int = 4) -> None:
     print(f"n=1e6 subsample stage (k-means‖ + Lloyd, s={big['s']}), {calls} calls from one seed: "
           + ", ".join(f"{t:.4f}" for t in times) + f" s; anchors "
           f"{'identical' if same else 'differ'}", flush=True)
+
+
+def torus_fit_cfg():
+    tor = SHAPES["torus"]
+    return ft.FitConfig(graph=ft.GraphConfig(s=tor["s"], r=tor["r"], K=tor["K"]), sigma=1e-3,
+                        dtype=torch.float32, solve_dtype=torch.float64)
+
+
+def sampling_only(dev) -> None:
+    """``--sampling``: the card, the build, a torus fit, then phase 12."""
+    card = card_line()
+    print(f"card: {card}", flush=True)
+    t0 = time.perf_counter()
+    _build.build()
+    _build.load()
+    print(f"build: {time.perf_counter() - t0:.1f} s", flush=True)
+    res, err, wall, _ = fit(SHAPES["torus"], torus_fit_cfg(), dev, seed=0)
+    print(f"torus fit: err {err:.6f}  wall {wall:.3f} s", flush=True)
+    t0 = time.perf_counter()
+    sampling_phase(dev, res.eigenpair, card)
+    print(f"phase 12: {time.perf_counter() - t0:.1f} s", flush=True)
+    print(card)
 
 
 def main() -> None:
@@ -1611,8 +1936,7 @@ def main() -> None:
 
     # 4. torus fit: the main path, through the entry point a user calls
     tor = SHAPES["torus"]
-    tor_cfg = ft.FitConfig(graph=ft.GraphConfig(s=tor["s"], r=tor["r"], K=tor["K"]), sigma=1e-3,
-                           dtype=torch.float32, solve_dtype=torch.float64)
+    tor_cfg = torus_fit_cfg()
     hk.reset_launches()
     res, err, wall, _ = fit(tor, tor_cfg, dev, seed=0)
     launches = dict(hk.LAUNCHES)
@@ -1624,6 +1948,7 @@ def main() -> None:
     if missing:
         _fail(f"the torus fit launched no {missing} kernel")
     res, err2, wall2, _ = fit(tor, tor_cfg, dev, seed=0)
+    torus_eig = res.eigenpair
     print(f"torus fit (warm): err {err2:.6f}  wall {wall2:.3f} s", flush=True)
     if err2 > ERR_GATE:
         _fail(f"warm torus test error {err2} > {ERR_GATE}")
@@ -1656,6 +1981,12 @@ def main() -> None:
               f" plain {results[k]['plain_ms_mnist']:.4f}, library "
               f"{'none' if results[k]['library_ms_mnist'] is None else format(results[k]['library_ms_mnist'], '.4f')}"
               f") x {mult_launches.get(k, 0)}" for k in MAIN_PATH), flush=True)
+    torch.cuda.empty_cache()
+
+    # 12. the posterior-sampling path on the torus fit's spectrum
+    t0 = time.perf_counter()
+    sampling_phase(dev, torus_eig, card)
+    print(f"phase 12: {time.perf_counter() - t0:.1f} s", flush=True)
 
     # K1–K5: launches of the torus fit, times at the n=1e6 shape; K6–K8:
     # launches of the first n=1e7 fit, times at the n=1e7 shape; K9: launches
@@ -1687,11 +2018,14 @@ def main() -> None:
 if __name__ == "__main__":
     if len(sys.argv) == 3 and sys.argv[1] == "--sass":
         print_sass(Path(sys.argv[2]))      # K2's step count of any build of the library
-    elif sys.argv[1:] == ["--subsample-times"]:
+    elif sys.argv[1:] in (["--subsample-times"], ["--sampling"]):
         if not torch.cuda.is_available():
             _fail("torch.cuda.is_available() is false: this smoke test needs an NVIDIA GPU")
         pin_full_precision()
-        print(f"card: {card_line()}", flush=True)
-        subsample_stage_times(torch.device("cuda", 0))
+        if sys.argv[1] == "--sampling":
+            sampling_only(torch.device("cuda", 0))
+        else:
+            print(f"card: {card_line()}", flush=True)
+            subsample_stage_times(torch.device("cuda", 0))
     else:
         main()

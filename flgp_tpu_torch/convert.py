@@ -1,5 +1,6 @@
 """Carry the JAX package's state across: config, anchors, spectral pair,
-bandwidth-grid bases, the sparse GLGP operator, optimizer results.
+bandwidth-grid bases, the sparse GLGP operator, optimizer results, the
+whitened posterior densities of the samplers.
 
 The system has no trained weights; its state is the configuration, the
 anchor set (centers and cluster counts), the spectral pair and the
@@ -20,6 +21,7 @@ import torch
 from .config import FitConfig, GraphConfig, TrainConfig
 from .fit.spectral import GlBasis, NystromBasis, SeGridBasis
 from .inference.optimize import GprOptResult
+from .models.latent import GpcLogPost, GprLogPost, WhitenedGP
 from .ops.kmeans import SubsampleResult
 from .ops.knn import KnnResult
 from .ops.sparse_graph import SymCoo
@@ -119,3 +121,24 @@ def symcoo_from_numpy(rows, cols, vals, n: int, device=None, dtype=torch.float64
 
 def gpr_opt_result_to_numpy(res: GprOptResult) -> GprOptResult:
     return GprOptResult(*(v.detach().cpu().numpy() for v in res))
+
+
+def whitened_from_numpy(V, lam, sigma, device=None, dtype=torch.float64) -> WhitenedGP:
+    """(V (m, K), lam (K,), sigma) arrays or tensors as the port's whitened GP."""
+    return WhitenedGP(_tensor(V, device, dtype), _tensor(lam, device, dtype), float(sigma))
+
+
+def gpc_logpost_from_jax(post, device=None, dtype=torch.float64) -> GpcLogPost:
+    """A ``flgp_tpu`` ``GpcLogPost`` (or anything with its fields), field by
+    field: the same density in the port."""
+    gp = whitened_from_numpy(post.gp.V, post.gp.lam, post.gp.sigma, device, dtype)
+    return GpcLogPost(gp, _tensor(post.Y, device, dtype), _tensor(post.N, device, dtype),
+                      *(float(getattr(post, f)) for f in ("p", "q", "tau", "mu0", "s0")))
+
+
+def gpr_logpost_from_jax(post, device=None, dtype=torch.float64) -> GprLogPost:
+    """A ``flgp_tpu`` ``GprLogPost`` (or anything with its fields), field by field."""
+    gp = whitened_from_numpy(post.gp.V, post.gp.lam, post.gp.sigma, device, dtype)
+    return GprLogPost(gp, _tensor(post.Y, device, dtype),
+                      *(float(getattr(post, f))
+                        for f in ("p", "q", "tau", "alpha", "beta", "mu0", "s0")))

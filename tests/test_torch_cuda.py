@@ -779,3 +779,106 @@ def test_extras_on_the_card(dev):
     # 1 − σ, σ ≤ 1 up to the float32 rounding of the (s, s) Gram's eigenvalues
     assert bool(torch.all(vals[1:] >= vals[:-1])) and float(vals[0]) >= -1e-4
     assert float(vals[-1]) <= 2.0
+
+
+# ---------------------------------------------------------------------------
+# the posterior-sampling path: whitened model, samplers, checkpointed HMC
+# ---------------------------------------------------------------------------
+
+
+def _whitened_gpc(dev, m=100, K=100, seed=0):
+    from flgp_tpu_torch.models.latent import GpcLogPost, WhitenedGP
+
+    rng = np.random.default_rng(seed)
+    gp = WhitenedGP(_cuda(rng.normal(size=(m, K)), dev),
+                    _cuda(np.sort(rng.uniform(0.0, 1.0, K)), dev), 1e-3)
+    Y = _cuda((rng.uniform(size=m) > 0.5).astype(float), dev)
+    return GpcLogPost(gp, Y, torch.ones(m, device=dev), 1e-2, 10.0, 2.0)
+
+
+def test_latent_analytic_gradient_matches_autograd_on_the_card(dev):
+    post = _whitened_gpc(dev)
+    g = torch.Generator(device=dev).manual_seed(0)
+    x = 0.3 * torch.randn((64, post.dim), generator=g, device=dev)
+    x[:, -1] += 2.0
+    lp, grad = post.value_and_grad(x)
+    xg = x.clone().requires_grad_(True)
+    (auto,) = torch.autograd.grad(post(xg).sum(), xg)
+    assert torch.equal(post(x), lp)
+    assert float(torch.max(torch.abs(grad - auto))) <= 1e-4 * float(torch.max(torch.abs(auto)))
+
+
+@pytest.mark.parametrize("before", [False, True])
+def test_tf32_density_restores_allow_tf32(dev, before):
+    from flgp_tpu_torch.models.latent import logpost_with_precision
+
+    post = _whitened_gpc(dev)
+    x = 0.3 * torch.randn((256, post.dim), generator=torch.Generator(device=dev).manual_seed(1),
+                          device=dev)
+    full = post.value_and_grad(x)
+    torch.backends.cuda.matmul.allow_tf32 = before
+    try:
+        fast = logpost_with_precision(post, "tf32").value_and_grad(x)
+        assert torch.backends.cuda.matmul.allow_tf32 is before
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    rel = torch.max(torch.abs(fast[0] - full[0]) / torch.abs(full[0]))
+    assert float(rel) <= 1e-2
+
+
+def test_hmc_gaussian_moments_on_the_card(dev):
+    from flgp_tpu_torch.inference.diagnostics import split_rhat
+    from flgp_tpu_torch.inference.hmc import run_hmc
+
+    mean = torch.tensor([1.0, -2.0, 0.5], device=dev)
+    scales = torch.tensor([1.0, 0.5, 2.0], device=dev)
+
+    def logprob(x):
+        return -0.5 * torch.sum(((x - mean) / scales) ** 2, dim=-1)
+
+    run = run_hmc(torch.Generator(device=dev).manual_seed(0), logprob,
+                  torch.zeros((16, 3), device=dev), n_warmup=300, n_samples=600, n_leapfrog=8)
+    draws = run.samples.reshape(-1, 3).double().cpu().numpy()
+    np.testing.assert_allclose(draws.mean(0), mean.cpu().numpy(), atol=0.2)
+    np.testing.assert_allclose(draws.std(0), scales.cpu().numpy(), rtol=0.25)
+    assert float(run.accept_prob.mean()) > 0.5
+    assert bool(torch.all(split_rhat(run.samples) < 1.1))
+    with pytest.raises(ValueError, match="generator is on"):
+        run_hmc(torch.Generator().manual_seed(0), logprob, torch.zeros((4, 3), device=dev),
+                n_warmup=2, n_samples=2)
+
+
+@pytest.mark.parametrize("sampler", ["nuts", "chees"])
+def test_nuts_and_chees_on_the_card(dev, sampler):
+    from flgp_tpu_torch.inference import chees, nuts
+
+    post = _whitened_gpc(dev, m=60, K=20)
+    g = torch.Generator(device=dev).manual_seed(2)
+    x0 = 0.1 * torch.randn((32, post.dim), generator=g, device=dev)
+    if sampler == "nuts":
+        run = nuts.run_nuts(g, post, x0, n_warmup=60, n_samples=20, max_depth=6)
+        assert int(run.n_leapfrog.max()) <= 63 and int(run.n_leapfrog.min()) >= 1
+    else:
+        run = chees.run_chees(g, post, x0, n_warmup=60, n_samples=20)
+    assert run.samples.shape == (20, 32, post.dim) and run.samples.device.type == "cuda"
+    assert bool(torch.all(torch.isfinite(run.samples)))
+
+
+def test_checkpointed_hmc_kill_and_resume_bit_for_bit_on_the_card(dev, tmp_path):
+    import shutil
+
+    from flgp_tpu_torch.inference.resume import run_hmc_checkpointed
+
+    post = _whitened_gpc(dev, m=60, K=30)
+    x0 = 0.1 * torch.randn((8, post.dim), generator=torch.Generator(device=dev).manual_seed(3),
+                           device=dev)
+    kw = dict(n_warmup=32, n_samples=48, segment=16, n_leapfrog=8)
+    full = run_hmc_checkpointed(11, post, x0, str(tmp_path / "full"), **kw)
+    again = run_hmc_checkpointed(11, post, x0, str(tmp_path / "again"), **kw)
+    for i in range(2):
+        for name in (f"seg_{i}", f"phase_{i}"):
+            shutil.copytree(tmp_path / "full" / name, tmp_path / "resumed" / name)
+    resumed = run_hmc_checkpointed(11, post, x0, str(tmp_path / "resumed"), **kw)
+    assert full.samples.device.type == "cuda"
+    for a, b, c in zip(full, again, resumed):
+        assert torch.equal(a, b) and torch.equal(a, c)
