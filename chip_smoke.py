@@ -10,7 +10,7 @@
 third only times the n=1e6 subsample stage, four calls from one seed, with
 the package beside the script: a copy of the script in another tree of the
 repo times that tree's subsampler; the fourth builds, fits the torus and
-runs phase 12 alone).
+the multiclass LAE model of phase 11, then runs phases 12–15 alone).
 Phases, each of which ends the script with a non-zero exit if it fails:
 
 1. the card: name and power limit from nvidia-smi; a CUDA device is required
@@ -117,7 +117,33 @@ Phases, each of which ends the script with a non-zero exit if it fails:
     transition; device activities a leapfrog step and device busy share of
     one HMC transition (``torch.profiler``); ``run_hmc_checkpointed`` (three
     segments) and a run resumed from a copy of its first two, which must be
-    the same bits.
+    the same bits;
+13. the t-hyperposterior at the BASELINE multiclass configuration, on phase
+    11's n = 7e4 spectrum (its fit launched K1–K5) with its 500 one-hot train
+    labels: ``mult_t_posterior`` (64 particles, 5 random-walk mutations,
+    Newton cap 25, two stages a run) and the same whole ladder from one seed,
+    which must be the same bits, then ``mult_t_quadrature`` (256 points,
+    two passes); the SMC t-means within 1.0 quadrature sd on every class and
+    0.5 on average, the coarse weight below 0.5, finite evidence; walls,
+    Newton solves and host syncs a target evaluation, peak memory; then
+    ``gpc_t_posterior`` (64 particles) on phase 4's torus spectrum, its
+    t-mean within 1.5 in log of the ``gpc_nlp_objective`` grid optimum;
+14. SVI on phase 12's torus posterior: ``fit_svi`` (8000 steps) and
+    ``fit_svi_lowrank`` (rank 5, 16000 steps), n_mc 8, lr 0.02, held to phase 12's HMC
+    draws: mean-field's means within 1.0 reference sd at every coordinate
+    and its median sd ratio in (0.6, 1.6), both families finite; the
+    low-rank family's numbers, the ELBOs and the low-rank gain reported (F5);
+15. the README goldens on the reference's own data: ``torus_rings_r``
+    through ``fit_lae_logit_gp`` (err ≤ 0.015, K1–K5 launched) and
+    ``fit_se_logit_gp`` (err ≤ 0.005, K1 and K9), float32 graph and
+    float64 tail; ``spiral_r`` on ``spiral_r_anchors`` through the LAE and SE
+    regression drivers in float64 with the plain versions (|rmse − 0.4582| <
+    8e-3, |rmse − 0.5032| < 1.5e-3) and with the float32 graph and the
+    kernels (the float64 rmse + 0.01); ``fit_lae_logit_gp(report=...)``
+    from phase 4's seed under ``profiler_trace``, which must give phase 4's
+    outputs bit for bit and leave a trace file; and
+    ``fit_se_regression_gp_resumable`` on the spiral, stopped after 4 of 10
+    bandwidths and resumed, the same bits as the run that was not stopped.
 
 Beside each kernel's time stand its bound (the least time the card could
 take: compulsory bytes at 3.35 TB/s or operations at the 67 TFLOP/s float32
@@ -1486,7 +1512,8 @@ def multiclass_phase(dev, results: dict) -> dict:
     (n = 7e4, d = 16, ten classes) through ``fit_lae_logit_mult_gp`` cold and
     warm from one seed (the same bits), stage by stage, its device
     activities beside the binary torus fit's, the grid drivers at n = 5000,
-    and the extras.  Returns the LAE fit's launches."""
+    and the extras.  Returns the LAE fit's launches, its spectrum and the
+    dataset."""
     from flgp_tpu_torch.datasets import mnist_like
 
     cfg = MNIST
@@ -1549,7 +1576,7 @@ def multiclass_phase(dev, results: dict) -> dict:
         _fail(f"fit_gl_logit_mult_gp launched no ell_sym_matmat kernel: {gl['launches']}")
 
     extras(dev)
-    return lae["launches"]
+    return lae["launches"], first.eigenpair, ds
 
 
 def extras(dev) -> None:
@@ -1685,14 +1712,15 @@ def _gate_rhat(name: str, samples, gate: bool = True) -> None:
         _fail(f"{name}: split-R̂ {rhat[worst]:.4f} >= {RHAT_GATE} at coordinate {worst}")
 
 
-def sampling_phase(dev, torus_eig: EigenPair, card: str) -> None:
+def sampling_phase(dev, torus_eig: EigenPair, card: str) -> dict:
     """Phase 12: the torus fit again from phase 4's seed (K1–K5 launched, the
     same spectrum bit for bit), its whitened GPC posterior (K = 100, dim 101,
     float32), the analytic gradient against autograd and the TF32 variant
     against full float32, then HMC, NUTS, ChEES (adaptive, then fixed at 4096
     chains) and checkpointed HMC with a resumed run, each timed beside the
     card; R̂, agreement of f's moments at the train points across the three
-    samplers, train error and bit-exact resume are gates."""
+    samplers, train error and bit-exact resume are gates.  Returns the
+    posterior, the HMC draws and the fit's launches for phase 14."""
     tor = SHAPES["torus"]
     m, K = tor["m"], tor["K"]
     hk.reset_launches()
@@ -1750,6 +1778,7 @@ def sampling_phase(dev, torus_eig: EigenPair, card: str) -> None:
                     f"{c['n_samples']} draws, {c['n_leapfrog']} leapfrog steps", t, run.samples,
                     run.accept_prob, run.step, card)
     _gate_rhat("run_hmc", run.samples)
+    hmc_draws = run.samples
     moments["hmc"] = f_moments(gp, run.samples)
     per_step, busy, one_wall, one_busy = one_transition_profile(
         post, hmc.init_state(post, run.samples[-1]), run.step, run.inv_mass, c["n_leapfrog"], dev)
@@ -1864,6 +1893,333 @@ def sampling_phase(dev, torus_eig: EigenPair, card: str) -> None:
     if not same:
         _fail("the resumed checkpointed HMC run differs from the uninterrupted one")
     _gate_rhat("run_hmc_checkpointed", full.samples, gate=False)
+    return dict(post=post, hmc_draws=hmc_draws, launches=launches)
+
+
+# phase 13: the t-hyperposterior at BASELINE config 3
+SMC_BUDGET = dict(n_particles=64, n_mutation_steps=5, newton_max_iter=25, stages_per_dispatch=2)
+
+
+def _counted_run(fn):
+    """``fn()`` with its wall, its Newton solves and host syncs (``gpc.STATS``)
+    and the peak device memory it reached."""
+    from flgp_tpu_torch.models import gpc as gpc_mod
+
+    gpc_mod.reset_stats()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = _synced()
+    out = fn()
+    wall = _synced() - t0
+    return out, dict(wall=wall, solves=gpc_mod.STATS["solves"], syncs=gpc_mod.STATS["host_syncs"],
+                     peak=torch.cuda.max_memory_allocated())
+
+
+def _counts_line(c: dict) -> str:
+    return (f"{c['wall']:.3f} s, {c['solves']} Newton solves (target evaluations), "
+            f"{c['syncs'] / max(c['solves'], 1):.2f} Newton rounds (host syncs) each, peak memory "
+            f"{c['peak'] / 2**30:.3f} GiB")
+
+
+def target_evaluation_profile(eig: EigenPair, aug, idx, K: int, sigma: float,
+                              theta: torch.Tensor) -> tuple:
+    """(wall, device activity time, device activities, host syncs) of one
+    target evaluation of ``mult_t_posterior`` at the particles ``theta``:
+    the batched Newton solve over its particles × classes lanes, warm, then
+    once under ``torch.profiler``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from flgp_tpu_torch.inference.hyperparam import _phi
+    from flgp_tpu_torch.models import gpc as gpc_mod
+
+    V, lam = eig.vectors[idx, :K], eig.laplacian_eigenvalues(K)
+    Yt, Nv = aug.T.contiguous(), torch.ones(aug.shape[0], dtype=aug.dtype, device=aug.device)
+
+    def solve():
+        return gpc_mod.gpc_marginal_log_likelihood_lowrank(
+            _phi(V, lam, torch.exp(theta)), Yt, Nv, sigma, 1e-5, SMC_BUDGET["newton_max_iter"])
+
+    solve()
+    gpc_mod.reset_stats()
+    t0 = _synced()
+    solve()
+    wall = _synced() - t0
+    syncs = gpc_mod.STATS["host_syncs"]
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        solve()
+        torch.cuda.synchronize()
+    acts = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    return wall, sum(e.time_range.elapsed_us() for e in acts) * 1e-6, len(acts), syncs
+
+
+def hyperposterior_phase(dev, mnist_eig: EigenPair, mnist_ds, mnist_launches: dict,
+                         torus_eig: EigenPair, torus_launches: dict, card: str) -> None:
+    """Phase 13: ``mult_t_posterior`` (64 particles, 5 mutations, Newton cap
+    25, two stages a run) on phase 11's n = 7e4 spectrum, held to
+    ``mult_t_quadrature`` (the reference's gate: 1.0 quadrature sd on every
+    class, 0.5 on average), the whole ladder from the same seed the same
+    bits; then ``gpc_t_posterior`` on phase 4's torus spectrum near the
+    ``gpc_nlp_objective`` grid optimum."""
+    from flgp_tpu_torch.fit.multiclass import one_hot_labels
+    from flgp_tpu_torch.inference import hyperparam
+    from flgp_tpu_torch.models.gpc import gpc_nlp_objective
+
+    m, K, sigma = MNIST["m"], MNIST["K"], 1e-3
+    print(f"t-hyperposterior on phase 11's spectrum (mnist_like n={MNIST['n']}, K={K}, "
+          f"{mnist_eig.vectors.dtype}; its fit launched {mnist_launches})", flush=True)
+    Y = torch.as_tensor(mnist_ds.y_train, dtype=mnist_eig.vectors.dtype, device=dev)
+    aug = one_hot_labels(Y, int(torch.max(Y)) + 1)
+    idx = torch.arange(m, device=dev)
+    kw = {k: v for k, v in SMC_BUDGET.items() if k != "stages_per_dispatch"}
+    runs = {}
+    for label, spd in (("chunked", SMC_BUDGET["stages_per_dispatch"]), ("whole", None)):
+        runs[label] = _counted_run(lambda spd=spd: hyperparam.mult_t_posterior(
+            torch.Generator(device=dev).manual_seed(7), mnist_eig, aug, idx, K, sigma,
+            stages_per_dispatch=spd, device=dev, **kw))
+    post, c = runs["chunked"]
+    whole = runs["whole"][0]
+    print(f"mult_t_posterior ({SMC_BUDGET['n_particles']} particles, "
+          f"{SMC_BUDGET['n_mutation_steps']} mutations, Newton cap {SMC_BUDGET['newton_max_iter']},"
+          f" {SMC_BUDGET['stages_per_dispatch']} stages a run): {post.smc.n_stages} stages, "
+          f"{_counts_line(c)}; the whole ladder {runs['whole'][1]['wall']:.3f} s [{card}]",
+          flush=True)
+    same = (post.smc.n_stages == whole.smc.n_stages
+            and torch.equal(post.smc.particles, whole.smc.particles)
+            and torch.equal(post.smc.temperatures, whole.smc.temperatures)
+            and torch.equal(post.log_evidence, whole.log_evidence))
+    print(f"  chunked and whole ladder from one seed: particles, temperatures, stages and log "
+          f"evidence {'the same bits' if same else 'DIFFER'}", flush=True)
+    if not same:
+        _fail("mult_t_posterior: the chunked and the whole ladder differ")
+    wall, busy, n_acts, syncs = target_evaluation_profile(mnist_eig, aug, idx, K, sigma,
+                                                          post.smc.particles)
+    print(f"  one target evaluation ({post.smc.particles.shape[0]} particles x {aug.shape[1]} "
+          f"classes as Newton lanes, {syncs} host syncs): {wall * 1e3:.3f} ms wall, "
+          f"{busy * 1e3:.3f} ms of device activity, busy share {busy / wall:.4f}; "
+          f"{n_acts / max(syncs - 1, 1):.1f} device activities a Newton round [{card}]",
+          flush=True)
+    quad, cq = _counted_run(lambda: hyperparam.mult_t_quadrature(
+        mnist_eig, aug, idx, K, sigma, newton_max_iter=SMC_BUDGET["newton_max_iter"],
+        device=dev))
+    err = (torch.abs(post.t_mean - quad.t_mean) / quad.t_sd).double().cpu().numpy()
+    print(f"mult_t_quadrature (256 grid points x {aug.shape[1]} classes, two passes): "
+          f"{_counts_line(cq)} [{card}]", flush=True)
+    print(f"  t-mean SMC {np.round(post.t_mean.double().cpu().numpy(), 4).tolist()}", flush=True)
+    print(f"  t-mean quadrature {np.round(quad.t_mean.double().cpu().numpy(), 4).tolist()}, "
+          f"t-sd {np.round(quad.t_sd.double().cpu().numpy(), 4).tolist()}", flush=True)
+    print(f"  |SMC − quadrature| / quadrature sd: max {err.max():.4f} (gate 1.0), mean "
+          f"{err.mean():.4f} (gate 0.5); coarse max weight {float(quad.coarse_max_weight):.4f} "
+          f"(gate 0.5); log evidence SMC {float(post.log_evidence):.4f}, quadrature "
+          f"{float(quad.log_evidence):.4f}", flush=True)
+    if not float(quad.coarse_max_weight) < 0.5:
+        _fail(f"quadrature coarse max weight {float(quad.coarse_max_weight)} >= 0.5")
+    if not (err.max() < 1.0 and err.mean() < 0.5):
+        _fail(f"SMC t-means off the quadrature: max {err.max()}, mean {err.mean()} sd")
+    if not (np.isfinite(float(post.log_evidence)) and np.isfinite(float(quad.log_evidence))):
+        _fail("non-finite log evidence")
+
+    tor = SHAPES["torus"]
+    ds = torus_rings(n=tor["n"], m_train=tor["m"], seed=tor["seed"])
+    mt, Kt = tor["m"], tor["K"]
+    Yt = torch.as_tensor(ds.y_train, dtype=torus_eig.vectors.dtype, device=dev)
+    tpost, ct = _counted_run(lambda: hyperparam.gpc_t_posterior(
+        torch.Generator(device=dev).manual_seed(8), torus_eig, Yt, torch.arange(mt, device=dev),
+        Kt, sigma, n_particles=64, device=dev))
+    # the reference test's grid, exp(linspace(−2, 5, 60)), ends at t = 148, below the
+    # torus fit's t (~4e3): the grid here spans the same spacing out to e^10
+    ts = torch.exp(torch.linspace(-2, 10, 103, dtype=torus_eig.vectors.dtype, device=dev))
+    objs = gpc_nlp_objective(torus_eig, Yt, torch.ones_like(Yt), torch.arange(mt, device=dev),
+                             Kt, ts, sigma)
+    t_star = float(ts[int(torch.argmin(objs))])
+    gap = abs(float(np.log(float(tpost.t_mean))) - np.log(t_star))
+    print(f"gpc_t_posterior (torus spectrum of phase 4, whose fit launched {torus_launches}; 64 "
+          f"particles): {tpost.smc.n_stages} stages, {_counts_line(ct)}; t-mean "
+          f"{float(tpost.t_mean):.5g}, sd {float(tpost.t_sd):.4g}, grid optimum {t_star:.5g}, "
+          f"|log gap| {gap:.4f} (gate 1.5) [{card}]", flush=True)
+    if not (gap < 1.5 and np.isfinite(float(tpost.log_evidence))):
+        _fail(f"gpc_t_posterior: log t-mean {gap} from the grid optimum, or non-finite evidence")
+
+
+# phase 14: SVI on the torus posterior of phase 12, at the JAX package's budgets
+# (bench.py:bench_svi): mean-field 8000 steps, low-rank 16000.  log t travels ~8
+# from its zero start and arrives between steps 6000 and 8000 on the card's
+# stream (the ELBO by step is printed); on another stream it may arrive later
+SVI = dict(mf_steps=8000, lr_steps=16000, rank=5, n_mc=8, lr=0.02)
+
+
+def svi_phase(dev, sampling: dict, card: str) -> None:
+    """Phase 14: ``fit_svi`` and ``fit_svi_lowrank`` on phase 12's torus GPC
+    posterior, held to phase 12's HMC draws (16 × 512, split-R̂ < 1.1):
+    mean-field within 1.0 reference sd at every coordinate and its median sd
+    ratio in (0.6, 1.6); the low-rank family's numbers (F5) reported."""
+    from flgp_tpu_torch.inference.svi import fit_svi, fit_svi_lowrank
+
+    post = sampling["post"]
+    S = sampling["hmc_draws"].double().reshape(-1, post.dim).cpu().numpy()
+    mu_ref, sd_ref = S.mean(0), S.std(0)
+    print(f"SVI on phase 12's torus posterior (dim {post.dim}; the fit launched "
+          f"{sampling['launches']}); reference moments from {S.shape[0]} HMC draws", flush=True)
+    fits = {}
+    for name, fn, steps, kw in (("mean-field", fit_svi, SVI["mf_steps"], {}),
+                                ("low-rank", fit_svi_lowrank, SVI["lr_steps"],
+                                 {"rank": SVI["rank"]})):
+        t0 = _synced()
+        res = fn(torch.Generator(device=dev).manual_seed(21), post, post.dim, steps=steps,
+                 n_mc=SVI["n_mc"], lr=SVI["lr"], device=dev, **kw)
+        wall = _synced() - t0
+        q = res.posterior
+        mu = q.mu.double().cpu().numpy()
+        sd = np.sqrt(torch.diagonal(q.covariance()).double().cpu().numpy())
+        trace = res.elbo_trace.double().cpu().numpy()
+        tail = trace[-50:]
+        f = dict(wall=wall, steps=steps, err=np.abs(mu - mu_ref) / sd_ref,
+                 ratio=float(np.median(sd / sd_ref)), elbo=float(tail.mean()),
+                 elbo_sd=float(tail.std()), finite=bool(np.all(np.isfinite(mu))
+                                                        and np.all(np.isfinite(sd))
+                                                        and np.all(np.isfinite(tail))))
+        fits[name] = f
+        print(f"  {name} ({steps} steps, n_mc {SVI['n_mc']}, lr {SVI['lr']}): {wall:.3f} s, "
+              f"{steps / wall:.1f} steps/s; max |mu − mu_ref| / sd_ref {f['err'].max():.4f}, "
+              f"mean {f['err'].mean():.4f}; median sd ratio {f['ratio']:.4f}; ELBO (mean of the "
+              f"last 50) {f['elbo']:.4f}, their sd {f['elbo_sd']:.4f}; ELBO by step "
+              + ", ".join(f"{i}: {trace[i - 50:i].mean():.2f}" for i in range(2000, steps + 1, 2000))
+              + f" [{card}]", flush=True)
+    mf, lr = fits["mean-field"], fits["low-rank"]
+    print(f"  low-rank ELBO gain over mean-field {lr['elbo'] - mf['elbo']:.4f} (Monte Carlo "
+          f"sd of each mean ~{np.hypot(mf['elbo_sd'], lr['elbo_sd']) / np.sqrt(50):.4f}); "
+          f"F5 reported, not gated", flush=True)
+    if not (mf["finite"] and lr["finite"]):
+        _fail("an SVI family has non-finite parameters or ELBO")
+    if not (mf["err"].max() <= 1.0 and 0.6 < mf["ratio"] < 1.6):
+        _fail(f"mean-field SVI: max mean error {mf['err'].max()} sd, median sd ratio "
+              f"{mf['ratio']}")
+
+
+# phase 15: the goldens on the reference's own data, the instrumented fit and
+# the resumable grid
+GOLDEN_TORUS = {"fit_lae_logit_gp": 0.015, "fit_se_logit_gp": 0.005}
+GOLDEN_SPIRAL = {"fit_lae_regression_gp": (0.4582, 8e-3, "lae", MAIN_PATH),
+                 "fit_se_regression_gp": (0.5032, 1.5e-3, "se", ("knn", "ell_matmat"))}
+
+
+def _launched(name: str, launches: dict, need) -> None:
+    missing = [k for k in need if launches.get(k, 0) == 0]
+    if missing:
+        _fail(f"{name} launched no {missing} kernel: {launches}")
+
+
+def golden_phase(dev, phase4, card: str) -> None:
+    """Phase 15: the README goldens on the R-stream data (torus) and on the
+    R session's anchors (spiral; float64 with the plain versions, then the
+    float32 graph with the kernels), ``fit_lae_logit_gp(report=...)`` under
+    ``profiler_trace`` against phase 4's outputs bit for bit, and the
+    resumable SE grid stopped after 4 of 10 points and resumed."""
+    from flgp_tpu_torch.datasets import spiral_r, spiral_r_anchors, torus_rings_r
+    from flgp_tpu_torch.fit.resumable import fit_se_regression_gp_resumable
+    from flgp_tpu_torch.utils.metrics import MetricsReport, profiler_trace
+
+    tor = SHAPES["torus"]
+    graph = ft.GraphConfig(s=tor["s"], r=tor["r"], K=tor["K"])
+    tds = torus_rings_r()
+    for name, gate in GOLDEN_TORUS.items():
+        f = entry_fit(name, tds, torus_fit_cfg(), dev, seed=0, cold_and_warm=False)
+        _report_fit(name, "torus_rings_r, f32 graph, f64 tail", f)
+        _launched(name, f["launches"], MAIN_PATH if "_lae_" in name else ("knn", "ell_matmat"))
+        print(f"  golden gate: err {f['score']:.6f} <= {gate}", flush=True)
+        if f["score"] > gate:
+            _fail(f"{name} on torus_rings_r: err {f['score']} > {gate}")
+
+    t0 = time.perf_counter()
+    sds, anchors = spiral_r(), spiral_r_anchors()
+    print(f"spiral_r and spiral_r_anchors (the R session replayed on the host): "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    sp = SPIRAL
+    for name, (golden, tol, key, need) in GOLDEN_SPIRAL.items():
+        scores = {}
+        for dtype in (torch.float64, torch.float32):
+            cfg = ft.FitConfig(graph=ft.GraphConfig(s=sp["s"], r=sp["r"], K=sp["K"]),
+                               sigma=1e-5, dtype=dtype,
+                               solve_dtype=torch.float64 if dtype == torch.float32 else None)
+            hk.reset_launches()
+            t0 = _synced()
+            res = getattr(ft, name)(torch.Generator(device=dev).manual_seed(0), sds.x_train,
+                                    sds.y_train, sds.x_test, cfg=cfg, anchors=anchors[key],
+                                    device=dev)
+            wall = _synced() - t0
+            launches = {k: v for k, v in hk.LAUNCHES.items() if v}
+            scores[dtype] = float(np.sqrt(np.mean((res.y_test - sds.y_test) ** 2)))
+            what = ("float64, plain versions" if dtype == torch.float64
+                    else "float32 graph, float64 tail")
+            print(f"{name} (spiral_r on the R session's anchors, {what}): rmse "
+                  f"{scores[dtype]:.6f}, {wall:.3f} s, launches {launches} [{card}]", flush=True)
+            if dtype == torch.float64:
+                if launches:
+                    _fail(f"{name} in float64 launched kernels: {launches}")
+                if not abs(scores[dtype] - golden) < tol:
+                    _fail(f"{name}: float64 rmse {scores[dtype]} not within {tol} of {golden}")
+            else:
+                _launched(name, launches, need)
+        gate = scores[torch.float64] + 0.01
+        print(f"  golden gates: float64 |rmse − {golden}| {abs(scores[torch.float64] - golden):.6f}"
+              f" < {tol}; float32 rmse {scores[torch.float32]:.6f} <= {gate:.6f}", flush=True)
+        if scores[torch.float32] > gate:
+            _fail(f"{name}: float32 rmse {scores[torch.float32]} > {gate}")
+
+    # the instrumented torus fit from phase 4's seed, under a profiler trace
+    ds = torus_rings(n=tor["n"], m_train=tor["m"], seed=tor["seed"])
+    report = MetricsReport()
+    hk.reset_launches()
+    with tempfile.TemporaryDirectory(prefix="flgp_phase15_") as tmp:
+        with profiler_trace(tmp):
+            res = ft.fit_lae_logit_gp(torch.Generator(device=dev).manual_seed(0), ds.x_train,
+                                      ds.y_train, ds.x_test, cfg=torus_fit_cfg(), report=report,
+                                      device=dev)
+        traces = [p for p in Path(tmp).iterdir() if p.suffix == ".json" and p.stat().st_size]
+    launches = {k: v for k, v in hk.LAUNCHES.items() if v}
+    same = (all(np.array_equal(getattr(res, nm), getattr(phase4, nm)) for nm in
+                ("y_train", "y_test", "posterior_mean", "posterior_cov"))
+            and np.array_equal(res.pars["t"], phase4.pars["t"]) and res.obj == phase4.obj
+            and torch.equal(res.eigenpair.vectors, phase4.eigenpair.vectors))
+    print(f"fit_lae_logit_gp(report=MetricsReport()) from phase 4's seed under profiler_trace: "
+          f"outputs {'the same bits as phase 4' if same else 'DIFFER from phase 4'}; launches "
+          f"{launches}; {len(traces)} trace file(s)", flush=True)
+    print("  stages (s): " + "  ".join(f"{s.name} {s.wall_s:.4f}" for s in report.stages)
+          + f"; metrics {res.metrics} [{card}]", flush=True)
+    _launched("the instrumented fit", launches, MAIN_PATH)
+    if not same:
+        _fail("fit_lae_logit_gp(report=...) differs from the plain fit of phase 4")
+    if not traces:
+        _fail("profiler_trace left no trace file")
+
+    # the resumable SE grid, stopped after 4 of 10 points and resumed
+    spd = spiral(n=sp["n"], m_train=sp["m"], seed=1234)
+    cfg = ft.FitConfig(graph=ft.GraphConfig(s=sp["s"], r=sp["r"], K=sp["K"]), sigma=1e-5,
+                       dtype=torch.float32, solve_dtype=torch.float64)
+    with tempfile.TemporaryDirectory(prefix="flgp_phase15_") as tmp:
+        walls = {}
+        for label in ("full", "resumed"):
+            if label == "resumed":
+                for i in range(4):
+                    shutil.copytree(f"{tmp}/full/a2_{i}", f"{tmp}/resumed/a2_{i}")
+            hk.reset_launches()
+            t0 = _synced()
+            out = fit_se_regression_gp_resumable(torch.Generator(device=dev).manual_seed(0),
+                                                 spd.x_train, spd.y_train, spd.x_test,
+                                                 f"{tmp}/{label}", cfg, device=dev)
+            walls[label] = (_synced() - t0, {k: v for k, v in hk.LAUNCHES.items() if v})
+            if label == "full":
+                full = out
+    same = (all(np.array_equal(getattr(out, nm), getattr(full, nm)) for nm in
+                ("y_train", "y_test", "posterior_mean", "posterior_cov"))
+            and all(np.array_equal(out.pars[k], full.pars[k]) for k in full.pars)
+            and out.obj == full.obj)
+    rmse = float(np.sqrt(np.mean((full.y_test - spd.y_test) ** 2)))
+    print(f"fit_se_regression_gp_resumable (spiral, 10 bandwidths): {walls['full'][0]:.3f} s, "
+          f"rmse {rmse:.6f}, a2 {float(full.pars['a2']):.4g}, launches {walls['full'][1]}; "
+          f"stopped after 4 and resumed: {walls['resumed'][0]:.3f} s, outputs "
+          f"{'the same bits' if same else 'DIFFER'} [{card}]", flush=True)
+    _launched("fit_se_regression_gp_resumable", walls["full"][1], ("knn", "ell_matmat"))
+    if not same:
+        _fail("the resumed grid differs from the run that was not stopped")
 
 
 def subsample_stage_times(dev, calls: int = 4) -> None:
@@ -1885,19 +2241,43 @@ def torus_fit_cfg():
                         dtype=torch.float32, solve_dtype=torch.float64)
 
 
+def inference_phases(dev, card: str, phase4, torus_launches: dict, mnist_eig: EigenPair,
+                     mnist_ds, mnist_launches: dict, sampling: dict) -> None:
+    """Phases 13–15, each timed."""
+    for number, run in ((13, lambda: hyperposterior_phase(dev, mnist_eig, mnist_ds, mnist_launches,
+                                                          phase4.eigenpair, torus_launches, card)),
+                        (14, lambda: svi_phase(dev, sampling, card)),
+                        (15, lambda: golden_phase(dev, phase4, card))):
+        t0 = time.perf_counter()
+        run()
+        print(f"phase {number}: {time.perf_counter() - t0:.1f} s", flush=True)
+        torch.cuda.empty_cache()
+
+
 def sampling_only(dev) -> None:
-    """``--sampling``: the card, the build, a torus fit, then phase 12."""
+    """``--sampling``: the card, the build, the torus fit (phase 4), the
+    multiclass LAE fit of phase 11, then phases 12–15."""
     card = card_line()
     print(f"card: {card}", flush=True)
     t0 = time.perf_counter()
     _build.build()
     _build.load()
     print(f"build: {time.perf_counter() - t0:.1f} s", flush=True)
-    res, err, wall, _ = fit(SHAPES["torus"], torus_fit_cfg(), dev, seed=0)
-    print(f"torus fit: err {err:.6f}  wall {wall:.3f} s", flush=True)
+    hk.reset_launches()
+    phase4, err, wall, _ = fit(SHAPES["torus"], torus_fit_cfg(), dev, seed=0)
+    torus_launches = {k: hk.LAUNCHES[k] for k in MAIN_PATH}
+    print(f"torus fit: err {err:.6f}  wall {wall:.3f} s  launches {torus_launches}", flush=True)
+    from flgp_tpu_torch.datasets import mnist_like
+
+    ds = mnist_like(n=MNIST["n"], m_train=MNIST["m"], seed=MNIST["seed"])
+    f = entry_fit("fit_lae_logit_mult_gp", ds, mult_cfg(MNIST, torch.float32), dev, seed=0,
+                  cold_and_warm=False)
+    _report_fit("fit_lae_logit_mult_gp", "mnist_like n=70000, d=16, J=10, s=600", f)
     t0 = time.perf_counter()
-    sampling_phase(dev, res.eigenpair, card)
+    sampling = sampling_phase(dev, phase4.eigenpair, card)
     print(f"phase 12: {time.perf_counter() - t0:.1f} s", flush=True)
+    inference_phases(dev, card, phase4, torus_launches, f["first"].eigenpair, ds,
+                     {k: f["launches"].get(k, 0) for k in MAIN_PATH}, sampling)
     print(card)
 
 
@@ -1940,6 +2320,7 @@ def main() -> None:
     hk.reset_launches()
     res, err, wall, _ = fit(tor, tor_cfg, dev, seed=0)
     launches = dict(hk.LAUNCHES)
+    phase4, torus_launches = res, {k: launches[k] for k in MAIN_PATH}
     print(f"torus fit (cold): err {err:.6f}  t {float(res.pars['t']):.6g}  wall {wall:.3f} s  "
           f"launches {launches}", flush=True)
     if err > ERR_GATE:
@@ -1974,7 +2355,7 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # 11. multiclass and the extras
-    mult_launches = multiclass_phase(dev, results)
+    mult_launches, mnist_eig, mnist_ds = multiclass_phase(dev, results)
     print("K1–K5 at the multiclass shape (side rows of the kernels line; launches per "
           "fit_lae_logit_mult_gp): " + "; ".join(
               f"{k} {results[k]['ms_mnist']:.4f} ms (bound {bound(results[k]['work_mnist'])[0]:.4f},"
@@ -1985,8 +2366,14 @@ def main() -> None:
 
     # 12. the posterior-sampling path on the torus fit's spectrum
     t0 = time.perf_counter()
-    sampling_phase(dev, torus_eig, card)
+    sampling = sampling_phase(dev, torus_eig, card)
     print(f"phase 12: {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # 13.–15. the rest of the inference stack, the goldens and the instrumented fit
+    inference_phases(dev, card, phase4, torus_launches, mnist_eig, mnist_ds,
+                     {k: mult_launches.get(k, 0) for k in MAIN_PATH}, sampling)
+    del mnist_eig, sampling
+    torch.cuda.empty_cache()
 
     # K1–K5: launches of the torus fit, times at the n=1e6 shape; K6–K8:
     # launches of the first n=1e7 fit, times at the n=1e7 shape; K9: launches

@@ -223,3 +223,14 @@ def default_a2s() -> np.ndarray:
     """Default bandwidth-squared grid of the SE, Nyström and GLGP drivers:
     exp(linspace(log 0.1, log 10, 10)), float64."""
     return np.exp(np.linspace(np.log(0.1), np.log(10.0), 10))
+
+
+def resolve_device(device, what: str) -> torch.device:
+    """The device an entry point runs on: the CUDA device unless the caller
+    names one; ``device=None`` without a CUDA device raises."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(f'no CUDA device: {what} run on the card by default; '
+                               f'pass device="cpu" to run on the CPU')
+        device = "cuda"
+    return torch.device(device)

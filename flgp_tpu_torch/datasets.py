@@ -1,9 +1,13 @@
 """Datasets, generated on the host with NumPy.
 
-``torus_rings``, ``spiral``, ``gaussian_blobs``, ``mnist_like``, ``digits``
-and ``digits_large`` are copies of the functions of the same names in
+``torus_rings``, ``spiral``, ``torus_rings_r``, ``spiral_r``,
+``spiral_r_anchors``, ``gaussian_blobs``, ``mnist_like``, ``digits`` and
+``digits_large`` are copies of the functions of the same names in
 ``flgp_tpu.datasets`` (same seed, same arrays), kept here so that the port
-runs without the JAX package.  ``digits`` and ``digits_large`` read the
+runs without the JAX package.  The three ``_r`` functions replay the R
+session of the reference R package's README examples (``utils.r_rng``,
+``utils.r_kmeans``), so a fit runs on the data, and with the anchors, its
+golden numbers were committed on.  ``digits`` and ``digits_large`` read the
 handwritten-digits images bundled with scikit-learn, which they import when
 called.
 """
@@ -54,6 +58,66 @@ def spiral(n: int = 4000, m_train: int = 200, noise_sd: float = 1.0, seed: int =
     tr, te = idx[:m_train], idx[m_train:]
     y_train = Y[tr] + rng.normal(0.0, noise_sd, size=m_train)
     return Split(X[tr], y_train, X[te], Y[te])
+
+
+def torus_rings_r(seed: int = 1234) -> Split:
+    """The README classification example bit for bit: the same R stream
+    (set.seed(1234), runif thetas, rejection-method sample.int split)."""
+    from .utils.r_rng import RRng
+
+    n, n_each, m = 4800, 800, 100
+    r = RRng(seed)
+    thetas = r.runif(n, 0.0, 2.0 * np.pi)
+    X = np.stack([np.cos(thetas), np.sin(thetas)], axis=1)
+    Y = np.zeros(n)
+    for i in range(6):
+        sl = slice(i * n_each, (i + 1) * n_each)
+        X[sl] *= 0.5 + 0.1 * i
+        Y[sl] = float((-1) ** i > 0)
+    X = (X - X.mean(0)) / X.std(0, ddof=1)
+    X = X / np.sqrt(X.shape[1])
+    tr = r.sample_int(n, m) - 1
+    te = np.setdiff1d(np.arange(n), tr)
+    return Split(X[tr], Y[tr], X[te], Y[te])
+
+
+def spiral_r(seed: int = 1234, return_rng: bool = False):
+    """The README regression example bit for bit: the same R stream for
+    theta, the train/test split and the N(0, 1) observation noise.
+
+    ``return_rng=True`` also returns the RRng where the README script's first
+    fit call begins: the anchor draws of its ``stats::kmeans`` calls go on
+    from there."""
+    from .utils.r_rng import RRng
+
+    n, m = 4000, 200
+    r = RRng(seed)
+    theta = r.runif(n, 0.0, 8.0 * np.pi)
+    radius = (theta + 4.0) ** 0.7
+    X = np.stack([radius * np.cos(theta), radius * np.sin(theta)], axis=1)
+    Y = 3.0 * np.sin(theta / 10.0) + 3.0 * np.cos(theta / 2.0) + 4.0 * np.sin(4.0 * theta / 5.0)
+    tr = r.sample_int(n, m) - 1
+    te = np.setdiff1d(np.arange(n), tr)
+    y_train = Y[tr] + r.rnorm(m, 0.0, 1.0)
+    split = Split(X[tr], y_train, X[te], Y[te])
+    return (split, r) if return_rng else split
+
+
+def spiral_r_anchors(seed: int = 1234, s: int = 500):
+    """The anchor sets (centers, cluster sizes) the README regression fits
+    used, by replaying the R session: data, split, noise, then the SE fit's
+    and the LAE fit's ``stats::kmeans(X_all, s, iter.max=100)`` (one
+    ``sample.int(n, s)`` draw each, then deterministic Hartigan–Wong).
+    Returns ``{"se": (centers, sizes), "lae": (centers, sizes)}`` with X_all
+    in the drivers' [train; test] row order."""
+    from .utils.r_kmeans import r_kmeans
+
+    ds, rng = spiral_r(seed, return_rng=True)
+    X_all = np.concatenate([ds.x_train, ds.x_test])
+    out = {}
+    out["se"] = r_kmeans(rng, X_all, s, iter_max=100)
+    out["lae"] = r_kmeans(rng, X_all, s, iter_max=100)
+    return out
 
 
 def gaussian_blobs(

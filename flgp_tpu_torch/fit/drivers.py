@@ -12,6 +12,7 @@ device: the CUDA device unless the caller passes ``device="cpu"``.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Dict, Optional, Tuple
 
@@ -25,6 +26,7 @@ from ..config import (
     NoiseModel,
     default_a2s,
     pin_full_precision,
+    resolve_device,
 )
 from ..convert import anchors_from_numpy
 from ..inference.optimize import (
@@ -37,6 +39,7 @@ from ..inference.optimize import (
 from ..inference.pg_gibbs import test_pgbinary
 from ..models import gpc as gpc_mod
 from ..models import gpr as gpr_mod
+from ..ops import linalg
 from ..ops.heat_kernel import heat_kernel, heat_kernel_diag
 from ..ops.kmeans import SubsampleResult
 from ..types import EigenPair
@@ -62,14 +65,7 @@ def _start(generator: torch.Generator, device) -> torch.device:
     """Pin float32 products to full precision and settle the device: the CUDA
     device unless the caller names one, and the generator must live there."""
     pin_full_precision()
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "no CUDA device: the fit drivers run on the card by default; "
-                'pass device="cpu" to fit on the CPU'
-            )
-        device = "cuda"
-    device = torch.device(device)
+    device = resolve_device(device, "the fit drivers")
     if generator.device.type != device.type:
         raise ValueError(f"generator is on {generator.device}, fit on {device}")
     return device
@@ -239,47 +235,108 @@ def _first_min(objs) -> int:
 # ---------------------------------------------------------------------------
 # LAE drivers (no bandwidth grid)
 # ---------------------------------------------------------------------------
+# With a ``utils.metrics.MetricsReport`` as ``report`` the stages (spectrum,
+# train, predict) are timed with a device sync at each stage's end, and
+# ``FitResult.metrics`` carries their walls and the solvers' status.  The
+# stages are the plain path's calls in the plain path's order and the status
+# draws nothing, so ``report`` changes no output bit.
+
+
+def _stage(report, name: str):
+    return contextlib.nullcontext({}) if report is None else report.stage(name)
+
+
+def _orth_residual(eig: EigenPair) -> float:
+    """‖VᵀV/n − I‖_F / K for the √n-scaled eigenvectors (full float32)."""
+    V = eig.vectors
+    VtV = linalg.pdot(V.T, V) / V.shape[0]
+    eye = torch.eye(VtV.shape[0], dtype=VtV.dtype, device=VtV.device)
+    return float(torch.linalg.norm(VtV - eye) / VtV.shape[0])
+
+
+def _lae_fit(generator, X_all, Y, N_arr, max_count: int, m: int, n: int, cfg: FitConfig,
+             anchors, task: str, report) -> FitResult:
+    g = dataclasses.replace(cfg.graph, kernel=KernelType.LAE)
+    K = min(g.resolved_K(), g.s, n)
+    metrics: Dict[str, float] = {}
+    with _stage(report, "spectrum") as slot:
+        eig, _ = spectral.build_spectrum(generator, X_all, g, anchors)
+        slot["_sync"] = eig.vectors
+    if report is not None:
+        metrics["spectrum_s"] = report.stages[-1].wall_s
+        metrics["spectrum_orth_residual"] = _orth_residual(eig)
+    if task == "regression":
+        scfg, seig, (Ys,) = _solve_cast(cfg, eig, Y)
+        with _stage(report, "train") as slot:
+            res = _train_gpr(seig, Ys, slice(0, m), K, scfg)
+            slot["_sync"] = res.t
+        if report is not None:
+            metrics.update(train_s=report.stages[-1].wall_s,
+                           adam_grad_norm=float(res.grad_norm), train_obj=float(res.obj))
+        with _stage(report, "predict") as slot:
+            out = _gpr_tail(seig, Ys, m, n, K, scfg, res.t, res.noise)
+            slot["_sync"] = out["test"]
+        pars, obj = dict(t=res.t, noise=res.noise), -res.obj
+    else:
+        scfg, seig, (Ys, Ns) = _solve_cast(cfg, eig, Y, N_arr)
+        with _stage(report, "train") as slot:
+            res = _train_gpc(seig, Ys, Ns, slice(0, m), K, scfg)
+            slot["_sync"] = res.x
+        if report is not None:
+            # the refiner's bracket and the Newton status at the selected t
+            # (iterations == max_iter with delta >= tol: not converged)
+            _, n_it, n_delta = gpc_mod.gpc_nmll_objective_status(
+                seig, Ys, Ns, slice(0, m), K, res.x, scfg.sigma,
+                tol=scfg.train.newton_tol, max_iter=scfg.train.newton_max_iter)
+            metrics.update(train_s=report.stages[-1].wall_s,
+                           opt_bracket_logwidth=float(res.bracket_logwidth),
+                           opt_window_expansions=float(res.n_expansions),
+                           newton_iters=float(n_it), newton_final_delta=float(n_delta))
+        with _stage(report, "predict") as slot:
+            out = _gpc_tail(generator, seig, Ys, Ns, m, n, K, scfg, res.x, max_count)
+            slot["_sync"] = out["test"]
+        pars, obj = dict(t=res.x), -res.obj
+    if report is not None:
+        metrics["predict_s"] = report.stages[-1].wall_s
+    return _to_result(out, pars, obj, eig, metrics if report is not None else None)
 
 
 def fit_lae_regression_gp(generator: torch.Generator, X, Y, X_new,
-                          cfg: FitConfig = FitConfig(sigma=1e-5), anchors=None,
+                          cfg: FitConfig = FitConfig(sigma=1e-5), report=None, anchors=None,
                           device=None) -> FitResult:
     """GPR with the LAE kernel.
 
     ``generator`` drives every random draw and must live on ``device``: the
-    CUDA device by default, the CPU only with ``device="cpu"``.  ``anchors``:
-    optional (centers, sizes) subsampler override.  Inputs may be numpy
-    arrays or tensors; outputs are numpy arrays, the eigenpair stays on the
-    device."""
+    CUDA device by default, the CPU only with ``device="cpu"``.  ``report``:
+    an optional ``utils.metrics.MetricsReport`` that times the stages and
+    fills ``FitResult.metrics`` (``spectrum_s``, ``spectrum_orth_residual``,
+    ``train_s``, ``adam_grad_norm``, ``train_obj``, ``predict_s``).
+    ``anchors``: optional (centers, sizes) subsampler override.  Inputs may
+    be numpy arrays or tensors; outputs are numpy arrays, the eigenpair
+    stays on the device."""
     device = _start(generator, device)
     cfg = _resolve(cfg, "regression")
     X_all, m, n = _concat_all(X, X_new, cfg.dtype, device)
     Y = torch.as_tensor(Y, dtype=cfg.dtype, device=device)
-    g = dataclasses.replace(cfg.graph, kernel=KernelType.LAE)
-    K = min(g.resolved_K(), g.s, n)
-    eig, _ = spectral.build_spectrum(generator, X_all, g, _as_anchors(anchors, cfg.dtype, device))
-    scfg, seig, (Ys,) = _solve_cast(cfg, eig, Y)
-    res = _train_gpr(seig, Ys, slice(0, m), K, scfg)
-    out = _gpr_tail(seig, Ys, m, n, K, scfg, res.t, res.noise)
-    return _to_result(out, dict(t=res.t, noise=res.noise), -res.obj, eig)
+    return _lae_fit(generator, X_all, Y, None, 1, m, n, cfg,
+                    _as_anchors(anchors, cfg.dtype, device), "regression", report)
 
 
 def fit_lae_logit_gp(generator: torch.Generator, X, Y, X_new, N=None,
-                     cfg: FitConfig = FitConfig(), anchors=None, device=None) -> FitResult:
+                     cfg: FitConfig = FitConfig(), report=None, anchors=None,
+                     device=None) -> FitResult:
     """Binary GPC with the LAE kernel.  Arguments as in
-    :func:`fit_lae_regression_gp`; ``N``: optional binomial trial counts."""
+    :func:`fit_lae_regression_gp`; ``N``: optional binomial trial counts.
+    With ``report`` the metrics are ``spectrum_s``,
+    ``spectrum_orth_residual``, ``train_s``, ``opt_bracket_logwidth``,
+    ``opt_window_expansions``, ``newton_iters``, ``newton_final_delta`` and
+    ``predict_s``."""
     device = _start(generator, device)
     X_all, m, n = _concat_all(X, X_new, cfg.dtype, device)
     Y = torch.as_tensor(Y, dtype=cfg.dtype, device=device)
     N_arr, max_count = _counts(N, m, cfg.dtype, device)
-
-    g = dataclasses.replace(cfg.graph, kernel=KernelType.LAE)
-    K = min(g.resolved_K(), g.s, n)
-    eig, _ = spectral.build_spectrum(generator, X_all, g, _as_anchors(anchors, cfg.dtype, device))
-    scfg, seig, (Ys, Ns) = _solve_cast(cfg, eig, Y, N_arr)
-    res = _train_gpc(seig, Ys, Ns, slice(0, m), K, scfg)
-    out = _gpc_tail(generator, seig, Ys, Ns, m, n, K, scfg, res.x, max_count)
-    return _to_result(out, dict(t=res.x), -res.obj, eig)
+    return _lae_fit(generator, X_all, Y, N_arr, max_count, m, n, cfg,
+                    _as_anchors(anchors, cfg.dtype, device), "logit", report)
 
 
 # ---------------------------------------------------------------------------

@@ -9,10 +9,13 @@ the 1-D optimizer evaluates a grid).  The batched Newton loop stops when no
 lane is still running and freezes each lane the moment its own condition
 (``it < max_iter and delta >= tol``) fails: the frozen lane's state, its
 iteration count included, is exactly what running it alone would give.
+Deciding whether to go on is one host sync a round: :data:`STATS` counts the
+solves and those syncs.
 """
 
 from __future__ import annotations
 
+from collections import Counter
 from typing import Callable, NamedTuple, Tuple
 
 import torch
@@ -32,6 +35,13 @@ class NewtonState(NamedTuple):
     delta: torch.Tensor         # (...,) last Σ|Δf|
 
 
+STATS: Counter = Counter()
+
+
+def reset_stats() -> None:
+    STATS.clear()
+
+
 def _initial_state(batch: torch.Size, m: int, like: torch.Tensor) -> NewtonState:
     f0 = like.new_zeros(batch + (m,))
     return NewtonState(
@@ -45,8 +55,10 @@ def _iterate_lanes(body: Callable[[NewtonState], NewtonState], state: NewtonStat
     """Run ``body`` on every lane until none is active; a lane whose
     condition is false keeps its state (``torch.where`` on every field).
     One host sync per round decides whether to go on."""
+    STATS["solves"] += 1
     while True:
         active = (state.it < max_iter) & (state.delta >= tol)
+        STATS["host_syncs"] += 1
         if not bool(torch.any(active)):
             return state
         new = body(state)

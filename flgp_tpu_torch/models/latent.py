@@ -26,7 +26,7 @@ from typing import NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
-from ..config import EPS
+from ..config import EPS, resolve_device
 from ..types import EigenPair
 
 PRECISIONS = (None, "tf32")
@@ -53,11 +53,7 @@ def _same_device(a: torch.device, b: torch.device) -> bool:
 def make_whitened(eigenpair: EigenPair, idx, K: int, sigma: float, device=None) -> WhitenedGP:
     """The whitened GP at the rows ``idx`` of the spectral pair.  ``device``:
     the CUDA device unless the caller names one; the pair must live there."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError('no CUDA device: the samplers run on the card by default; '
-                               'pass device="cpu" to build the model on the CPU')
-        device = "cuda"
+    device = resolve_device(device, "the samplers")
     vectors = eigenpair.vectors
     if not _same_device(vectors.device, device):
         raise ValueError(f"the eigenpair is on {vectors.device}, the model on {torch.device(device)}")

@@ -135,6 +135,12 @@ def polya_gamma(g: torch.Generator, c: torch.Tensor) -> torch.Tensor:
     return _sample_jstar(g, torch.abs(c) / 2.0) / 4.0
 
 
+def polya_gamma_int(g: torch.Generator, b: int, c: torch.Tensor) -> torch.Tensor:
+    """PG(b, c) for an integer b ≥ 1 as the sum of b PG(1, c) draws (pgdraw's
+    integer-b semantics)."""
+    return torch.sum(polya_gamma(g, c.expand((b,) + c.shape)), dim=0)
+
+
 def polya_gamma_counts(g: torch.Generator, N: torch.Tensor, c: torch.Tensor,
                        max_n: int) -> torch.Tensor:
     """PG(N_i, c_i) with per-element integer counts N_i ≤ max_n: masked sum of

@@ -97,10 +97,12 @@ def spectrum_from_Z(Z: EllMatrix, K: int, root: bool) -> EigenPair:
     """Top-K spectrum of W from the ELL matrix Z.
 
     values: eigenvalues of W = σ²(A), or σ(A) when ``root``.  vectors:
-    √n-scaled left singular vectors of A restricted to the top K.
+    √n-scaled left singular vectors of A restricted to the top K.  The
+    column sums add in a fixed order, so one graph gives one spectrum, bit
+    for bit, on the card too.
     """
     n, s = Z.shape
-    A = Z.scale_cols(1.0 / torch.sqrt(torch.abs(Z.colsum()) + EPS))
+    A = Z.scale_cols(1.0 / torch.sqrt(torch.abs(Z.colsum_ordered()) + EPS))
     w, V = _top_k_eigh(A.gram(), K)
     sigma2 = torch.clamp(w, min=0.0)
     sigma = torch.sqrt(sigma2)

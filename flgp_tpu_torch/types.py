@@ -60,6 +60,21 @@ class EllMatrix:
         out = self.values.new_zeros((self.num_cols,))
         return out.index_add_(0, self._flat_idx(), self.values.reshape(-1))
 
+    def colsum_ordered(self) -> torch.Tensor:
+        """1ᵀZ added in an order fixed by the graph, so the same bits on every
+        run: on a CUDA tensor, where a scatter-add's atomics land in any
+        order, the entries are stably sorted by column and each column is
+        summed in float64 in row order, then rounded once; on the CPU the
+        scatter-add, which already adds in row order."""
+        if not self.values.is_cuda:
+            return self.colsum()
+        flat = self._flat_idx()
+        order = torch.sort(flat, stable=True).indices
+        lengths = torch.bincount(flat, minlength=self.num_cols)
+        sums = torch.segment_reduce(self.values.reshape(-1)[order].to(torch.float64), "sum",
+                                    lengths=lengths, unsafe=True)
+        return sums.to(self.values.dtype)
+
     def scale_rows(self, scale: torch.Tensor) -> "EllMatrix":
         return EllMatrix(self.values * scale[:, None], self.indices, self.num_cols)
 

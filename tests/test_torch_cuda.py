@@ -882,3 +882,142 @@ def test_checkpointed_hmc_kill_and_resume_bit_for_bit_on_the_card(dev, tmp_path)
     assert full.samples.device.type == "cuda"
     for a, b, c in zip(full, again, resumed):
         assert torch.equal(a, b) and torch.equal(a, c)
+
+
+@pytest.mark.parametrize("mutation", ["hmc", "rwm"])
+def test_smc_gaussian_evidence_on_the_card(dev, mutation):
+    """The reference's SMC gate (log Z within 0.15 / 0.2, mean within 0.15)
+    with the particles, the generator and the ladder on the card."""
+    import math
+
+    from flgp_tpu_torch.inference.smc import run_smc
+
+    mu, s2 = torch.tensor([0.5, -0.5], device=dev), 0.25
+
+    def log_prior(x):
+        return -0.5 * torch.sum(x * x, dim=-1) - math.log(2 * math.pi)
+
+    def log_like(x):
+        return -0.5 * torch.sum((x - mu) ** 2, dim=-1) / s2 - math.log(2 * math.pi * s2)
+
+    g = torch.Generator(device=dev).manual_seed(1)
+    x0 = torch.randn((512, 2), generator=g, device=dev)
+    kw = dict(n_mutation_steps=5) if mutation == "hmc" else dict(n_mutation_steps=10,
+                                                                 step_size=0.5)
+    res = run_smc(g, log_prior, log_like, x0, mutation=mutation, **kw)
+    var = 1.0 + s2
+    log_z = float(np.sum(-0.5 * np.log(2 * np.pi * var) - 0.5 * np.array([0.5, -0.5]) ** 2 / var))
+    assert res.particles.device.type == "cuda"
+    assert abs(float(res.log_evidence) - log_z) < (0.15 if mutation == "hmc" else 0.2)
+    np.testing.assert_allclose(res.particles.mean(0).cpu().numpy(), [0.4, -0.4], atol=0.15)
+
+
+def test_report_changes_no_output_bit_on_the_card(dev):
+    import flgp_tpu_torch as ft
+    from flgp_tpu_torch.datasets import torus_rings
+    from flgp_tpu_torch.ops import hopper_kernels as hk
+    from flgp_tpu_torch.utils.metrics import MetricsReport
+
+    tor = torus_rings(n=2400, m_train=100, seed=1234)
+    cfg = ft.FitConfig(graph=ft.GraphConfig(s=300, r=3, K=60), sigma=1e-3,
+                       dtype=torch.float32, solve_dtype=torch.float64)
+
+    def run(report):
+        return ft.fit_lae_logit_gp(torch.Generator(device=dev).manual_seed(0), tor.x_train,
+                                   tor.y_train, tor.x_test, cfg=cfg, report=report)
+
+    plain = run(None)
+    hk.reset_launches()
+    report = MetricsReport()
+    inst = run(report)
+    assert all(hk.LAUNCHES[k] > 0 for k in ("knn", "lae_weights", "ell_colsum", "ell_norm_gram",
+                                            "ell_norm_matmat"))
+    for name in ("y_train", "y_test", "posterior_mean", "posterior_cov"):
+        assert np.array_equal(getattr(plain, name), getattr(inst, name)), name
+    assert np.array_equal(plain.pars["t"], inst.pars["t"]) and plain.obj == inst.obj
+    assert [s.name for s in report.stages] == ["spectrum", "train", "predict"]
+    assert inst.metrics["spectrum_orth_residual"] < 1e-3 and inst.metrics["newton_iters"] >= 1
+
+
+def test_metrics_stage_waits_for_the_queued_work(dev):
+    """A stage with a CUDA tensor in its ``_sync`` slot covers the work queued
+    for it; without the slot the clock stops while the card still runs."""
+    from flgp_tpu_torch.utils.metrics import MetricsReport
+
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    A = torch.randn((4096, 4096), device=dev)
+    torch.cuda.synchronize()
+    report = MetricsReport()
+    for name, sync in (("synced", True), ("unsynced", False)):
+        with report.stage(name) as slot:
+            start.record()
+            B = A
+            for _ in range(20):
+                B = A @ B
+            end.record()
+            if sync:
+                slot["_sync"] = B
+        torch.cuda.synchronize()
+        queued_ms = start.elapsed_time(end)
+        if sync:
+            assert report.stages[-1].wall_s * 1e3 >= 0.95 * queued_ms
+        else:
+            assert report.stages[-1].wall_s * 1e3 < 0.5 * queued_ms
+
+
+def test_resumable_grid_resumed_on_the_card_is_the_same_bits(dev, tmp_path):
+    import shutil
+
+    import flgp_tpu_torch as ft
+    from flgp_tpu_torch.datasets import spiral
+    from flgp_tpu_torch.fit.resumable import fit_se_regression_gp_resumable
+    from flgp_tpu_torch.ops import hopper_kernels as hk
+
+    ds = spiral(n=1500, m_train=100, seed=3)
+    cfg = ft.FitConfig(graph=ft.GraphConfig(s=200, r=3, K=40), sigma=1e-5, dtype=torch.float32,
+                       solve_dtype=torch.float64, a2s=[0.3, 1.0, 3.0, 10.0],
+                       train=ft.TrainConfig(adam_steps=60))
+
+    def run(path):
+        return fit_se_regression_gp_resumable(torch.Generator(device=dev).manual_seed(0),
+                                              ds.x_train, ds.y_train, ds.x_test,
+                                              str(tmp_path / path), cfg)
+
+    hk.reset_launches()
+    full = run("full")
+    assert hk.LAUNCHES["knn"] > 0 and hk.LAUNCHES["ell_matmat"] > 0
+    assert full.eigenpair.vectors.device.type == "cuda"
+    for i in range(2):
+        shutil.copytree(tmp_path / "full" / f"a2_{i}", tmp_path / "resumed" / f"a2_{i}")
+    resumed = run("resumed")
+    for name in ("y_train", "y_test", "posterior_mean", "posterior_cov"):
+        assert np.array_equal(getattr(full, name), getattr(resumed, name)), name
+    assert all(np.array_equal(full.pars[k], resumed.pars[k]) for k in full.pars)
+
+
+def test_se_spectrum_is_the_same_bits_every_run_on_the_card(dev):
+    """The SE spectrum's column sums add in a fixed order
+    (``EllMatrix.colsum_ordered``), where ``index_add_``'s atomics land in
+    any order: one graph gives one spectrum, bit for bit, and the ordered
+    sums are the float64 sums rounded once (within a float32 ulp of the
+    CPU's float64 scatter-add)."""
+    import flgp_tpu_torch as ft
+    from flgp_tpu_torch.datasets import torus_rings
+    from flgp_tpu_torch.fit import spectral
+    from flgp_tpu_torch.types import EllMatrix
+
+    tor = torus_rings(n=4800, m_train=100, seed=1234)
+    X = torch.as_tensor(np.concatenate([tor.x_train, tor.x_test]), dtype=torch.float32,
+                        device=dev)
+    g = ft.GraphConfig(s=600, r=3, K=100)
+    basis = spectral.se_grid_setup(torch.Generator(device=dev).manual_seed(0), X, g)
+    first = spectral.se_spectrum_at(basis, 0.5, g)
+    for _ in range(3):
+        again = spectral.se_spectrum_at(basis, 0.5, g)
+        assert torch.equal(again.values, first.values)
+        assert torch.equal(again.vectors, first.vectors)
+    Z = EllMatrix(basis.knn_res.sqdists, basis.knn_res.indices, 600)
+    ref = EllMatrix(Z.values.double().cpu(), Z.indices.cpu(), 600).colsum().float()
+    got = Z.colsum_ordered()
+    assert torch.equal(got, Z.colsum_ordered())
+    torch.testing.assert_close(got.cpu(), ref, rtol=2.0**-23, atol=0)

@@ -251,7 +251,7 @@ def test_device_none_without_cuda_raises(name):
 
 @pytest.fixture(scope="module")
 def spiral_exact():
-    from flgp_tpu.datasets import spiral_r, spiral_r_anchors
+    from flgp_tpu_torch.datasets import spiral_r, spiral_r_anchors
 
     return spiral_r(), spiral_r_anchors()
 

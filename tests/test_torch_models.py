@@ -26,7 +26,7 @@ from flgp_tpu_torch.convert import eigenpair_from_numpy, fit_config_from_jax
 from flgp_tpu_torch.fit import drivers
 from flgp_tpu_torch.inference import pg_gibbs as tpg
 from flgp_tpu_torch.models import gpc
-from flgp_tpu_torch.ops.polya_gamma import polya_gamma, polya_gamma_counts
+from flgp_tpu_torch.ops.polya_gamma import polya_gamma, polya_gamma_counts, polya_gamma_int
 
 torch.set_num_threads(1)
 
@@ -225,6 +225,20 @@ def test_polya_gamma_counts_scale_the_mean():
             assert abs(draws[sel].mean() - nv * mean[sel][0]) < 5 * se
 
 
+@pytest.mark.parametrize("b", [1, 4])
+def test_polya_gamma_int_mean(b):
+    """PG(b, c) is the sum of b PG(1, c) draws: mean b·tanh(c/2)/(2c) and
+    variance b times PG(1, c)'s, within Monte Carlo error."""
+    cs = np.array([0.0, 1.5, 6.0])
+    S = 20000
+    c = np.repeat(cs[:, None], S, axis=1)
+    draws = polya_gamma_int(torch.Generator().manual_seed(2), b, T(c)).numpy()
+    mean, var = _pg_moments(cs)
+    assert draws.shape == c.shape and np.all(draws > 0)
+    np.testing.assert_array_less(np.abs(draws.mean(1) - b * mean), 5 * np.sqrt(b * var / S))
+    np.testing.assert_allclose(draws.var(1), b * var, rtol=0.15)
+
+
 def test_test_pgbinary_rao_blackwellized_shapes(rng):
     m, p = 20, 15
     C, Cnv = _spd(rng, m, p)
@@ -251,3 +265,75 @@ def test_fit_config_round_trip():
     for f in dataclasses.fields(cfg.train):
         assert getattr(cfg.train, f.name) == getattr(jcfg.train, f.name)
     assert (cfg.sigma, cfg.n_gibbs, cfg.gibbs_avg_sweeps) == (2e-3, 40, 10)
+
+
+# ---------------------------------------------------------------------------
+# the ambient RBF Subset-of-Regressors baseline (models/rbf.py)
+# ---------------------------------------------------------------------------
+
+
+def _sqdist(A, B):
+    return ((A[:, None, :] - B[None]) ** 2).sum(-1)
+
+
+def _sor_problem(rng, m=80, s=20, d=1):
+    """The reference test's shapes (tests/test_scale.py::TestRbfSor)."""
+    X = np.sort(rng.uniform(-3, 3, size=(m, d)), axis=0)
+    U = np.linspace(-3, 3, s)[:, None]
+    Y = np.sin(X[:, 0]) + 0.05 * rng.normal(size=m)
+    X_new = rng.uniform(-3, 3, size=(40, d))
+    return _sqdist(U, U), _sqdist(X, U), _sqdist(X_new, U), Y, X_new
+
+
+@pytest.mark.parametrize("per_point", [False, True])
+def test_rbf_sor_nmll_and_predict_match_reference(rng, per_point):
+    from flgp_tpu.models import rbf as jrbf
+
+    from flgp_tpu_torch.models import rbf
+
+    dUU, dXU, dNU, Y, _ = _sor_problem(rng)
+    noise = rng.uniform(0.01, 0.2, size=Y.shape[0]) if per_point else 0.05
+    for t in (0.3, 2.0):
+        got = rbf.rbf_sor_nmll(T(dUU), T(dXU), T(Y), t, T(noise), 1e-5)
+        ref = jrbf.rbf_sor_nmll(jnp.asarray(dUU), jnp.asarray(dXU), jnp.asarray(Y), t,
+                                jnp.asarray(noise), 1e-5)
+        np.testing.assert_allclose(float(got), float(ref), rtol=1e-10)
+        got = rbf.rbf_sor_nmll_posterior(T(dUU), T(dXU), T(Y), t, T(noise), 1e-5)
+        ref = jrbf.rbf_sor_nmll_posterior(jnp.asarray(dUU), jnp.asarray(dXU), jnp.asarray(Y), t,
+                                          jnp.asarray(noise), 1e-5)
+        np.testing.assert_allclose(float(got), float(ref), rtol=1e-10)
+        got = rbf.predict_rbf_sor(T(dUU), T(dXU), T(dNU), T(Y), t, T(noise), 1e-5)
+        ref = jrbf.predict_rbf_sor(jnp.asarray(dUU), jnp.asarray(dXU), jnp.asarray(dNU),
+                                   jnp.asarray(Y), t, jnp.asarray(noise), 1e-5)
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-9, atol=1e-10)
+
+
+def test_rbf_sor_batched_lanes_are_the_lanes_alone(rng):
+    from flgp_tpu_torch.models import rbf
+
+    dUU, dXU, _, Y, _ = _sor_problem(rng)
+    ts, noises = T([[0.3, 1.0], [2.0, 5.0]]), T([[0.05, 0.1], [0.2, 0.01]])
+    batched = rbf.rbf_sor_nmll(T(dUU), T(dXU), T(Y), ts, noises, 1e-5)
+    for i in range(2):
+        for j in range(2):
+            alone = rbf.rbf_sor_nmll(T(dUU), T(dXU), T(Y), ts[i, j], noises[i, j], 1e-5)
+            np.testing.assert_allclose(float(batched[i, j]), float(alone), rtol=1e-12)
+
+
+@pytest.mark.parametrize("per_point", [False, True])
+def test_train_rbf_sor_fits(rng, per_point):
+    """The reference test's gate, rmse < 0.2 on sin, and the objective the
+    trainer returns is the NMLL at its (t, noise).  The trajectories are not
+    held to the reference's: S_UU at these shapes has a condition number
+    near 1e16, so the two autodiffs' gradients differ and Adam's paths part
+    (each side's gradient norm at its end is O(10))."""
+    from flgp_tpu_torch.models import rbf
+
+    dUU, dXU, dNU, Y, X_new = _sor_problem(rng)
+    got = rbf.train_rbf_sor(T(dUU), T(dXU), T(Y), per_point_noise=per_point,
+                            dtype=torch.float64)
+    again = rbf.rbf_sor_nmll_posterior(T(dUU), T(dXU), T(Y), got.t, got.noise, 1e-5)
+    np.testing.assert_allclose(float(got.obj), float(again), rtol=1e-10)
+    assert got.noise.shape == ((80,) if per_point else ())
+    pred = rbf.predict_rbf_sor(T(dUU), T(dXU), T(dNU), T(Y), got.t, got.noise, 1e-5).numpy()
+    assert np.sqrt(np.mean((pred - np.sin(X_new[:, 0])) ** 2)) < 0.2
