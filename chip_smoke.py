@@ -5,12 +5,15 @@
     python3 chip_smoke.py --sass build/flgp_tpu_torch/<hash>/libflgp_kernels.so
     python3 chip_smoke.py --subsample-times
     python3 chip_smoke.py --sampling
+    python3 chip_smoke.py --streaming
 
 (the second only counts K2's instructions in a library already built; the
 third only times the n=1e6 subsample stage, four calls from one seed, with
 the package beside the script: a copy of the script in another tree of the
 repo times that tree's subsampler; the fourth builds, fits the torus and
-the multiclass LAE model of phase 11, then runs phases 12–15 alone).
+the multiclass LAE model of phase 11, then runs phases 12–15 alone; the
+fifth builds, fits the torus, draws the n=1e7 path's anchors once and runs
+a reference HMC on the torus posterior, then phases 16–17 alone).
 Phases, each of which ends the script with a non-zero exit if it fails:
 
 1. the card: name and power limit from nvidia-smi; a CUDA device is required
@@ -106,7 +109,7 @@ Phases, each of which ends the script with a non-zero exit if it fails:
     dim 101, float32), whose analytic gradient must agree with autograd to
     1e-4 of max|grad| and whose TF32 variant must agree with float32 to 1e-2
     relative and leave ``allow_tf32`` off; then ``run_hmc`` (16 chains, 256
-    warmup, 512 draws, 16 leapfrog steps), ``run_nuts`` (16 chains, 256
+    warmup, 512 draws, 16 leapfrog steps), ``run_nuts`` (16 chains, 128
     warmup, 64 draws, max_depth 8), ``run_chees`` (128 chains, 512 warmup,
     64 draws) and ``run_chees_fixed`` (4096 chains, 128 draws), each with its
     warmup and sampling walls, chain-gradients a second, min-ESS a second
@@ -129,7 +132,7 @@ Phases, each of which ends the script with a non-zero exit if it fails:
     ``gpc_t_posterior`` (64 particles) on phase 4's torus spectrum, its
     t-mean within 1.5 in log of the ``gpc_nlp_objective`` grid optimum;
 14. SVI on phase 12's torus posterior: ``fit_svi`` (8000 steps) and
-    ``fit_svi_lowrank`` (rank 5, 16000 steps), n_mc 8, lr 0.02, held to phase 12's HMC
+    ``fit_svi_lowrank`` (rank 5, 8000 steps), n_mc 8, lr 0.02, held to phase 12's HMC
     draws: mean-field's means within 1.0 reference sd at every coordinate
     and its median sd ratio in (0.6, 1.6), both families finite; the
     low-rank family's numbers, the ELBOs and the low-rank gain reported (F5);
@@ -143,7 +146,33 @@ Phases, each of which ends the script with a non-zero exit if it fails:
     from phase 4's seed under ``profiler_trace``, which must give phase 4's
     outputs bit for bit and leave a trace file; and
     ``fit_se_regression_gp_resumable`` on the spiral, stopped after 4 of 10
-    bandwidths and resumed, the same bits as the run that was not stopped.
+    bandwidths and resumed, the same bits as the run that was not stopped;
+16. the out-of-core fits: the n=1e7 torus written to a FLGP0001 file
+    (``native.write_matrix``) and one pass of its chunk reads timed (the read
+    rate); ``streamed_build_spectrum`` on phase 7's warm anchors must be the
+    in-memory row-major ``build_spectrum``'s bits, values and vectors; the
+    graph pass alone overlapped (two pinned buffers, the copies queued behind
+    the chunk before), serial, with side-stream copies read inline or by a
+    reader thread (yardsticks) and in memory, the graphs the same bits, then
+    overlapped and serial from a cold file; then
+    ``fit_lae_logit_gp_streamed`` from the file with its own subsampler
+    (reservoir sample, k-means, 1-NN count pass), f32 graph and f64 tail,
+    stage by stage: err ≤ 0.03, t finite, outputs (n,) and finite, K1
+    launched 2 × 153 times plus k-means' own, K2 153 times, three passes of
+    153 reads and none longer than a chunk, peak memory; then
+    ``fit_lae_regression_gp_streamed`` on the spiral (rmse ≤ 0.60) and
+    ``fit_lae_logit_mult_gp_streamed`` on ``mnist_like`` (err ≤ 0.03), each
+    from a file in chunks;
+17. the multi-device layer at world size 1: ``init_distributed`` from the
+    FLGP_* environment on localhost (NCCL; an all_reduce on the card leaves
+    its tensor), ``sharded_spectrum_from_ell_fn`` on phase 16's graph and
+    ``sharded_spectrum_fn`` on X, each the single-device spectrum's bits;
+    the sharded GPR NMLL (relative 1e-8) and prediction on the spiral and
+    the sharded Laplace tail at phase 4's t (rtol 1e-5) against their
+    single-process versions; chain-sharded HMC, NUTS and ChEES (16 chains)
+    on phase 12's posterior, f's means within phase 12's Monte Carlo bound
+    of its HMC run; ``sharded_smc_fn`` the bits of ``run_smc`` (4096
+    particles, one generator); the process group destroyed at the end.
 
 Beside each kernel's time stand its bound (the least time the card could
 take: compulsory bytes at 3.35 TB/s or operations at the 67 TFLOP/s float32
@@ -159,6 +188,7 @@ errors, times and bounds; the last line is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import json
+import os
 import re
 import shutil
 import subprocess
@@ -187,6 +217,8 @@ import torch  # noqa: E402
 import flgp_tpu_torch as ft  # noqa: E402
 from flgp_tpu_torch.config import EPS, LaplacianType, pin_full_precision  # noqa: E402
 from flgp_tpu_torch.datasets import spiral, torus_rings  # noqa: E402
+from flgp_tpu_torch import native  # noqa: E402
+from flgp_tpu_torch.fit import streaming  # noqa: E402
 from flgp_tpu_torch.fit.drivers import _solve_cast, _train_gpc  # noqa: E402
 from flgp_tpu_torch.fit.spectral import build_spectrum  # noqa: E402
 from flgp_tpu_torch.fit.streaming import _gpc_lowrank_tail  # noqa: E402
@@ -197,7 +229,7 @@ from flgp_tpu_torch.models.latent import (  # noqa: E402
 from flgp_tpu_torch.ops import _build  # noqa: E402
 from flgp_tpu_torch.ops import colmajor as col  # noqa: E402
 from flgp_tpu_torch.ops import hopper_kernels as hk  # noqa: E402
-from flgp_tpu_torch.ops.kmeans import subsample  # noqa: E402
+from flgp_tpu_torch.ops.kmeans import SubsampleResult, subsample  # noqa: E402
 from flgp_tpu_torch.ops.knn import knn, knn_plain  # noqa: E402
 from flgp_tpu_torch.ops.lae import lae_weights, lae_weights_plain  # noqa: E402
 from flgp_tpu_torch.ops.lobpcg import _chol_qr, lobpcg_standard  # noqa: E402
@@ -1019,9 +1051,9 @@ def huge_fit(Xt, ds, dev, seed: int) -> dict:
                 counts=counts)
 
 
-def huge_phase(dev, results: dict) -> dict:
+def huge_phase(dev, results: dict) -> tuple:
     """Phases 6 and 7 on one n=1e7 torus cloud; returns the launches of the
-    first n=1e7 fit."""
+    first n=1e7 fit, the cloud and the warm draw's anchors and sizes."""
     cfg = SHAPES["huge"]
     t0 = time.perf_counter()
     ds7 = torus_rings(n=cfg["n"], m_train=cfg["m"], seed=cfg["seed"])
@@ -1063,7 +1095,7 @@ def huge_phase(dev, results: dict) -> dict:
         _fail(f"the n=1e7 fit launched no {missing} kernel")
     if launches["lae_weights"] != 1:
         _fail(f"the n=1e7 fit launched lae_weights {launches['lae_weights']} times, not once")
-    return launches
+    return launches, dict(ds=ds7, anchors=last["anchors"], counts=last["counts"])
 
 
 def check_self_knn(X: torch.Tensor, r: int, results: dict):
@@ -1617,7 +1649,7 @@ def extras(dev) -> None:
 
 # phase 12: the posterior-sampling path on the torus GPC posterior
 SAMPLERS = dict(hmc=dict(chains=16, n_warmup=256, n_samples=512, n_leapfrog=16),
-                nuts=dict(chains=16, n_warmup=256, n_samples=64, max_depth=8),
+                nuts=dict(chains=16, n_warmup=128, n_samples=64, max_depth=8),
                 chees=dict(chains=128, n_warmup=512, n_samples=64, max_steps=256),
                 chees_fixed=dict(chains=4096, n_samples=128),
                 resume=dict(chains=16, n_warmup=64, n_samples=192, segment=64, n_leapfrog=16))
@@ -1893,7 +1925,8 @@ def sampling_phase(dev, torus_eig: EigenPair, card: str) -> dict:
     if not same:
         _fail("the resumed checkpointed HMC run differs from the uninterrupted one")
     _gate_rhat("run_hmc_checkpointed", full.samples, gate=False)
-    return dict(post=post, hmc_draws=hmc_draws, launches=launches)
+    return dict(post=post, gp=gp, hmc_draws=hmc_draws, hmc_moments=moments["hmc"],
+                launches=launches, y_train=ds.y_train)
 
 
 # phase 13: the t-hyperposterior at BASELINE config 3
@@ -2039,11 +2072,12 @@ def hyperposterior_phase(dev, mnist_eig: EigenPair, mnist_ds, mnist_launches: di
         _fail(f"gpc_t_posterior: log t-mean {gap} from the grid optimum, or non-finite evidence")
 
 
-# phase 14: SVI on the torus posterior of phase 12, at the JAX package's budgets
-# (bench.py:bench_svi): mean-field 8000 steps, low-rank 16000.  log t travels ~8
-# from its zero start and arrives between steps 6000 and 8000 on the card's
-# stream (the ELBO by step is printed); on another stream it may arrive later
-SVI = dict(mf_steps=8000, lr_steps=16000, rank=5, n_mc=8, lr=0.02)
+# phase 14: SVI on the torus posterior of phase 12: mean-field at the JAX
+# package's budget (bench.py:bench_svi, 8000 steps) and the low-rank family at
+# the same 8000 (the JAX package runs 16000): both families arrive between
+# steps 6000 and 8000 on the card's stream and stay flat (the ELBO by step is
+# printed), and equal steps are what comparing the two asks for
+SVI = dict(mf_steps=8000, lr_steps=8000, rank=5, n_mc=8, lr=0.02)
 
 
 def svi_phase(dev, sampling: dict, card: str) -> None:
@@ -2222,6 +2256,514 @@ def golden_phase(dev, phase4, card: str) -> None:
         _fail("the resumed grid differs from the run that was not stopped")
 
 
+# phase 16: the out-of-core fits, X read from a FLGP0001 file in row chunks
+OOC_PASSES = ("count pass", "graph pass")      # the two _stream_chunks passes of a fit, in order
+OOC_STAGES = {"reservoir_sample": "reservoir pass", "kmeans": "k-means",
+              "spectrum_fused": "spectrum", "_train_gpc": "train", "_gpc_lowrank_tail": "tail"}
+
+
+class RecordedFile(native.MatrixFile):
+    """A MatrixFile that records every read as (start, count)."""
+
+    def __init__(self, path):
+        super().__init__(path)
+        self.reads = []
+
+    def read(self, start, count):
+        self.reads.append((start, count))
+        return super().read(start, count)
+
+    def read_into(self, start, count, data_ptr):
+        self.reads.append((start, count))
+        return super().read_into(start, count, data_ptr)
+
+
+class StageTimes:
+    """Wraps the stage functions of ``fit.streaming`` for one fit with
+    device-synced timers (and counts k-means' K1 launches); restores them on
+    exit.  The wrapped functions compute what they computed."""
+
+    def __init__(self):
+        self.times, self.kmeans_knn = {}, 0
+
+    def __enter__(self):
+        self.saved = {name: getattr(streaming, name) for name in [*OOC_STAGES, "_stream_chunks"]}
+        passes = iter(OOC_PASSES)
+        for name, fn in self.saved.items():
+            def timed(*a, _fn=fn, _name=name, **k):
+                label = OOC_STAGES.get(_name) or next(passes)
+                knn0, t0 = hk.LAUNCHES["knn"], _synced()
+                out = _fn(*a, **k)
+                self.times[label] = self.times.get(label, 0.0) + _synced() - t0
+                if _name == "kmeans":
+                    self.kmeans_knn += hk.LAUNCHES["knn"] - knn0
+                return out
+            setattr(streaming, name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            setattr(streaming, name, fn)
+
+
+def huge_fit_cfg():
+    cfg = SHAPES["huge"]
+    return ft.FitConfig(graph=ft.GraphConfig(s=cfg["s"], r=cfg["r"], K=cfg["K"]), sigma=1e-3,
+                        n_gibbs=50, gibbs_avg_sweeps=25, dtype=torch.float32,
+                        solve_dtype=torch.float64)
+
+
+def _timed(fn):
+    t0 = _synced()
+    out = fn()
+    return out, _synced() - t0
+
+
+def side_stream_graph_pass(mat, U, g, chunk: int, thread: bool) -> tuple:
+    """The n=1e7 graph pass with the copies on a side stream, a yardstick for
+    ``fit.streaming``'s pipeline: two pinned and two device buffers, events
+    ordering each copy before its chunk's K1 and each buffer's reuse after
+    its last reader, ``madvise`` read-ahead of the next chunk, the reads
+    inline or (``thread``) by a reader thread handing buffers over through
+    queues.  Returns (values, indices)."""
+    import queue
+    import threading
+
+    n, d = mat.shape
+    host = [torch.empty((chunk, d), dtype=torch.float32, pin_memory=True) for _ in range(2)]
+    dev = [torch.empty((chunk, d), dtype=torch.float32, device=U.device) for _ in range(2)]
+    vals = torch.empty((n, g.r), dtype=torch.float32, device=U.device)
+    idx = torch.empty((n, g.r), dtype=torch.int32, device=U.device)
+    main, side = torch.cuda.current_stream(), torch.cuda.Stream()
+    filled, free = queue.Queue(), queue.Queue()
+    for b in range(2):
+        free.put((b, None))
+    starts = range(0, n, chunk)
+
+    def fill():
+        lo = next(pending)
+        b, copied = free.get()
+        if copied is not None:
+            copied.synchronize()
+        mat.prefetch(lo + chunk, chunk)
+        filled.put((lo, mat.read_into(lo, chunk, host[b].data_ptr()), b))
+
+    pending = iter(starts)
+    if thread:
+        reader = threading.Thread(target=lambda: [fill() for _ in starts], daemon=True)
+        reader.start()
+    consumed = [None, None]
+    for _ in starts:
+        if not thread:
+            fill()
+        lo, rows, b = filled.get()
+        with torch.cuda.stream(side):
+            if consumed[b] is not None:
+                side.wait_event(consumed[b])
+            dev[b][:rows].copy_(host[b][:rows], non_blocking=True)
+            copied = torch.cuda.Event()
+            copied.record(side)
+        free.put((b, copied))
+        main.wait_event(copied)
+        res = knn(dev[b][:rows], U, g.r)
+        vals[lo:lo + rows] = lae_weights(dev[b][:rows], U, res.indices)
+        idx[lo:lo + rows] = res.indices
+        consumed[b] = torch.cuda.Event()
+        consumed[b].record(main)
+    if thread:
+        reader.join()
+    main.wait_stream(side)
+    return vals, idx
+
+
+def streamed_fit_phase(dev, huge: dict, tmp: str, card: str) -> dict:
+    """Phase 16 at n = 1e7: the file, its read rate, the streamed spectrum
+    against the in-memory one on the warm anchors (the same bits), the graph
+    pass overlapped, serial and in memory, then ``fit_lae_logit_gp_streamed``
+    from the file with its own subsampler, stage by stage."""
+    cfg = SHAPES["huge"]
+    n, m, chunk = cfg["n"], cfg["m"], cfg["chunk"]
+    chunks = -(-n // chunk)
+    ds = huge["ds"]
+    X_all = np.concatenate([ds.x_train, ds.x_test]).astype(np.float32)
+    path = f"{tmp}/torus_1e7.flgp"
+    _, write_s = _timed(lambda: native.write_matrix(path, X_all))
+    mat = RecordedFile(path)
+    buf = torch.empty((chunk, X_all.shape[1]), dtype=torch.float32, pin_memory=True)
+    t0 = time.perf_counter()
+    for lo in range(0, n, chunk):
+        mat.read_into(lo, chunk, buf.data_ptr())
+    read_s = time.perf_counter() - t0
+    print(f"n=1e7 file ({X_all.nbytes / 1e6:.1f} MB, float32): written in {write_s:.3f} s; one "
+          f"pass of {chunks} chunk reads into pinned memory {read_s:.3f} s = "
+          f"{X_all.nbytes / read_s / 1e9:.3f} GB/s [{card}]", flush=True)
+
+    g = huge_fit_cfg().graph
+    U = huge["anchors"].contiguous()
+    sub = SubsampleResult(U, huge["counts"])
+    X_dev = torch.as_tensor(X_all, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(16)
+    mem, mem_s = _timed(lambda: build_spectrum(gen, X_dev, g, anchors=sub)[0])
+    st, st_s = _timed(lambda: streaming.streamed_build_spectrum(gen, mat, g, chunk, anchors=sub,
+                                                                   device=dev)[0])
+    same = torch.equal(st.values, mem.values) and torch.equal(st.vectors, mem.vectors)
+    print(f"n=1e7 streamed_build_spectrum on the warm anchors {st_s:.3f} s, in-memory "
+          f"build_spectrum {mem_s:.3f} s: values and vectors "
+          f"{'the same bits' if same else 'DIFFER'}", flush=True)
+    if not same:
+        _fail("the streamed n=1e7 spectrum is not the in-memory spectrum's bits")
+    del mem
+
+    # the graph pass alone, in turns after a warm-up of each: overlapped,
+    # serial, fed by a reader thread, and the in-memory graph
+    def in_memory():
+        idx = knn(X_dev, U, g.r).indices
+        return lae_weights(X_dev, U, idx), idx
+
+    passes = {"overlapped": lambda: streaming.streamed_ell_graph(mat, U, g, chunk),
+              "serial": lambda: streaming.streamed_ell_graph(mat, U, g, chunk, _overlap=False),
+              "side stream": lambda: EllMatrix(*side_stream_graph_pass(mat, U, g, chunk, False),
+                                               g.s),
+              "side stream fed by a reader thread":
+                  lambda: EllMatrix(*side_stream_graph_pass(mat, U, g, chunk, True), g.s),
+              "in memory (X on the card, one K1 and one K2 launch)":
+                  lambda: EllMatrix(*in_memory(), g.s)}
+    graphs = {name: fn() for name, fn in passes.items()}
+    times = {name: [] for name in passes}
+    for name in [*passes, *reversed(passes)]:
+        times[name].append(_timed(passes[name])[1])
+    Z = graphs["overlapped"]
+    same = all(torch.equal(Z.values, G.values) and torch.equal(Z.indices, G.indices)
+               for G in graphs.values())
+    print(f"n=1e7 graph pass ({chunks} chunks of {chunk}, two turns each): " + ", ".join(
+        f"{name} {a:.4f}, {b:.4f} s" for name, (a, b) in times.items())
+        + f"; the graphs {'the same bits' if same else 'DIFFER'} [{card}]", flush=True)
+    if not same:
+        _fail("the n=1e7 graphs of the passes and of the in-memory graph differ")
+    del graphs
+
+    # the same two passes from a cold file: its pages dropped from the page
+    # cache before each turn (fsync, then POSIX_FADV_DONTNEED on a file no
+    # mapping holds), and a cold read of every chunk for the disk's rate
+    def cold(fn):
+        fd = os.open(path, os.O_RDONLY)
+        try:
+            os.fsync(fd)
+            os.posix_fadvise(fd, 0, 0, os.POSIX_FADV_DONTNEED)
+        finally:
+            os.close(fd)
+        with native.MatrixFile(path) as fresh:
+            return _timed(lambda: fn(fresh))[1]
+
+    def read_all(f):
+        for lo in range(0, n, chunk):
+            f.read_into(lo, chunk, buf.data_ptr())
+
+    cold_passes = {"read": read_all,
+                   "overlapped": lambda f: streaming.streamed_ell_graph(f, U, g, chunk),
+                   "serial": lambda f: streaming.streamed_ell_graph(f, U, g, chunk, _overlap=False)}
+    cold_s = {name: [] for name in cold_passes}
+    for name in [*cold_passes, *reversed(cold_passes)]:
+        cold_s[name].append(cold(cold_passes[name]))
+    print(f"n=1e7 from a cold file (two turns each): chunk reads alone "
+          f"{cold_s['read'][0]:.4f}, {cold_s['read'][1]:.4f} s = "
+          f"{X_all.nbytes / min(cold_s['read']) / 1e9:.3f} GB/s at best; graph pass overlapped "
+          f"{cold_s['overlapped'][0]:.4f}, {cold_s['overlapped'][1]:.4f} s, serial "
+          f"{cold_s['serial'][0]:.4f}, {cold_s['serial'][1]:.4f} s [{card}]", flush=True)
+
+    # the fit from the file, with its own subsampler
+    mat.reads.clear()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    hk.reset_launches()
+    with StageTimes() as stages:
+        res, fit_s = _timed(lambda: streaming.fit_lae_logit_gp_streamed(
+            torch.Generator(device=dev).manual_seed(160), mat, ds.y_train, np.arange(m),
+            cfg=huge_fit_cfg(), chunk_rows=chunk, device=dev))
+    launches = {k: v for k, v in hk.LAUNCHES.items() if v}
+    peak = torch.cuda.max_memory_allocated()
+    t = float(res.pars["t"])
+    for nm in ("labels", "probs", "post_mean", "post_var"):
+        arr = getattr(res, nm)
+        if arr.shape != (n,) or not bool(torch.all(torch.isfinite(arr))):
+            _fail(f"fit_lae_logit_gp_streamed {nm}: shape {tuple(arr.shape)} or non-finite values")
+    y_test = torch.as_tensor(ds.y_test, dtype=res.labels.dtype, device=dev)
+    err = float(torch.mean((res.labels[m:] != y_test).double()))
+    longest = max(c for _, c in mat.reads)
+    print(f"fit_lae_logit_gp_streamed (n=1e7 from the file, chunk {chunk}): err {err:.6f}  t "
+          f"{t:.6g}  wall {fit_s:.3f} s  [" + "  ".join(f"{k} {v:.3f}" for k, v in
+                                                      stages.times.items())
+          + f"]  peak memory {peak / 2**30:.2f} GiB ({(peak - held) / 2**30:.2f} over the "
+          f"{held / 2**30:.2f} held before)  launches {launches} (k-means "
+          f"{stages.kmeans_knn} of the knn)  {len(mat.reads)} reads, the longest {longest} rows "
+          f"[{card}]", flush=True)
+    want_knn = 2 * chunks + stages.kmeans_knn
+    if not (err <= ERR_GATE and np.isfinite(t)):
+        _fail(f"n=1e7 streamed fit: err {err} (gate {ERR_GATE}), t {t}")
+    if launches.get("knn") != want_knn or launches.get("lae_weights") != chunks:
+        _fail(f"n=1e7 streamed fit launched {launches}: want knn {want_knn}, lae_weights {chunks}")
+    if longest > chunk or len(mat.reads) != 3 * chunks:
+        _fail(f"n=1e7 streamed fit read {len(mat.reads)} times, the longest {longest} rows")
+    del res
+    return dict(mat=mat, Z=Z, spectrum=st, sub=sub, X_dev=X_dev, g=g)
+
+
+def streamed_entry_fits(dev, tmp: str, card: str) -> dict:
+    """Phase 16 at the repo's shapes: the streamed GPR on the spiral and the
+    streamed multiclass GPC on mnist_like, each from a file in chunks."""
+    from flgp_tpu_torch.datasets import mnist_like
+
+    out = {}
+    sp = spiral(n=SPIRAL["n"], m_train=SPIRAL["m"])
+    cfg = ft.FitConfig(graph=ft.GraphConfig(s=SPIRAL["s"], r=SPIRAL["r"], K=SPIRAL["K"]),
+                       sigma=1e-5, dtype=torch.float32, solve_dtype=torch.float64)
+    path = f"{tmp}/spiral.flgp"
+    native.write_matrix(path, np.concatenate([sp.x_train, sp.x_test]).astype(np.float32))
+    with native.MatrixFile(path) as mat:
+        hk.reset_launches()
+        (pred, pars), wall = _timed(lambda: streaming.fit_lae_regression_gp_streamed(
+            torch.Generator(device=dev).manual_seed(0), mat, sp.y_train, np.arange(SPIRAL["m"]),
+            cfg=cfg, chunk_rows=1024, device=dev))
+    launches = {k: v for k, v in hk.LAUNCHES.items() if v}
+    rmse = float(np.sqrt(np.mean((pred[SPIRAL["m"]:].cpu().numpy() - sp.y_test) ** 2)))
+    gate = RMSE_GATES["fit_lae_regression_gp"]
+    print(f"fit_lae_regression_gp_streamed (spiral n=4000, m=200, chunks of 1024): rmse "
+          f"{rmse:.6f} (gate {gate})  t {float(pars['t']):.6g}  noise {float(pars['noise']):.6g}  "
+          f"{wall:.3f} s  launches {launches}", flush=True)
+    if not (rmse <= gate and bool(torch.all(torch.isfinite(pred)))):
+        _fail(f"fit_lae_regression_gp_streamed spiral rmse {rmse} > {gate}")
+    out["spiral"] = dict(ds=sp, cfg=cfg, t=pars["t"], noise=pars["noise"])
+
+    ds = mnist_like(n=MNIST["n"], m_train=MNIST["m"], seed=MNIST["seed"])
+    path = f"{tmp}/mnist.flgp"
+    native.write_matrix(path, np.concatenate([ds.x_train, ds.x_test]).astype(np.float32))
+    with native.MatrixFile(path) as mat:
+        hk.reset_launches()
+        res, wall = _timed(lambda: streaming.fit_lae_logit_mult_gp_streamed(
+            torch.Generator(device=dev).manual_seed(0), mat, ds.y_train, np.arange(MNIST["m"]),
+            cfg=mult_cfg(MNIST, torch.float32), chunk_rows=1 << 14, device=dev))
+    launches = {k: v for k, v in hk.LAUNCHES.items() if v}
+    err = float(np.mean(res.labels[MNIST["m"]:].cpu().numpy() != ds.y_test))
+    print(f"fit_lae_logit_mult_gp_streamed (mnist_like n=70000, d=16, J=10, chunks of 16384): "
+          f"err {err:.6f} (gate {ERR_GATE})  {wall:.3f} s  launches {launches}", flush=True)
+    if not (err <= ERR_GATE and res.probs.shape == (10, MNIST["n"])
+            and bool(torch.all(torch.isfinite(res.post_var)))):
+        _fail(f"fit_lae_logit_mult_gp_streamed mnist err {err} or outputs")
+    return out
+
+
+# phase 17: the multi-device layer at world size 1 under NCCL
+PARALLEL_SAMPLERS = dict(chains=16, hmc=(64, 128), nuts=(32, 16), chees=(256, 64))
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def multidevice_phase(dev, ooc: dict, fits: dict, phase4, sampling: dict, card: str) -> None:
+    """Phase 17: ``init_distributed`` from FLGP_* on localhost (NCCL, world
+    size 1), the sharded spectrum from phase 16's streamed graph and from X
+    (the same bits as the streamed and the in-memory spectrum), the sharded
+    GPR objective and prediction on the spiral and the sharded Laplace tail
+    on the torus against their single-process versions, chain-sharded HMC,
+    NUTS and ChEES on phase 12's posterior against its HMC moments, and
+    particle-sharded SMC against ``run_smc``, bit for bit."""
+    import torch.distributed as dist
+
+    from flgp_tpu_torch.inference.smc import run_smc
+    from flgp_tpu_torch.models import gpr as gpr_mod
+    from flgp_tpu_torch.parallel import gpc as pgpc
+    from flgp_tpu_torch.parallel import mcmc as pmcmc
+    from flgp_tpu_torch.parallel import mesh as pmesh
+    from flgp_tpu_torch.parallel import spectral as pspec
+    from flgp_tpu_torch.parallel.smc import sharded_smc_fn
+
+    os.environ.update(FLGP_COORDINATOR=f"127.0.0.1:{_free_port()}", FLGP_NUM_PROCESSES="1",
+                      FLGP_PROCESS_ID="0")
+    try:
+        if not pmesh.init_distributed():
+            _fail("init_distributed did not start from the FLGP_* environment")
+        probe = torch.arange(4.0, device=dev)
+        dist.all_reduce(probe)
+        print(f"init_distributed: backend {dist.get_backend()}, world size "
+              f"{dist.get_world_size()}, an all_reduce on the card "
+              f"{'leaves' if torch.equal(probe, torch.arange(4.0, device=dev)) else 'CHANGES'} "
+              f"its tensor", flush=True)
+        if dist.get_backend() != "nccl" or not torch.equal(probe, torch.arange(4.0, device=dev)):
+            _fail("the process group is not a working NCCL group")
+        data, chain = pmesh.global_mesh(("data",)), pmesh.global_mesh(("chain",))
+        g, sub, st, Z = ooc["g"], ooc["sub"], ooc["spectrum"], ooc["Z"]
+
+        hk.reset_launches()
+        (v1, V1), s1 = _timed(lambda: pspec.sharded_spectrum_from_ell_fn(data, g)(
+            Z.values, Z.indices, sub.counts))
+        l1 = {k: v for k, v in hk.LAUNCHES.items() if v}
+        same1 = torch.equal(v1, st.values) and torch.equal(V1, st.vectors)
+        del V1
+        hk.reset_launches()
+        (v2, V2), s2 = _timed(lambda: pspec.sharded_spectrum_fn(data, g)(
+            ooc["X_dev"], sub.centers, sub.counts))
+        l2 = {k: v for k, v in hk.LAUNCHES.items() if v}
+        same2 = torch.equal(v2, st.values) and torch.equal(V2, st.vectors)
+        del V2
+        print(f"sharded_spectrum_from_ell_fn on phase 16's graph: {s1:.3f} s, launches {l1}, "
+              f"{'the same bits as' if same1 else 'DIFFERS from'} the streamed spectrum; "
+              f"sharded_spectrum_fn on X: {s2:.3f} s, launches {l2}, "
+              f"{'the same bits as' if same2 else 'DIFFERS from'} the in-memory spectrum "
+              f"[{card}]", flush=True)
+        if not (same1 and same2):
+            _fail("a world-size-1 sharded spectrum is not the single-device spectrum's bits")
+
+        # GPR on the spiral: the sharded Woodbury objective and prediction
+        sp = fits["spiral"]
+        ds, m = sp["ds"], SPIRAL["m"]
+        X_sp = torch.as_tensor(np.concatenate([ds.x_train, ds.x_test]), dtype=torch.float32,
+                               device=dev)
+        eig, _ = build_spectrum(torch.Generator(device=dev).manual_seed(0), X_sp, sp["cfg"].graph)
+        values, vectors = eig.values.double(), eig.vectors.double()
+        n_sp, K = vectors.shape[0], SPIRAL["K"]
+        mask = torch.zeros(n_sp, dtype=torch.float64, device=dev)
+        mask[:m] = 1.0
+        Y = torch.zeros(n_sp, dtype=torch.float64, device=dev)
+        Y[:m] = torch.as_tensor(ds.y_train, dtype=torch.float64, device=dev)
+        t, noise, sigma = sp["t"].double(), sp["noise"].double(), sp["cfg"].sigma
+        nm_sh = pspec.sharded_gpr_nmll_fn(data, K, sigma)(values, vectors, Y, mask, t, noise)
+        train = torch.arange(m, device=dev)
+        nm = gpr_mod.gpr_nmll(EigenPair(values, vectors), Y[:m], train, K, t, noise, sigma)
+        pr_sh = pspec.sharded_predict_fn(data, K, sigma)(values, vectors, Y, mask, t, noise)
+        pr = gpr_mod.gpr_predict(EigenPair(values, vectors), Y[:m], train,
+                                 torch.arange(n_sp, device=dev), K, t, noise, sigma)
+        nm_rel = abs(float(nm_sh) - float(nm)) / abs(float(nm))
+        print(f"sharded GPR on the spiral (n=4000, m=200, K=100, float64, the streamed fit's t "
+              f"and noise): NMLL {float(nm_sh):.10g} vs gpr_nmll {float(nm):.10g} (relative "
+              f"{nm_rel:.2e}, gate 1e-8); prediction max abs diff {_maxabs(pr_sh, pr):.2e} "
+              f"(gate 1e-6 + 1e-6 |pred|)", flush=True)
+        if not nm_rel <= 1e-8:
+            _fail(f"sharded GPR NMLL differs from gpr_nmll by {nm_rel:.2e}")
+        _allclose("sharded GPR prediction", pr_sh, pr, 1e-6, 1e-6)
+
+        # the sharded Laplace tail at phase 4's trained t
+        tor = SHAPES["torus"]
+        eig4 = phase4.eigenpair
+        m4, K4 = tor["m"], tor["K"]
+        v4, V4 = eig4.values.double(), eig4.vectors.double()
+        mask4 = torch.zeros(V4.shape[0], dtype=torch.float64, device=dev)
+        mask4[:m4] = 1.0
+        Y4 = torch.zeros_like(mask4)
+        Y4[:m4] = torch.as_tensor(sampling["y_train"], dtype=torch.float64, device=dev)
+        t4 = torch.as_tensor(float(phase4.pars["t"]), dtype=torch.float64, device=dev)
+        amll, mean, var, _ = pgpc.sharded_gpc_laplace_fn(data, K4, 1e-3)(v4, V4, Y4, mask4, mask4,
+                                                                       t4)
+        ref_mean = torch.as_tensor(phase4.posterior_mean, device=dev)
+        ref_var = torch.as_tensor(phase4.posterior_cov, device=dev)
+        print(f"sharded_gpc_laplace_fn on the torus at phase 4's t {float(t4):.6g}: amll "
+              f"{float(amll):.8g}; test-row mean max abs diff from phase 4's Laplace moments "
+              f"{_maxabs(mean[m4:], ref_mean):.2e}, variance {_maxabs(var[m4:], ref_var):.2e} "
+              f"(gate rtol 1e-5, atol 1e-8)", flush=True)
+        _allclose("sharded Laplace mean", mean[m4:], ref_mean, 1e-5, 1e-8)
+        _allclose("sharded Laplace variance", var[m4:], ref_var, 1e-5, 1e-8)
+
+        # chain-sharded samplers on phase 12's posterior
+        post, gp, ref = sampling["post"], sampling["gp"], sampling["hmc_moments"]
+        c = PARALLEL_SAMPLERS
+        x0 = 0.1 * torch.randn((c["chains"], post.dim), device=dev,
+                               generator=torch.Generator(device=dev).manual_seed(17))
+        runs = {"hmc": pmcmc.sharded_hmc_fn(chain, post, *c["hmc"], n_leapfrog=16),
+                "nuts": pmcmc.sharded_nuts_fn(chain, post, *c["nuts"]),
+                "chees": pmcmc.sharded_chees_fn(chain, post, *c["chees"])}
+        for name, fn in runs.items():
+            run, wall = _timed(lambda fn=fn: fn(torch.Generator(device=dev).manual_seed(170), x0))
+            mean, _ = pmcmc.pooled_mean_variance(chain, run.samples)
+            mo = f_moments(gp, run.samples)
+            tol = 6.0 * np.sqrt(mo["mc"] ** 2 + ref["mc"] ** 2) + 0.05
+            gap = float(np.max(np.abs(mo["mean"] - ref["mean"]) / tol))
+            finite = bool(torch.all(torch.isfinite(run.samples))) and bool(
+                torch.all(torch.isfinite(mean)))
+            print(f"sharded {name} ({c['chains']} chains, {c[name][0]} warmup, {c[name][1]} "
+                  f"draws): {wall:.3f} s, finite {finite}, f's mean at the train points vs phase "
+                  f"12's HMC: max gap / bound {gap:.3f} [{card}]", flush=True)
+            if not finite or gap > 1.0:
+                _fail(f"sharded {name}: finite {finite}, max gap / bound {gap:.3f}")
+
+        # particle-sharded SMC against run_smc on one generator
+        mu = torch.tensor([1.0, -0.5], device=dev)
+
+        def log_prior(x):
+            return -0.5 * torch.sum(x * x, dim=-1)
+
+        def log_like(x):
+            return -torch.sum((x - mu) ** 2, dim=-1)
+
+        x0 = torch.randn((4096, 2), device=dev, generator=torch.Generator(device=dev).manual_seed(1))
+        ref_smc, ref_s = _timed(lambda: run_smc(torch.Generator(device=dev).manual_seed(2),
+                                                log_prior, log_like, x0))
+        got, got_s = _timed(lambda: sharded_smc_fn(chain, log_prior, log_like)(
+            torch.Generator(device=dev).manual_seed(2), x0))
+        same = (got.n_stages == ref_smc.n_stages and torch.equal(got.particles, ref_smc.particles)
+                and torch.equal(got.log_evidence, ref_smc.log_evidence))
+        print(f"sharded_smc_fn (4096 particles, HMC mutation, {got.n_stages} stages): {got_s:.3f} "
+              f"s, run_smc {ref_s:.3f} s; particles and evidence "
+              f"{'the same bits' if same else 'DIFFER'}", flush=True)
+        if not same:
+            _fail("sharded_smc_fn at world size 1 is not run_smc's bits")
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def streaming_phases(dev, huge: dict, phase4, sampling: dict, card: str) -> None:
+    """Phases 16 and 17, each timed; the files live in a temporary directory
+    removed at the end."""
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        ooc = streamed_fit_phase(dev, huge, tmp, card)
+        fits = streamed_entry_fits(dev, tmp, card)
+        print(f"phase 16: {time.perf_counter() - t0:.1f} s", flush=True)
+        t0 = time.perf_counter()
+        multidevice_phase(dev, ooc, fits, phase4, sampling, card)
+        print(f"phase 17: {time.perf_counter() - t0:.1f} s", flush=True)
+        ooc["mat"].close()
+    torch.cuda.empty_cache()
+
+
+def streaming_only(dev) -> None:
+    """``--streaming``: the card, the build, the torus fit (phase 4), the n=1e7
+    cloud with one draw of the huge path's anchors, a reference HMC run on
+    the torus posterior at phase 12's budget, then phases 16 and 17."""
+    card = card_line()
+    print(f"card: {card}", flush=True)
+    _, build_s = _timed(lambda: (_build.build(), _build.load()))
+    print(f"build: {build_s:.1f} s", flush=True)
+    hk.reset_launches()
+    phase4, err, wall, ds = fit(SHAPES["torus"], torus_fit_cfg(), dev, seed=0)
+    print(f"torus fit: err {err:.6f}  wall {wall:.3f} s  launches "
+          f"{ {k: hk.LAUNCHES[k] for k in MAIN_PATH} }", flush=True)
+    cfg = SHAPES["huge"]
+    ds7 = torus_rings(n=cfg["n"], m_train=cfg["m"], seed=cfg["seed"])
+    Xt = feature_major(ds7, dev)
+    gen = torch.Generator(device=dev).manual_seed(41)
+    U = col.kmeans_anchors_colmajor(gen, Xt, cfg["s"], n_sample=1 << 17)
+    huge = dict(ds=ds7, anchors=U, counts=col.cluster_sizes_colmajor(Xt, U, cfg["chunk"]))
+    del Xt
+    m, K = SHAPES["torus"]["m"], SHAPES["torus"]["K"]
+    gp = make_whitened(phase4.eigenpair, torch.arange(m), K, 1e-3)
+    post = GpcLogPost(gp, torch.as_tensor(ds.y_train, dtype=torch.float32, device=dev),
+                      torch.ones((m,), dtype=torch.float32, device=dev), 1e-2, 10.0, 2.0)
+    c = SAMPLERS["hmc"]
+    x0 = 0.1 * torch.randn((c["chains"], post.dim), device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(1))
+    run = hmc.run_hmc(torch.Generator(device=dev).manual_seed(2), post, x0,
+                      n_warmup=c["n_warmup"], n_samples=c["n_samples"], n_leapfrog=c["n_leapfrog"])
+    sampling = dict(post=post, gp=gp, hmc_moments=f_moments(gp, run.samples), y_train=ds.y_train)
+    streaming_phases(dev, huge, phase4, sampling, card)
+    print(card)
+
+
 def subsample_stage_times(dev, calls: int = 4) -> None:
     """The n=1e6 subsample stage alone, ``calls`` times from one seed: the
     times, and whether every call gave the first one's anchors."""
@@ -2339,7 +2881,8 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # 6. and 7. the huge-n path: K6–K8, then the n=1e7 fit
-    launches.update({k: v for k, v in huge_phase(dev, results).items() if k.endswith("_t")})
+    huge_launches, huge = huge_phase(dev, results)
+    launches.update({k: v for k, v in huge_launches.items() if k.endswith("_t")})
     torch.cuda.empty_cache()
 
     # 8. and 9. K9 and the sparse GLGP spectrum it serves
@@ -2372,8 +2915,12 @@ def main() -> None:
     # 13.–15. the rest of the inference stack, the goldens and the instrumented fit
     inference_phases(dev, card, phase4, torus_launches, mnist_eig, mnist_ds,
                      {k: mult_launches.get(k, 0) for k in MAIN_PATH}, sampling)
-    del mnist_eig, sampling
+    del mnist_eig
     torch.cuda.empty_cache()
+
+    # 16. and 17. the out-of-core fits and the multi-device layer
+    streaming_phases(dev, huge, phase4, sampling, card)
+    del huge, sampling
 
     # K1–K5: launches of the torus fit, times at the n=1e6 shape; K6–K8:
     # launches of the first n=1e7 fit, times at the n=1e7 shape; K9: launches
@@ -2405,12 +2952,14 @@ def main() -> None:
 if __name__ == "__main__":
     if len(sys.argv) == 3 and sys.argv[1] == "--sass":
         print_sass(Path(sys.argv[2]))      # K2's step count of any build of the library
-    elif sys.argv[1:] in (["--subsample-times"], ["--sampling"]):
+    elif sys.argv[1:] in (["--subsample-times"], ["--sampling"], ["--streaming"]):
         if not torch.cuda.is_available():
             _fail("torch.cuda.is_available() is false: this smoke test needs an NVIDIA GPU")
         pin_full_precision()
         if sys.argv[1] == "--sampling":
             sampling_only(torch.device("cuda", 0))
+        elif sys.argv[1] == "--streaming":
+            streaming_only(torch.device("cuda", 0))
         else:
             print(f"card: {card_line()}", flush=True)
             subsample_stage_times(torch.device("cuda", 0))

@@ -19,8 +19,11 @@ chain, so the whole batch integrates in lockstep by construction, as
   gradient in the trajectory length, accept-weighted across chains, is
   ĝ = h_t · Σ_c α_c·ΔD_c·⟨x⁺_c − x̄⁺, v⁺_c⟩ / Σ_c α_c with v⁺ = M⁻¹p⁺.
 
-``axis_name`` (chain-sharded cross-chain means) belongs to the multi-device
-layer, which is not ported; passing one raises.
+``axis_name``: when the chains are sharded over processes, the chain axis's
+``parallel.mesh.Mesh``; every cross-chain mean is then the mean over all
+ranks' chains (one all-reduce each), so every rank adapts the same
+(ε, τ, M⁻¹) and draws the same leapfrog counts.  The quartiles of the
+metric are each rank's own, averaged over the ranks, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -49,9 +52,13 @@ def halton2(i, dtype=torch.float64) -> torch.Tensor:
 
 
 def _check_axis(axis_name) -> None:
-    if axis_name is not None:
-        raise NotImplementedError(
-            "axis_name: chain-sharded ChEES belongs to the multi-device layer, not ported yet")
+    if axis_name is not None and not (hasattr(axis_name, "psum") and hasattr(axis_name, "size")):
+        raise TypeError(f"axis_name must be a parallel.mesh.Mesh or None, got {axis_name!r}")
+
+
+def _pmean(x: torch.Tensor, axis_name) -> torch.Tensor:
+    """The mean over the ranks of the chain axis's mesh (x without one)."""
+    return x if axis_name is None else axis_name.psum(x) / axis_name.size
 
 
 class _BatchState(NamedTuple):
@@ -104,23 +111,22 @@ def _chees_grad(st, prop, p1, accept_prob, inv_mass, h, axis_name=None):
     through a steep region) are excluded by zeroing their accept weight and
     their values: the criterion reads proposals directly, and one NaN chain
     would otherwise poison the cross-chain means and pin τ at NaN."""
-    _check_axis(axis_name)
     finite = torch.all(torch.isfinite(prop.x), dim=1) & torch.all(torch.isfinite(p1), dim=1)
     zero = torch.zeros((), dtype=st.x.dtype, device=st.x.device)
     a = torch.where(finite, accept_prob.to(st.x.dtype), zero)
     xp = torch.where(finite[:, None], prop.x, zero)
     p1 = torch.where(finite[:, None], p1, zero)
-    a_sum = torch.clamp(torch.mean(a), min=1e-6)
+    a_sum = torch.clamp(_pmean(torch.mean(a), axis_name), min=1e-6)
     # centred on cross-chain means: current states plainly, proposals
     # accept-weighted (rejected proposals can sit arbitrarily far out)
-    xbar = torch.mean(st.x, dim=0)
-    xbar_p = torch.mean(a[:, None] * xp, dim=0) / a_sum
+    xbar = _pmean(torch.mean(st.x, dim=0), axis_name)
+    xbar_p = _pmean(torch.mean(a[:, None] * xp, dim=0), axis_name) / a_sum
     dx = st.x - xbar[None, :]
     dxp = xp - xbar_p[None, :]
     dD = torch.sum(dxp * dxp, dim=1) - torch.sum(dx * dx, dim=1)
     v1 = inv_mass[None, :] * p1
     per_chain = dD * torch.sum(dxp * v1, dim=1)
-    g = h * torch.mean(a * per_chain) / a_sum
+    g = h * _pmean(torch.mean(a * per_chain), axis_name) / a_sum
     return torch.where(torch.isfinite(g), g, zero)
 
 
@@ -142,7 +148,7 @@ def _n_steps(h, step, traj_len, max_steps: int) -> torch.Tensor:
 def run_chees(generator: torch.Generator, logprob: LogProbFn, x0: torch.Tensor,
               n_warmup: int = 500, n_samples: int = 1000, target_accept: float = 0.651,
               init_step: float = 0.1, init_traj_len: float = 1.0, max_steps: int = 256,
-              adam_lr: float = 0.025, axis_name: Optional[str] = None,
+              adam_lr: float = 0.025, axis_name=None,
               inv_mass0: Optional[torch.Tensor] = None,
               on_warmup_end: Optional[Callable[[], None]] = None) -> CheesRun:
     """Adaptive ChEES-HMC on a batch of chains (x0: (C, dim)).
@@ -153,7 +159,8 @@ def run_chees(generator: torch.Generator, logprob: LogProbFn, x0: torch.Tensor,
     carries the early find-the-scale transient); sampling runs at the frozen
     triple with Halton-jittered trajectory lengths.  ``inv_mass0`` (dim,)
     seeds the metric (``models.latent.whitened_inv_mass0``).
-    ``on_warmup_end`` is called between warmup and sampling."""
+    ``on_warmup_end`` is called between warmup and sampling.  ``axis_name``:
+    the chain axis's mesh when the chains are sharded over processes."""
     _check_axis(axis_name)
     check_placement(generator, logprob, x0)
     C, dim = x0.shape
@@ -192,11 +199,12 @@ def run_chees(generator: torch.Generator, logprob: LogProbFn, x0: torch.Tensor,
         # harmonic-mean acceptance punishes stragglers, which keeps the shared
         # step honest across many chains; the 0.05 floor bounds one diverged
         # chain's weight to 20x a typical one's
-        hmean = 1.0 / torch.clamp(torch.mean(1.0 / torch.clamp(ap, min=0.05)), min=1e-6)
+        hmean = 1.0 / torch.clamp(
+            _pmean(torch.mean(1.0 / torch.clamp(ap, min=0.05)), axis_name), min=1e-6)
         da_next = da_update(da, hmean, target_accept)
 
         # ChEES gradient, Adam ascent on log τ, τ kept in [ε, max_steps·ε]
-        g = _chees_grad(st, prop, p1, ap, inv_mass, h) * tau
+        g = _chees_grad(st, prop, p1, ap, inv_mass, h, axis_name) * tau
         adam_m = b1 * adam_m + (1 - b1) * g
         adam_v = b2 * adam_v + (1 - b2) * g * g
         mhat = adam_m / (1 - b1 ** (t + 1))
@@ -210,7 +218,7 @@ def run_chees(generator: torch.Generator, logprob: LogProbFn, x0: torch.Tensor,
         # cross-chain variance many times and wedge the warmup at a tiny step
         if t >= init_buffer:
             q25, q75 = torch.quantile(new.x, quartiles, dim=0)
-            v_rob = ((q75 - q25) / 1.349) ** 2
+            v_rob = _pmean(((q75 - q25) / 1.349) ** 2, axis_name)
             ema_v = ema_decay * ema_v + (1 - ema_decay) * v_rob
             n_updates += 1
             if n_updates > 3:
@@ -243,11 +251,13 @@ def _run_fixed_from(generator, vg, st: _BatchState, step, traj_len, inv_mass, n_
 
 def run_chees_fixed(generator: torch.Generator, logprob: LogProbFn, x0: torch.Tensor, step,
                     traj_len, inv_mass, n_samples: int = 1000, max_steps: int = 256,
-                    axis_name: Optional[str] = None) -> CheesRun:
+                    axis_name=None) -> CheesRun:
     """Steady-state ChEES sampling at a frozen (ε, τ, M⁻¹) from a prior
     :func:`run_chees`: tile the adapted scalars over any chain count and every
     iteration stays one batched leapfrog.  x0 (C, dim); step and traj_len
-    scalars; inv_mass (dim,)."""
+    scalars; inv_mass (dim,).  ``axis_name`` is accepted for the signature
+    of the JAX package: sampling at a frozen triple has no cross-chain
+    statistic."""
     _check_axis(axis_name)
     check_placement(generator, logprob, x0)
     vg = value_and_grad(logprob)

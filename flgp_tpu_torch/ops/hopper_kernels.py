@@ -237,17 +237,28 @@ def _colsum_fixed_plain(values: torch.Tensor, indices: torch.Tensor, s: int) -> 
 
 def _colsum(name: str, values: torch.Tensor, indices: torch.Tensor, s: int) -> torch.Tensor:
     """K3 and K6: one launch over the flat entries of either layout into a
-    zeroed float64 (s,) buffer, rounded to float32 once."""
+    zeroed float64 (s,) buffer, returned before its rounding to float32."""
     out = torch.zeros((s,), dtype=torch.float64, device=values.device)
     _launch(name, values.device, _build.load().flgp_ell_colsum_t,
             values.data_ptr(), indices.data_ptr(), values.numel(), s, out.data_ptr())
-    return out.to(torch.float32)
+    return out
 
 
 def ell_colsum(values: torch.Tensor, indices: torch.Tensor, s: int) -> torch.Tensor:
     """Column sums C = 1ᵀZ of an (n, r) ELL graph (K3), shape (s,)."""
     if values.device.type == "cpu":
         return ell_colsum_plain(values, indices, s)
+    return ell_colsum_partial(values, indices, s).to(torch.float32)
+
+
+def ell_colsum_partial(values: torch.Tensor, indices: torch.Tensor, s: int) -> torch.Tensor:
+    """K3's column sums in float64, before the one rounding to float32 that
+    ``ell_colsum`` applies.  The kernel's sums are exact, so the partial sums
+    of row blocks add in float64 to the whole graph's sums bit for bit: the
+    multi-device layer all-reduces these.  On the CPU: the plain version's
+    sums in float64."""
+    if values.device.type == "cpu":
+        return ell_colsum_plain(values, indices, s).double()
     n, r = values.shape
     _check("values", values, torch.float32, (n, r), values.device)
     _check("indices", indices, torch.int32, (n, r), values.device)
@@ -274,20 +285,34 @@ def ell_norm_gram(values: torch.Tensor, indices: torch.Tensor, cscale: torch.Ten
     return _ell_norm_gram(values, indices, cscale, eps, table_slots=0)[:2]
 
 
+def ell_norm_gram_partial(values: torch.Tensor, indices: torch.Tensor, cscale: torch.Tensor,
+                          eps: float = EPS) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K4's (Ĝ, D) in float64, before the one rounding to float32 that
+    ``ell_norm_gram`` applies: exact sums, so the partials of row blocks add
+    in float64 to the whole graph's bit for bit (the multi-device layer
+    all-reduces these).  On the CPU: the plain version's in float64."""
+    if values.device.type == "cpu":
+        G, D = ell_norm_gram_plain(values, indices, cscale, eps)
+        return G.double(), D.double()
+    return _ell_norm_gram(values, indices, cscale, eps, table_slots=0, rounded=False)[:2]
+
+
 def _ell_norm_gram(values: torch.Tensor, indices: torch.Tensor, cscale: torch.Tensor,
-                   eps: float, table_slots: int) -> Tuple[torch.Tensor, ...]:
+                   eps: float, table_slots: int, rounded: bool = True) -> Tuple[torch.Tensor, ...]:
     """K4 on CUDA tensors: K7's body on the (n, r) layout; ``table_slots``
     and the counts returned beside Ĝ and D as in ``_ell_norm_gram_t``."""
     n, r = values.shape
     _check("values", values, torch.float32, (n, r), values.device)
     _check("indices", indices, torch.int32, (n, r), values.device)
-    return _gram("ell_norm_gram", values, indices, cscale, eps, table_slots, n, r, 1)
+    return _gram("ell_norm_gram", values, indices, cscale, eps, table_slots, n, r, 1, rounded)
 
 
 def _gram(name: str, values: torch.Tensor, indices: torch.Tensor, cscale: torch.Tensor,
-          eps: float, table_slots: int, nch: int, r: int, c: int) -> Tuple[torch.Tensor, ...]:
+          eps: float, table_slots: int, nch: int, r: int, c: int,
+          rounded: bool = True) -> Tuple[torch.Tensor, ...]:
     """K4 and K7: one launch into a zeroed float64 buffer that holds Ĝ, D
-    and the two counts; Ĝ and D rounded to float32 once, in one cast."""
+    and the two counts; Ĝ and D rounded to float32 once, in one cast (left
+    in float64 without ``rounded``)."""
     s = cscale.shape[0]
     _check_fan_in(r)
     _check("cscale", cscale, torch.float32, (s,), values.device)
@@ -296,7 +321,7 @@ def _gram(name: str, values: torch.Tensor, indices: torch.Tensor, cscale: torch.
     _launch(name, values.device, _build.load().flgp_ell_norm_gram_t,
             values.data_ptr(), indices.data_ptr(), cscale.data_ptr(), nch, r, c, s, float(eps),
             int(table_slots), buf.data_ptr(), buf[s * s:].data_ptr(), stats.data_ptr())
-    out = buf[:s * s + s].to(torch.float32)
+    out = buf[:s * s + s].to(torch.float32) if rounded else buf[:s * s + s]
     return out[:s * s].view(s, s), out[s * s:], stats
 
 
@@ -356,7 +381,7 @@ def ell_colsum_t(values: torch.Tensor, indices: torch.Tensor, s: int) -> torch.T
     if values.device.type == "cpu":
         return ell_colsum_t_plain(values, indices, s)
     _check_t(values, indices)
-    return _colsum("ell_colsum_t", values, indices, s)
+    return _colsum("ell_colsum_t", values, indices, s).to(torch.float32)
 
 
 def ell_norm_gram_t_plain(values: torch.Tensor, indices: torch.Tensor, cscale: torch.Tensor,

@@ -1021,3 +1021,179 @@ def test_se_spectrum_is_the_same_bits_every_run_on_the_card(dev):
     got = Z.colsum_ordered()
     assert torch.equal(got, Z.colsum_ordered())
     torch.testing.assert_close(got.cpu(), ref, rtol=2.0**-23, atol=0)
+
+
+# ---------------------------------------------------------------------------
+# the out-of-core fits and the multi-device layer
+# ---------------------------------------------------------------------------
+
+
+def _torus_file(tmp_path, dev, n=100_000):
+    """A torus cloud written as float32 FLGP0001, its rows on the card, and
+    k-means anchors with their cluster sizes (s = 256)."""
+    from flgp_tpu_torch import native
+    from flgp_tpu_torch.datasets import torus_rings
+    from flgp_tpu_torch.ops.kmeans import kmeans
+
+    ds = torus_rings(n=n, m_train=100, seed=3)
+    X = np.concatenate([ds.x_train, ds.x_test]).astype(np.float32)
+    path = str(tmp_path / "x.flgp")
+    native.write_matrix(path, X)
+    X_dev = torch.as_tensor(X, device=dev)
+    sub = kmeans(torch.Generator(device=dev).manual_seed(0), X_dev[:20_000], 256)
+    return path, X_dev, sub
+
+
+def test_streamed_spectrum_is_the_in_memory_spectrum_bit_for_bit(dev, tmp_path):
+    import flgp_tpu_torch as ft
+    from flgp_tpu_torch import native
+    from flgp_tpu_torch.fit import streaming
+    from flgp_tpu_torch.fit.spectral import build_spectrum
+    from flgp_tpu_torch.ops import hopper_kernels as hk
+
+    path, X, sub = _torus_file(tmp_path, dev)
+    g = ft.GraphConfig(s=256, r=3, K=64)
+    gen = torch.Generator(device=dev)
+    mem, _ = build_spectrum(gen, X, g, anchors=sub)
+    with native.MatrixFile(path) as mat:
+        hk.reset_launches()
+        st, _ = streaming.streamed_build_spectrum(gen, mat, g, 1 << 14, anchors=sub)
+        torch.cuda.synchronize()
+    chunks = -(-X.shape[0] // (1 << 14))
+    assert hk.LAUNCHES["knn"] == chunks and hk.LAUNCHES["lae_weights"] == chunks
+    assert torch.equal(st.values, mem.values) and torch.equal(st.vectors, mem.vectors)
+
+
+def test_overlapped_pass_and_chunk_sizes_give_the_serial_pass_s_bits(dev, tmp_path):
+    """The overlapped pass against the serial one, and chunks of 65,536 rows
+    against chunks of 1,000 (a short tail chunk each): the same graph."""
+    import flgp_tpu_torch as ft
+    from flgp_tpu_torch import native
+    from flgp_tpu_torch.fit import streaming
+
+    path, _, sub = _torus_file(tmp_path, dev)
+    for kernel in ("lae", "se"):
+        g = ft.GraphConfig(s=256, r=3, K=64, kernel=kernel)
+        with native.MatrixFile(path) as mat:
+            over = streaming.streamed_ell_graph(mat, sub.centers, g, 1 << 16)
+            serial = streaming.streamed_ell_graph(mat, sub.centers, g, 1 << 16, _overlap=False)
+            small = streaming.streamed_ell_graph(mat, sub.centers, g, 1000)
+        for Z in (serial, small):
+            assert torch.equal(Z.values, over.values) and torch.equal(Z.indices, over.indices)
+
+
+def test_pinned_buffers_are_reused_over_50_chunks(dev, tmp_path):
+    """A 50-chunk pass reads into two pinned host buffers, one after the
+    other, and the process's resident memory does not grow from one pass to
+    the next."""
+    import flgp_tpu_torch as ft
+    from flgp_tpu_torch import native
+    from flgp_tpu_torch.fit import streaming
+
+    class Targets(native.MatrixFile):
+        def __init__(self, path):
+            super().__init__(path)
+            self.ptrs = []
+
+        def read_into(self, start, count, data_ptr):
+            self.ptrs.append(data_ptr)
+            return super().read_into(start, count, data_ptr)
+
+    chunk = 4096
+    X = np.random.default_rng(0).normal(size=(50 * chunk, 2)).astype(np.float32)
+    path = str(tmp_path / "x.flgp")
+    native.write_matrix(path, X)
+    U = torch.as_tensor(X[:128], device=dev)
+    g = ft.GraphConfig(s=128, r=3, K=16)
+
+    def resident() -> int:
+        with open("/proc/self/statm") as f:
+            return int(f.read().split()[1]) * 4096
+
+    mat = Targets(path)
+    try:
+        streaming.streamed_ell_graph(mat, U, g, chunk)
+        assert len(mat.ptrs) == 50 and len(set(mat.ptrs)) == 2
+        assert mat.ptrs[0::2] == [mat.ptrs[0]] * 25 and mat.ptrs[1::2] == [mat.ptrs[1]] * 25
+        before = resident()
+        for _ in range(3):
+            streaming.streamed_ell_graph(mat, U, g, chunk)
+        torch.cuda.synchronize()
+        assert resident() - before < 8 * 2 ** 20
+    finally:
+        mat.close()
+
+
+def test_partial_sums_of_row_blocks_add_to_the_whole_graph_s_bits(dev):
+    """K3's and K4's float64 partials are exact: two row blocks' partials add
+    to the whole graph's sums, and rounded once they are ell_colsum's and
+    ell_norm_gram's bits (what lets the sharded spectrum on several cards be
+    the single card's)."""
+    from flgp_tpu_torch.ops import hopper_kernels as hk
+
+    rng = np.random.default_rng(1)
+    n, r, s = 300_001, 3, 512
+    w = _cuda(rng.uniform(size=(n, r)), dev)
+    idx = torch.as_tensor(rng.integers(0, s, size=(n, r)), dtype=torch.int32, device=dev)
+    cscale = _cuda(rng.uniform(0.5, 2.0, size=s), dev)
+    h = 123_457
+    C = hk.ell_colsum_partial(w[:h], idx[:h], s) + hk.ell_colsum_partial(w[h:], idx[h:], s)
+    assert torch.equal(C, hk.ell_colsum_partial(w, idx, s))
+    assert torch.equal(C.float(), hk.ell_colsum(w, idx, s))
+    G1, D1 = hk.ell_norm_gram_partial(w[:h], idx[:h], cscale)
+    G2, D2 = hk.ell_norm_gram_partial(w[h:], idx[h:], cscale)
+    G, D = hk.ell_norm_gram(w, idx, cscale)
+    assert torch.equal((G1 + G2).float(), G) and torch.equal((D1 + D2).float(), D)
+
+
+def test_sharded_spectrum_under_nccl_is_spectrum_fused(dev, tmp_path):
+    import socket
+
+    import torch.distributed as dist
+
+    import flgp_tpu_torch as ft
+    from flgp_tpu_torch.ops.spectrum import spectrum_fused
+    from flgp_tpu_torch.parallel import mesh as pmesh
+    from flgp_tpu_torch.parallel.spectral import (
+        _local_ell,
+        sharded_spectrum_fn,
+        sharded_spectrum_from_ell_fn,
+    )
+
+    _, X, sub = _torus_file(tmp_path, dev)
+    g = ft.GraphConfig(s=256, r=3, K=64)
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    assert pmesh.init_distributed(f"127.0.0.1:{port}", 1, 0)
+    try:
+        assert dist.get_backend() == "nccl"
+        mesh = pmesh.global_mesh(("data",))
+        assert mesh.size == 1 and mesh.device.type == "cuda"
+        Z = _local_ell(X, sub.centers, g)
+        ref = spectrum_fused(Z.values, Z.indices, 256, 64, g.gl, g.root, sub.counts)
+        for values, vectors in (sharded_spectrum_from_ell_fn(mesh, g)(Z.values, Z.indices,
+                                                                      sub.counts),
+                                sharded_spectrum_fn(mesh, g)(X, sub.centers, sub.counts)):
+            assert torch.equal(values, ref.values) and torch.equal(vectors, ref.vectors)
+    finally:
+        dist.destroy_process_group()
+
+
+def test_streamed_fit_runs_on_the_card_by_default(dev, tmp_path):
+    import flgp_tpu_torch as ft
+    from flgp_tpu_torch import native
+    from flgp_tpu_torch.datasets import torus_rings
+    from flgp_tpu_torch.fit import streaming
+
+    ds = torus_rings(n=4800, m_train=100, seed=1234)
+    path = str(tmp_path / "t.flgp")
+    native.write_matrix(path, np.concatenate([ds.x_train, ds.x_test]).astype(np.float32))
+    cfg = ft.FitConfig(graph=ft.GraphConfig(s=600, r=3, K=100), sigma=1e-3,
+                       dtype=torch.float32, solve_dtype=torch.float64)
+    with native.MatrixFile(path) as mat:
+        res = streaming.fit_lae_logit_gp_streamed(torch.Generator(device=dev).manual_seed(0),
+                                                  mat, ds.y_train, np.arange(100), cfg=cfg,
+                                                  chunk_rows=1000)
+    assert res.labels.device.type == "cuda" and res.pars["t"].dtype == torch.float64
+    assert float(torch.mean((res.labels[100:].cpu() != torch.as_tensor(ds.y_test)).double())) <= 0.03

@@ -398,11 +398,22 @@ def test_chees_makes_exactly_n_warmup_transitions(n_warmup):
 
 
 def test_chees_axis_name_waits_for_the_multi_device_layer():
-    with pytest.raises(NotImplementedError, match="multi-device"):
+    """``axis_name`` is the chain axis's mesh of the multi-device layer: a
+    name alone raises, and a mesh of world size 1 (no process group) is the
+    single-process run bit for bit."""
+    from flgp_tpu_torch.parallel.mesh import make_mesh
+
+    with pytest.raises(TypeError, match="Mesh"):
         run_chees(gen(0), gauss_logprob, zeros(4, DIM), n_warmup=2, n_samples=2, axis_name="c")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError):
         run_chees_fixed(gen(0), gauss_logprob, zeros(4, DIM), 0.1, 1.0, torch.ones(DIM), 2,
                         axis_name="c")
+    mesh = make_mesh(axis_names=("chain",), device="cpu")
+    x0 = torch.randn((8, DIM), generator=gen(1), dtype=torch.float64)
+    ref = run_chees(gen(0), gauss_logprob, x0, n_warmup=30, n_samples=5)
+    got = run_chees(gen(0), gauss_logprob, x0, n_warmup=30, n_samples=5, axis_name=mesh)
+    for a, b in zip(ref[:5], got[:5]):
+        assert torch.equal(a, b)
 
 
 class _OnMeta:
