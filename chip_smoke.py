@@ -24,7 +24,8 @@ Phases, each of which ends the script with a non-zero exit if it fails:
    library's SASS (``cuobjdump``), for both arithmetic variants;
 3. kernels vs their plain PyTorch versions, on the card, at the shapes the
    main path gives them: the torus config (n=4800, d=2, s=600, r=3, K=100)
-   and the large config (n=1e6, d=2, s=1024, r=3, K=128), with both times;
+   and the large config (n=1e6, d=2, s=1024, r=3, K=128), with both times
+   (K1 also beside its two-call library yardstick, ``knn_library``);
    K2 in the exact variant the fits launch (held to the plain version at
    2e-4; it is equal bit for bit) and, reported only, in its fused
    multiply-add variant with the differences of its weights and of the
@@ -90,7 +91,13 @@ Phases, each of which ends the script with a non-zero exit if it fails:
 11. multiclass and the extras: K1–K5 vs their plain versions at the
     multiclass shape (``mnist_like``: n = 7e4, d = 16, s = 600, r = 3,
     K = 100; K1's differing rows near-ties only, at most 0.1% of them;
-    side rows, the kernels line keeps its shapes); the BASELINE multiclass
+    side rows, the kernels line keeps its shapes); K1's tiled body (every d
+    but 2 and 3) against the old run-time-d body forced by ``legacy``, the
+    same indices and d² bit for bit, at the shapes of that fit, of its
+    k-means‖ rounds, of the grid drivers, of a streamed chunk and of the
+    anchor split at d = 16 and at (n = 7e4, s = 600, r = 3) for d = 64, 256
+    and 784, timed beside the plain version, the two-call library yardstick
+    (``knn_library``) and the bound; the BASELINE multiclass
     fit through ``fit_lae_logit_mult_gp`` (f32 graph, f64 tail, sigma 1e-3,
     50 sweeps, ten classes) cold and warm from one generator seed, which
     must give the same t, labels and posterior means bit for bit, must
@@ -566,6 +573,72 @@ def check_knn_chunk(dev, results: dict) -> None:
     check_lae_chunk(X, U, cfg["r"], results)
 
 
+# K1's tiled body (every d but 2 and 3) at the shapes the multiclass path
+# launches it at and at the widths of real data: (what, n, s, d, r)
+KNN_WIDTHS = (
+    ("multiclass graph", 70_000, 600, 16, 3),
+    ("k-means‖ round", 70_000, 300, 16, 1),        # four a fit, B = ceil(2s/4) candidates
+    ("k-means‖ candidates", 70_000, 1201, 16, 1),  # one a fit, 1 + 4B
+    ("grid drivers' graph", 5000, 500, 16, 3),
+    ("streamed chunk", 16_384, 600, 16, 3),
+    ("anchor split", 3000, 700, 16, 3),
+    ("anchor split", 3000, 700, 17, 16),
+    ("anchor split", 3000, 700, 5, 9),
+    ("d=64", 70_000, 600, 64, 3),
+    ("d=256", 70_000, 600, 256, 3),
+    ("d=784 (MNIST's width)", 70_000, 600, 784, 3),
+)
+
+
+def knn_library(X, U, r: int):
+    """The two-call yardstick of K1: one float32 product with |u|² folded in
+    (``torch.addmm``, TF32 off) and one ``torch.topk``, then |x|² added to
+    the r values.  Timed only; the port never calls it."""
+    vals, idx = torch.topk(torch.addmm(torch.sum(U * U, dim=1), X, U.T, alpha=-2.0), r, dim=1,
+                           largest=False)
+    return vals + torch.sum(X * X, dim=1, keepdim=True), idx
+
+
+def knn_widths(X16, dev) -> None:
+    """K1's tiled body against the old run-time-d body (``_knn(legacy=
+    True)``) at KNN_WIDTHS: the same indices and d² bit for bit (else the
+    script fails), and the times of both, of the plain version and of the
+    library yardstick (and of its product alone, the card's float32 GEMM
+    rate) beside the bound.  d = 16 on phase 11's points (the first n of
+    them), the other widths on ``mnist_like`` at that width."""
+    from flgp_tpu_torch.datasets import mnist_like
+
+    g = torch.Generator(device=dev).manual_seed(11)
+    print("K1's tiled body (every d but 2 and 3) vs the old run-time-d body, ms a call:",
+          flush=True)
+    for what, n, s, d, r in KNN_WIDTHS:
+        X = X16[:n] if d == 16 else cloud(mnist_like(n=n, d=d, m_train=min(500, n // 2), seed=0),
+                                          dev)
+        U = X[torch.randperm(n, generator=g, device=dev)[:s]].contiguous()
+        got = hk.knn(X, U, r)
+        old = hk._knn(X, U, r, 0, legacy=True)
+        torch.cuda.synchronize()
+        if not (torch.equal(got.indices, old.indices) and torch.equal(got.sqdists, old.sqdists)):
+            _fail(f"knn {what} (n={n}, s={s}, d={d}, r={r}): the tiled body's indices or d² "
+                  f"are not the old body's")
+        ref = knn_plain(X, U, r)
+        slow = d >= 784
+        ms = cuda_ms(lambda: hk.knn(X, U, r), 20)
+        old_ms = cuda_ms(lambda: hk._knn(X, U, r, 0, legacy=True), 2 if slow else 5)
+        plain_ms = cuda_ms(lambda: knn_plain(X, U, r), 2 if slow else 3)
+        lib_ms = cuda_ms(lambda: knn_library(X, U, r), 10)
+        mm_ms = cuda_ms(lambda: X @ U.T, 10)
+        b_ms, b_by = bound(work("knn", n=n, r=r, s=s, d=d))
+        print(f"  {what:22s} n={n} s={s} d={d} r={r} split={hk.knn_anchor_split(n, s)}: tiled "
+              f"{ms:9.4f}  old {old_ms:9.4f}  plain {plain_ms:9.4f}  library {lib_ms:9.4f} "
+              f"(addmm + topk, two calls; X @ U.T alone {mm_ms:.4f}, "
+              f"{2e-9 * n * s * d / mm_ms:.1f} TFLOP/s)  bound {b_ms:.4f} ({b_by}), tiled/bound "
+              f"{ms / b_ms:.1f}x, {2e-9 * n * s * d / ms:.1f} TFLOP/s of x·u; the old body's "
+              f"bits; max_abs_err vs plain {_maxabs(got.sqdists, ref.sqdists):.3e}", flush=True)
+        del X, U, got, old, ref
+    torch.cuda.empty_cache()
+
+
 def check_lae_chunk(X, U, r: int, results: dict) -> None:
     """K2's point-major entry at the same chunk shape (65,536 points, s =
     1024, d = 2, r = 3): what one launch of the per-chunk composition costs,
@@ -623,6 +696,8 @@ def check_kernels(label: str, X, cfg: dict, dev, results: dict, max_share: float
             record("knn", _maxabs(got.sqdists, ref.sqdists),
                    cuda_ms(lambda: hk.knn(X, U, r), reps_k),
                    cuda_ms(lambda: knn_plain(X, U, r), reps_p))
+            rows.append(f"  {label:5s} knn two-call library yardstick (addmm + topk, not in the "
+                        f"kernels line): {cuda_ms(lambda: knn_library(X, U, r), reps_k):9.4f} ms")
         else:
             rows.append(f"  {label:5s} knn r=1 over {C} candidates: kernel "
                         f"{cuda_ms(lambda: hk.knn(X, Uc, 1), reps_k):9.4f} ms  plain "
@@ -1554,6 +1629,7 @@ def multiclass_phase(dev, results: dict) -> dict:
     # at d = 16 K1's fmaf chain and the plain version's GEMM of depth 16 round
     # x·u differently: near-ties may swap, up to 0.1% of rows, as for self-kNN
     check_kernels("mnist", X, cfg, dev, results, max_share=1e-3)
+    knn_widths(X, dev)
     del X
     torch.cuda.empty_cache()
 

@@ -21,8 +21,13 @@
 //    anchor is one 16-byte shared-memory read that every lane of a group
 //    makes at the same address (a broadcast).  A thread owns 4 rows (2 when
 //    r > 8), so that read and the loop's bookkeeping serve 4 pairs and the 4
-//    FMA chains overlap.  Any other d takes the run-time-d body below: one
-//    row a thread, the row re-read through the L1, d + 1 scalar reads a pair.
+//    FMA chains overlap.  Every other d takes the tiled body of
+//    knn_tiled.cu (its own note): a GEMM's register tiling with the top-r
+//    selection as its epilogue, the same d^2 bits as the run-time-d body
+//    below.  That body (one row a thread, the row re-read through the L1,
+//    d + 1 scalar reads a pair) stays only as the tiled body's bit oracle and
+//    yardstick: flgp_knn's `legacy` forces it, for the tests and
+//    chip_smoke.py; the fits never take it.
 //  * Each thread keeps a sorted top-r list per row in registers (r is a
 //    template parameter, at most 16).  A thread scans its anchors in
 //    increasing index order and a candidate displaces a list entry only if
@@ -85,8 +90,9 @@ __global__ void knn_pack_kernel(const float* __restrict__ U, int s, int d, int r
   p[rec - 1] = u2;
 }
 
-// Any d: one row a thread, records of d + 1 floats streamed through shared
-// memory in tiles, the row re-read through a pointer (it stays in the L1).
+// Any d, the old body (forced by `legacy` only): one row a thread, records
+// of d + 1 floats streamed through shared memory in tiles, the row re-read
+// through a pointer (it stays in the L1).
 template <int R>
 __global__ void __launch_bounds__(kThreads)
 knn_any_kernel(const float* __restrict__ X, const float* __restrict__ P, int n, int s, int d,
@@ -157,17 +163,24 @@ int choose_split(int n, int s, int rows_a_thread) {
 }  // namespace flgp_k1
 
 // X (n, d) f32, U (s, d) f32 -> idx (n, r) i32, dist (n, r) f32; 1 <= r <= 16.
-// scratch: s * (max(d, 3) + 1) floats for the packed anchors.  split = 0
-// lets the entry point choose; the tests pass 1, 2, ..., 32 to force a path.
+// scratch: s * tiled_rec(max(d, 3)) floats for the packed anchors.  d = 2 and 3
+// take their template bodies, any other d the tiled body, or the old
+// run-time-d body when `legacy` is set.  split: for the template and old
+// bodies the lanes that share a row, 0 letting the entry point choose; for
+// the tiled body the blocks that divide a row block's anchors (0 means 1),
+// with `part` holding 2 * split * n * r words of their lists when split > 1.
+// The tests pass 1, 2, ..., 32 to force a path.
 extern "C" int flgp_knn(const void* X, const void* U, int n, int s, int d, int r, int split,
-                        void* scratch, void* idx, void* dist, void* stream) {
+                        int legacy, void* scratch, void* part, void* idx, void* dist,
+                        void* stream) {
   using namespace flgp_k1;
   if (n <= 0) return static_cast<int>(cudaSuccess);
+  const bool fixed = d == 2 || d == 3;
+  const bool tiled = !fixed && !legacy;
   if (s <= 0 || d <= 0 || r < 1 || r > 16 || split < 0 || split > 32 ||
-      (split & (split - 1)) != 0) {
+      (split & (split - 1)) != 0 || (tiled && split > 1 && part == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const bool fixed = d == 2 || d == 3;
   const int rows_a_thread = fixed ? rows_per_thread(r) : 1;
   Args a;
   a.X = static_cast<const float*>(X);
@@ -176,15 +189,16 @@ extern "C" int flgp_knn(const void* X, const void* U, int n, int s, int d, int r
   a.s = s;
   a.d = d;
   a.r = r;
-  a.split = split ? split : choose_split(n, s, rows_a_thread);
+  a.split = split ? split : tiled ? 1 : choose_split(n, s, rows_a_thread);
+  a.part = static_cast<float*>(part);
   a.idx = static_cast<int*>(idx);
   a.dist = static_cast<float*>(dist);
   a.stream = static_cast<cudaStream_t>(stream);
 
-  const int rec = fixed ? 4 : d + 1;
+  const int rec = fixed ? 4 : tiled ? tiled_rec(d) : d + 1;
   knn_pack_kernel<<<(s + 255) / 256, 256, 0, a.stream>>>(static_cast<const float*>(U), s, d, rec,
                                                          static_cast<float*>(scratch));
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  return d == 2 ? launch_d2(a) : d == 3 ? launch_d3(a) : launch_any(a);
+  return d == 2 ? launch_d2(a) : d == 3 ? launch_d3(a) : tiled ? launch_tiled(a) : launch_any(a);
 }

@@ -1,7 +1,8 @@
-// K1's kernels, shared by knn.cu (the pre-pass, the run-time-d body and the C
-// entry point) and knn_d2.cu / knn_d3.cu (the bodies with d a template
-// parameter, one source each so that nvcc builds them side by side).
-// The design note is at the top of knn.cu.
+// K1's kernels, shared by knn.cu (the pre-pass, the old run-time-d body and
+// the C entry point), knn_d2.cu / knn_d3.cu (the bodies with d a template
+// parameter) and knn_tiled.cu (the tiled body for every other d), one source
+// each so that nvcc builds them side by side.  The design notes are at the
+// top of knn.cu and knn_tiled.cu.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -23,6 +24,8 @@ struct Args {
   const float* P;   // packed anchors, see knn_pack_kernel
   int n, s, d, r;
   int split;        // lanes that share a row and divide the anchors: 1, 2, ..., 32
+                    // (the tiled body: blocks that divide a row block's anchors)
+  float* part;      // the tiled body's split lists, 2 * split * n * r words (split > 1)
   int* idx;         // (n, r)
   float* dist;      // (n, r)
   cudaStream_t stream;
@@ -32,6 +35,10 @@ struct Args {
 // this many rows, and their FMA chains overlap.  The top-r lists are
 // 2 * R * rows registers, so wide lists take fewer rows.
 __host__ __device__ constexpr int rows_per_thread(int r) { return r <= 8 ? 4 : 2; }
+
+// Floats a packed anchor record takes in the tiled body: d + 1 rounded up to
+// a multiple of 4, so that every record starts 16-byte aligned.
+__host__ __device__ constexpr int tiled_rec(int d) { return (d + 4) & ~3; }
 
 template <int R>
 __device__ __forceinline__ void topr_init(float (&bd)[R], int (&bi)[R]) {
@@ -201,8 +208,9 @@ int launch_fixed(const Args& a) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// defined in knn_d2.cu and knn_d3.cu
+// defined in knn_d2.cu, knn_d3.cu and knn_tiled.cu
 int launch_d2(const Args& a);
 int launch_d3(const Args& a);
+int launch_tiled(const Args& a);
 
 }  // namespace flgp_k1

@@ -33,7 +33,7 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 # C entry points and their argument types (pointers and the stream as void*)
 _SIGNATURES = {
-    "flgp_knn": [_P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P],
+    "flgp_knn": [_P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
     "flgp_lae": [_P, _L, _L, _P, _P, _L, _L, _I, _I, _I, _I, _I, _P, _I, _P, _P],
     "flgp_lae_div_check": [_I, _P, _P],
     "flgp_ell_norm_matmat": [_P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_float, _P, _P],

@@ -85,10 +85,36 @@ def knn(X: torch.Tensor, U: torch.Tensor, r: int) -> KnnResult:
     return _knn(X, U, r, split=0)
 
 
-def _knn(X: torch.Tensor, U: torch.Tensor, r: int, split: int) -> KnnResult:
-    """K1 on CUDA tensors.  ``split`` lanes share a row and divide the
-    anchors (a power of two up to 32); 0 lets the kernel's entry point choose
-    from (n, s).  The result does not depend on it; the tests force it."""
+# K1's tiled body (csrc/knn_tiled.cu): a block owns 64 rows and walks the
+# anchors in tiles of 128.  Where the row blocks cannot fill the card, blocks
+# divide a row block's anchor tiles and a second kernel merges their lists.
+_TILED_ROWS = 64
+_TILED_ANCHORS = 128
+_FILL_BLOCKS = 132            # a block on each of the H100's 132 SMs
+
+
+def knn_anchor_split(n: int, s: int) -> int:
+    """Blocks that divide each row block's anchor tiles in K1's tiled body
+    (a power of two up to 32): the most that keep the grid within
+    ``_FILL_BLOCKS`` blocks while each still scans a tile.  Beyond that the
+    merge pass and the extra lists cost more than filling the card gains."""
+    blocks = -(-n // _TILED_ROWS)
+    tiles = -(-s // _TILED_ANCHORS)
+    split = 1
+    while split < 32 and 2 * split * blocks <= _FILL_BLOCKS and tiles >= 2 * split:
+        split *= 2
+    return split
+
+
+def _knn(X: torch.Tensor, U: torch.Tensor, r: int, split: int,
+         legacy: bool = False) -> KnnResult:
+    """K1 on CUDA tensors.  d = 2 and 3 take their template bodies, where
+    ``split`` lanes share a row and divide the anchors (a power of two up to
+    32; 0 lets the kernel's entry point choose from (n, s)).  Every other d
+    takes the tiled body, where ``split`` blocks divide a row block's anchors
+    (0: ``knn_anchor_split``), or with ``legacy`` the old run-time-d body
+    with the lanes' meaning of ``split``: the tiled body's bit oracle, for
+    the tests and chip_smoke.py only.  The result depends on neither."""
     n, d = X.shape
     s = U.shape[0]
     _check_fan_in(r)
@@ -96,13 +122,20 @@ def _knn(X: torch.Tensor, U: torch.Tensor, r: int, split: int) -> KnnResult:
         raise ValueError(f"knn needs r <= s, got r={r}, s={s}")
     _check("X", X, torch.float32, (n, d), X.device)
     _check("U", U, torch.float32, (s, d), X.device)
+    tiled = d not in (2, 3) and not legacy
+    if tiled and split == 0:
+        split = knn_anchor_split(n, s)
     idx = torch.empty((n, r), dtype=torch.int32, device=X.device)
     dist = torch.empty((n, r), dtype=torch.float32, device=X.device)
-    # the anchors as the kernel's pre-pass packs them: (−2u, |u|²) records
-    packed = torch.empty((s, max(d, 3) + 1), dtype=torch.float32, device=X.device)
+    # the anchors as the kernel's pre-pass packs them: (−2u, |u|²) records,
+    # d + 1 floats rounded up to a multiple of 4 at most
+    packed = torch.empty((s, (max(d, 3) + 4) // 4 * 4), dtype=torch.float32, device=X.device)
+    # the tiled body's lists of each block of a split: distances, then indices
+    part = torch.empty((2 * split * n * r if tiled and split > 1 else 0,), dtype=torch.float32,
+                       device=X.device)
     _launch("knn", X.device, _build.load().flgp_knn,
-            X.data_ptr(), U.data_ptr(), n, s, d, r, int(split), packed.data_ptr(),
-            idx.data_ptr(), dist.data_ptr())
+            X.data_ptr(), U.data_ptr(), n, s, d, r, int(split), int(legacy), packed.data_ptr(),
+            part.data_ptr(), idx.data_ptr(), dist.data_ptr())
     return KnnResult(idx, dist)
 
 

@@ -93,6 +93,53 @@ def test_knn_kernel_every_width_and_split(dev, gen, n, s, d, r):
         hk._knn(X, U, r, 3)                           # not a power of two
 
 
+def _near_ties_only(got, ref, X, U, share):
+    """The rows where two kNN lists differ: at most ``share`` of them, each
+    a near-tie (the sorted d² within 1e-5·(|x|² + max|u|²))."""
+    differ = torch.any(got.indices != ref.indices, dim=1)
+    x2 = torch.sum(X.double() ** 2, dim=1)[differ]
+    gap = torch.abs(got.sqdists[differ].double() - ref.sqdists[differ].double())
+    bound = 1e-5 * (x2 + float(torch.max(torch.sum(U.double() ** 2, dim=1))))
+    assert int(differ.sum()) <= max(1, int(share * X.shape[0]))
+    assert not bool(torch.any(gap > bound[:, None]))
+
+
+@pytest.mark.parametrize("r", [1, 3, 8, 9, 16])
+@pytest.mark.parametrize("d", [1, 4, 5, 16, 17, 33, 64, 256, 784])
+def test_knn_tiled_body_is_the_old_body_bit_for_bit(dev, d, r):
+    """K1's tiled body (every d but 2 and 3) against the old run-time-d body
+    that ``legacy`` forces: the same indices and d² bit for bit, at ragged n
+    (3,001 and 70,001), ragged s (601 and 700) and the anchor-split shape
+    (n = 3000, s = 700), with exact ties at anchors 4, 9 and 10 (4 first);
+    one launch counted a call; and against ``knn_plain``, rows differing on
+    near-ties only (at most 1% of them: at d = 784 and r = 16 some 0.1% of
+    the rows swap two neighbours whose d² the two roundings order
+    otherwise), d² within 1e-5."""
+    from flgp_tpu_torch.ops import hopper_kernels as hk
+    from flgp_tpu_torch.ops.knn import knn_plain
+
+    g = torch.Generator(device=dev).manual_seed(100 * d + r)
+    for n, s in ((3001, 601), (70_001, 700), (3000, 700)):
+        X = torch.randn((n, d), generator=g, device=dev)
+        U = torch.randn((s, d), generator=g, device=dev)
+        U[9] = U[4]
+        U[10] = U[4]
+        before = hk.LAUNCHES["knn"]
+        got = hk.knn(X, U, r)
+        old = hk._knn(X, U, r, 0, legacy=True)
+        torch.cuda.synchronize()
+        assert hk.LAUNCHES["knn"] == before + 2
+        assert torch.equal(got.indices, old.indices), (n, s)
+        assert torch.equal(got.sqdists, old.sqdists), (n, s)
+        ref = knn_plain(X, U, r)
+        _near_ties_only(got, ref, X, U, 1e-2)
+        torch.testing.assert_close(got.sqdists, ref.sqdists, rtol=1e-5, atol=2e-5)
+        for row in got.indices[:3000].cpu().tolist():
+            where = [row.index(j) for j in (4, 9, 10) if j in row]
+            assert where == sorted(where)
+            assert 4 in row or not (9 in row or 10 in row)
+
+
 @pytest.mark.parametrize("r", [8, 12])
 def test_knn_kernel_self_neighbours(dev, gen, r):
     """s = n, as the GLGP graph calls it: many anchor tiles, and each point's

@@ -123,12 +123,13 @@ def test_knn_f32_matches_pallas_interpret(rng, n, s, r):
 
 
 @pytest.mark.parametrize("r", [1, 3, 16])
-@pytest.mark.parametrize("d", [1, 2, 3, 5, 17])
+@pytest.mark.parametrize("d", [1, 2, 3, 5, 16, 17, 64, 256])
 def test_knn_matches_reference_over_widths(rng, d, r):
     """``knn`` and ``knn_plain`` against the reference's plain path on the
     CPU at the widths the kernel has a body for (2 and 3 as template
-    parameters, every other through the run-time one) and at the ends of its
-    fan-in range.  float64: the same indices, d² to 1e-12.  float32 through
+    parameters, every other through the tiled one: 16, 64 and 256 are one,
+    four and sixteen of its feature slabs) and at the ends of its fan-in
+    range.  float64: the same indices, d² to 1e-12.  float32 through
     the wrapper (its plain version on the CPU): the same indices as the
     float32 reference, d² to 1e-4.  Anchors 3 and 7 coincide, and so do 11 and
     5: the lower index always comes first."""
@@ -151,6 +152,31 @@ def test_knn_matches_reference_over_widths(rng, d, r):
                 assert lo in row and row.index(lo) < row.index(hi)
             if r >= 2:
                 assert (lo in row) == (hi in row) or row[-1] == lo
+
+
+@pytest.mark.parametrize("n,s,split", [
+    (70_000, 600, 1),          # the multiclass shape: 1094 row blocks fill the card
+    (16_384, 600, 1),          # one streamed chunk: 256 row blocks
+    (5000, 500, 1),            # the grid drivers: 79 row blocks, two splits would be 158
+    (3000, 700, 2),            # the anchor-split shape: 47 row blocks, 6 anchor tiles
+    (3001, 601, 2),            # ragged: 47 row blocks, 5 tiles
+    (1000, 100_000, 8),        # few rows, many anchors: 16 row blocks
+    (64, 128, 1),              # one row block, one tile: nothing to divide
+    (65, 129, 2),              # ragged: two row blocks, two tiles, one a block
+    (1, 1, 1),
+    (10, 10_000_000, 32),      # the cap
+])
+def test_knn_anchor_split_fills_one_block_an_sm(n, s, split):
+    """K1's tiled body divides a row block's anchor tiles among ``split``
+    blocks (a power of two up to 32) only while the grid stays within one
+    block an SM of the H100 and every block keeps a tile of 128 anchors;
+    rows come 64 to a block, ragged edges rounded up."""
+    got = hk.knn_anchor_split(n, s)
+    assert got == split
+    blocks, tiles = -(-n // 64), -(-s // 128)
+    assert got & (got - 1) == 0 and 1 <= got <= 32
+    assert got == 1 or (blocks * got <= 132 and tiles >= got)
+    assert got == 32 or 2 * got * blocks > 132 or tiles < 2 * got
 
 
 def test_sqdist_blocked_matches_reference(rng):

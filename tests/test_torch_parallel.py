@@ -7,7 +7,8 @@ JAX package (float64, the same arrays).  World size 2, gloo, in two
 subprocesses that run this file's ``_worker``: the sharded spectrum, the GPR
 NMLL and its gradient, predict, the GPC Laplace tail, the prediction from
 dual weights and ``pooled_mean_variance`` against the same functions at
-world size 1 on the whole data (float64, 1e-10), chain-sharded ChEES (the
+world size 1 on the whole data (float64, 1e-10; float32 draws at mean 17
+and sd 0.01 within 1% of their float64 variance, F8), chain-sharded ChEES (the
 adapted triple the same on both ranks), and ``sharded_smc_fn`` against
 ``run_smc`` bit for bit: its draws come from one generator in global
 particle order.
@@ -303,6 +304,27 @@ def test_chain_sharded_samplers_at_world_size_1():
         np.testing.assert_allclose(var.numpy(), 1.0, atol=0.5)
 
 
+def _offset_draws(shape=(512, 16, 4), seed=5):
+    """float32 draws whose mean (17) is large against their sd (0.01), and
+    the float64 variance of exactly those values."""
+    d32 = (17.0 + 0.01 * np.random.default_rng(seed).normal(size=shape)).astype(np.float32)
+    return d32, d32.astype(np.float64).reshape(-1, shape[-1]).var(axis=0)
+
+
+def test_pooled_variance_of_float32_draws_is_the_float64_one():
+    """F8, repaired in the port only: ``pooled_mean_variance`` sums Σx and
+    Σx² in float64 and casts back, so float32 draws at mean 17 and sd 0.01
+    give their variance within 1%.  The reference
+    (``flgp_tpu/parallel/mcmc.py:144-151``) sums in the draws' dtype, where
+    Σx²/N − mean² cancels: 6e-5 to 1.5e-4 for these 1e-4.  World size 1."""
+    d32, var64 = _offset_draws()
+    mean, var = pooled_mean_variance(_one("chain"), torch.from_numpy(d32))
+    assert mean.dtype == var.dtype == torch.float32
+    np.testing.assert_allclose(var.numpy(), var64, rtol=1e-2)
+    np.testing.assert_allclose(mean.numpy(), d32.astype(np.float64).reshape(-1, 4).mean(axis=0),
+                               rtol=1e-6)
+
+
 # ---------------------------------------------------------------------------
 # world size 2: two processes under gloo
 # ---------------------------------------------------------------------------
@@ -405,6 +427,10 @@ def _worker() -> None:
     flat = draws.reshape(-1, 3).numpy()
     close(mean, flat.mean(axis=0), "pooled mean")
     close(var, flat.var(axis=0), "pooled variance")
+    d32, var64 = _offset_draws()                      # F8: float32 draws far from 0
+    mean, var = pooled_mean_variance(chain, torch.from_numpy(d32[:, rank * 8:(rank + 1) * 8]))
+    assert var.dtype == torch.float32
+    close(var, var64, "pooled float32 variance", tol=1e-2 * float(var64.max()))
 
     dim = 3
     scales = torch.tensor([1.0, 2.0, 4.0], dtype=F64)
