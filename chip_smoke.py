@@ -6,6 +6,7 @@
     python3 chip_smoke.py --subsample-times
     python3 chip_smoke.py --sampling
     python3 chip_smoke.py --streaming
+    python3 chip_smoke.py --extension
 
 (the second only counts K2's instructions in a library already built; the
 third only times the n=1e6 subsample stage, four calls from one seed, with
@@ -13,7 +14,10 @@ the package beside the script: a copy of the script in another tree of the
 repo times that tree's subsampler; the fourth builds, fits the torus and
 the multiclass LAE model of phase 11, then runs phases 12–15 alone; the
 fifth builds, fits the torus, draws the n=1e7 path's anchors once and runs
-a reference HMC on the torus posterior, then phases 16–17 alone).
+a reference HMC on the torus posterior, then phases 16–17 alone; the
+sixth builds and holds K5 and K8 to their first, warp-a-row body at the
+four shapes the fits launch them at, timed in turns, as phases 3, 6 and 11
+do in passing).
 Phases, each of which ends the script with a non-zero exit if it fails:
 
 1. the card: name and power limit from nvidia-smi; a CUDA device is required
@@ -37,7 +41,9 @@ Phases, each of which ends the script with a non-zero exit if it fails:
    (``_colsum_fixed_plain``) bit for bit, both against themselves over five
    launches, K4 with its kept and spilled pair additions and, as its
    yardstick, ``torch.sparse.mm`` of the normalized graph's CSR transpose
-   and CSR;
+   and CSR; K5 also against its first, warp-a-row body (``legacy``), the same
+   bits, both timed in turns; K1 at the chunk shape beside the two-call
+   yardstick too;
 4. the torus fit through ``fit_lae_logit_gp`` (error ≤ 0.03; all five
    kernels must be launched by it), then a second, warm fit for its time;
 5. the n=1e6 fit (error ≤ 0.03), its wall time, build_spectrum's time alone
@@ -54,7 +60,8 @@ Phases, each of which ends the script with a non-zero exit if it fails:
    (five launches, K6 bit for bit against ``_colsum_fixed_plain``, K7 with
    ``torch.sparse.mm`` beside it), K7 with the share of its pair additions
    that stayed in shared memory and, as a yardstick, with its table forced
-   down to two slots (nearly every addition a global atomic, the same bits);
+   down to two slots (nearly every addition a global atomic, the same bits),
+   K8 against its first body as K5 is, and its pad rows exact zeros;
    and the chunked spectrum (K6–K8) vs the point-major one (K3–K5) on one
    n=1e6 graph;
 7. the n=1e7 fit of the huge-n path (k-means anchors on a column sample,
@@ -254,7 +261,7 @@ KERNELS = {
     "ell_norm_matmat": ("flgp_tpu_torch/csrc/ell.cu", "flgp_tpu/ops/pallas_kernels.py:493"),
     "ell_colsum_t": ("flgp_tpu_torch/csrc/ell_t.cu", "flgp_tpu/ops/pallas_kernels.py:550"),
     "ell_norm_gram_t": ("flgp_tpu_torch/csrc/ell_t.cu", "flgp_tpu/ops/pallas_kernels.py:626"),
-    "ell_norm_matmat_t": ("flgp_tpu_torch/csrc/ell_t.cu", "flgp_tpu/ops/pallas_kernels.py:689"),
+    "ell_norm_matmat_t": ("flgp_tpu_torch/csrc/ell.cu", "flgp_tpu/ops/pallas_kernels.py:689"),
     "ell_matmat": ("flgp_tpu_torch/csrc/ell_matmat.cu", "flgp_tpu/ops/pallas_kernels.py:740"),
     # K9's gather over a graph and its transpose: the operator product the
     # reference sums over its edge list in plain XLA
@@ -565,11 +572,14 @@ def check_knn_chunk(dev, results: dict) -> None:
         got, ref = check_knn("chunk", X, U, r)
         ms = cuda_ms(lambda: hk.knn(X, U, r), 50)
         plain_ms = cuda_ms(lambda: knn_plain(X, U, r), 5)
+        lib_ms = cuda_ms(lambda: knn_library(X, U, r), 50)
         w = work("knn", n=n, r=r, s=s, d=X.shape[1])
         ent["max_abs_err"] = max(ent["max_abs_err"], _maxabs(got.sqdists, ref.sqdists))
-        ent.update({f"ms_chunk_r{r}": ms, f"plain_ms_chunk_r{r}": plain_ms, f"work_chunk_r{r}": w})
+        ent.update({f"ms_chunk_r{r}": ms, f"plain_ms_chunk_r{r}": plain_ms, f"work_chunk_r{r}": w,
+                    f"library_ms_chunk_r{r}": lib_ms})
         print(f"  chunk knn r={r} (n={n}, s={s}, d={X.shape[1]}): kernel {ms:9.4f} ms  plain "
-              f"{plain_ms:9.4f} ms  bound {bound(w)[0]:.4f} ms ({bound(w)[1]})", flush=True)
+              f"{plain_ms:9.4f} ms  library {lib_ms:9.4f} ms (addmm + topk, two calls)  bound "
+              f"{bound(w)[0]:.4f} ms ({bound(w)[1]})", flush=True)
     check_lae_chunk(X, U, cfg["r"], results)
 
 
@@ -661,6 +671,27 @@ def cloud(ds, dev) -> torch.Tensor:
     """The (n, d) float32 points [train; test] of a split on the card."""
     return torch.as_tensor(np.concatenate([ds.x_train, ds.x_test]), dtype=torch.float32,
                            device=dev).contiguous()
+
+
+def against_legacy(name: str, label: str, args: tuple, got, reps: int) -> tuple:
+    """K5 or K8 (``name``) on ``args`` against the first, warp-a-row body
+    (``legacy``): its output must be ``got`` bit for bit, else the script
+    fails; then both bodies timed in turns (legacy, tiled, tiled, legacy).
+    Returns (the tiled body's mean ms, the legacy body's, a line to print)."""
+    launch = getattr(hk, f"_{name}")
+    old = launch(*args, EPS, legacy=True)
+    torch.cuda.synchronize()
+    if not torch.equal(got, old):
+        _fail(f"{name} {label}: the tiled body differs from the legacy body in "
+              f"{int(torch.count_nonzero(got != old))} of {got.numel()} entries (max abs diff "
+              f"{_maxabs(got, old):.3e})")
+    del old
+    turns = [cuda_ms(lambda: launch(*args, EPS, legacy=old_body), reps)
+             for old_body in (True, False, False, True)]
+    ms, legacy_ms = (turns[1] + turns[2]) / 2, (turns[0] + turns[3]) / 2
+    return ms, legacy_ms, (f"tiled body {turns[1]:.4f}, {turns[2]:.4f} ms, legacy body "
+                           f"{turns[0]:.4f}, {turns[3]:.4f} ms (in that order: legacy, tiled, "
+                           f"tiled, legacy): the legacy body's bits")
 
 
 def check_kernels(label: str, X, cfg: dict, dev, results: dict, max_share: float = 1e-4) -> None:
@@ -759,18 +790,19 @@ def check_kernels(label: str, X, cfg: dict, dev, results: dict, max_share: float
                 f"the same bits over five launches; {lib_note}")
     del Gp, Dp
 
-    # K5
+    # K5, held to the warp-a-row body bit for bit
     W = torch.randn((s, K), generator=g, device=dev, dtype=torch.float32)
     got = hk.ell_norm_matmat(w, idx, cscale, W)
     torch.cuda.synchronize()
     ref = hk.ell_norm_matmat_plain(w, idx, cscale, W)
     _allclose(f"ell_norm_matmat {label}", got, ref, 1e-5, 1e-5)
+    ms, _, line = against_legacy("ell_norm_matmat", label, (w, idx, cscale, W), got, reps_k)
     csr = ell_to_csr(hk._normalized(w, idx, cscale, EPS).values, idx, s)
     lib_err = _maxabs(torch.sparse.mm(csr, W), ref)
-    record("ell_norm_matmat", _maxabs(got, ref),
-           cuda_ms(lambda: hk.ell_norm_matmat(w, idx, cscale, W), reps_k),
+    record("ell_norm_matmat", _maxabs(got, ref), ms,
            cuda_ms(lambda: hk.ell_norm_matmat_plain(w, idx, cscale, W), reps_p),
            cuda_ms(lambda: torch.sparse.mm(csr, W), reps_k))
+    rows.append(f"  {label:5s} ell_norm_matmat {line}")
     rows.append(f"  {label:5s} torch.sparse.mm (CSR of the normalized graph) vs plain: "
                 f"max abs diff {lib_err:.3e}")
     print(f"kernels vs plain, {label} shape (n={n}, d={d}, s={s}, r={r}, K={K}), ms per call:")
@@ -1049,15 +1081,17 @@ def check_kernels_t(Xt7, dev, results: dict) -> None:
     if float(torch.max(torch.abs(got[n:]))) != 0.0:
         _fail("ell_norm_matmat_t: a pad row is not zero")
     err = _maxabs(got, ref)
+    ms, _, line = against_legacy("ell_norm_matmat_t", "huge", (w, idx, cscale, W), got, 10)
     del got
     csr = ell_to_csr(col.point_major(hk._normalized_t(w, idx, cscale, EPS), nch * c),
                      col.point_major(idx, nch * c), s)
     lib_err = _maxabs(torch.sparse.mm(csr, W), ref)
     del ref
-    record("ell_norm_matmat_t", err, cuda_ms(lambda: hk.ell_norm_matmat_t(w, idx, cscale, W), 10),
+    record("ell_norm_matmat_t", err, ms,
            cuda_ms(lambda: hk.ell_norm_matmat_t_plain(w, idx, cscale, W), 3),
            f"  (torch.sparse.mm vs plain: max abs diff {lib_err:.3e})",
            library_ms=cuda_ms(lambda: torch.sparse.mm(csr, W), 10))
+    rows.append(f"  huge  ell_norm_matmat_t {line}")
     del idx, w, csr
     print("\n".join(rows), flush=True)
 
@@ -2840,6 +2874,75 @@ def streaming_only(dev) -> None:
     print(card)
 
 
+def extension_only(dev) -> None:
+    """``--extension``: the card, the build, then K5 and K8 (the eigenvector
+    extension) against the warp-a-row body at the shapes the fits launch them at:
+    K5 at the torus, n=1e6 and multiclass shapes, K8 at the n=1e7 chunked
+    shape, each on a graph from K1 and K2 over that fit's data with the
+    cluster-normalized column scale: the same bits (else the script fails),
+    both times in turns, the bound, the plain version, ``torch.sparse.mm``,
+    the bytes a millisecond the tiled body writes and reads and, as the
+    card's write rate, ``zero_()`` of a buffer the output's size."""
+    from flgp_tpu_torch.datasets import mnist_like
+
+    card = card_line()
+    print(f"card: {card}", flush=True)
+    _, build_s = _timed(lambda: (_build.build(), _build.load()))
+    print(f"build: {build_s:.1f} s", flush=True)
+    g = torch.Generator(device=dev).manual_seed(7)
+
+    def row(name, label, args, rows, csr, shape):
+        w, idx, cscale, W = args
+        got = getattr(hk, name)(*args)
+        ms, legacy_ms, line = against_legacy(name, label, args, got, 10)
+        del got
+        plain = getattr(hk, f"{name}_plain")
+        plain_ms = cuda_ms(lambda: plain(*args), 3)
+        lib_ms = cuda_ms(lambda: torch.sparse.mm(csr, W), 10)
+        # the card's write rate: zeros over a buffer the output's size
+        buf = torch.empty((rows, W.shape[1]), dtype=torch.float32, device=dev)
+        zero_ms = cuda_ms(buf.zero_, 10)
+        del buf
+        wk = work(name, n=rows, r=idx.shape[1], s=W.shape[0], K=W.shape[1])
+        b_ms, b_by = bound(wk)
+        print(f"{label:5s} {name} ({shape}): {line}; bound {b_ms:.4f} ms ({b_by}), tiled at "
+              f"{b_ms / ms:.1%} of it ({wk['bytes'] / ms / 1e9:.3f} TB/s), legacy at "
+              f"{b_ms / legacy_ms:.1%}; plain {plain_ms:.4f} ms, torch.sparse.mm {lib_ms:.4f} ms; "
+              f"zero_() of the output's size {zero_ms:.4f} ms "
+              f"({4e-9 * rows * W.shape[1] / zero_ms:.3f} TB/s)", flush=True)
+
+    for label, cfg in (("torus", SHAPES["torus"]), ("large", SHAPES["large"]), ("mnist", MNIST)):
+        data = mnist_like if label == "mnist" else torus_rings
+        X = cloud(data(n=cfg["n"], m_train=cfg["m"], seed=cfg["seed"]), dev)
+        n, s, r, K = X.shape[0], cfg["s"], cfg["r"], cfg["K"]
+        U = X[torch.randperm(n, generator=g, device=dev)[:s]].contiguous()
+        idx = hk.knn(X, U, r).indices
+        w = hk.lae_weights(X, U, idx)
+        counts = torch.bincount(idx[:, 0].long(), minlength=s).to(torch.float32)
+        cscale = (1.0 / (hk.ell_colsum(w, idx, s) + EPS) * counts).contiguous()
+        W = torch.randn((s, K), generator=g, device=dev, dtype=torch.float32)
+        csr = ell_to_csr(hk._normalized(w, idx, cscale, EPS).values, idx, s)
+        row("ell_norm_matmat", label, (w, idx, cscale, W), n, csr,
+            f"n={n}, d={X.shape[1]}, s={s}, r={r}, K={K}")
+        del X, U, idx, w, csr
+
+    cfg = SHAPES["huge"]
+    Xt = feature_major(torus_rings(n=cfg["n"], m_train=cfg["m"], seed=cfg["seed"]), dev)
+    n, s, r, K = Xt.shape[1], cfg["s"], cfg["r"], cfg["K"]
+    U = random_anchors(Xt, s, dev, seed=7)
+    idx, w = col.build_graph_colmajor(Xt, U, r, chunk=cfg["chunk"])
+    del Xt
+    nch, _, c = w.shape
+    counts = torch.bincount(col.point_major(idx, n)[:, 0].long(), minlength=s).to(torch.float32)
+    cscale = (1.0 / (hk.ell_colsum_t(w, idx, s) + EPS) * counts).contiguous()
+    W = torch.randn((s, K), generator=g, device=dev, dtype=torch.float32)
+    csr = ell_to_csr(col.point_major(hk._normalized_t(w, idx, cscale, EPS), nch * c),
+                     col.point_major(idx, nch * c), s)
+    row("ell_norm_matmat_t", "huge", (w, idx, cscale, W), nch * c, csr,
+        f"nch={nch}, r={r}, c={c}, s={s}, K={K}, {nch * c - n} pad points")
+    print(card)
+
+
 def subsample_stage_times(dev, calls: int = 4) -> None:
     """The n=1e6 subsample stage alone, ``calls`` times from one seed: the
     times, and whether every call gave the first one's anchors."""
@@ -3028,7 +3131,8 @@ def main() -> None:
 if __name__ == "__main__":
     if len(sys.argv) == 3 and sys.argv[1] == "--sass":
         print_sass(Path(sys.argv[2]))      # K2's step count of any build of the library
-    elif sys.argv[1:] in (["--subsample-times"], ["--sampling"], ["--streaming"]):
+    elif sys.argv[1:] in (["--subsample-times"], ["--sampling"], ["--streaming"],
+                          ["--extension"]):
         if not torch.cuda.is_available():
             _fail("torch.cuda.is_available() is false: this smoke test needs an NVIDIA GPU")
         pin_full_precision()
@@ -3036,6 +3140,8 @@ if __name__ == "__main__":
             sampling_only(torch.device("cuda", 0))
         elif sys.argv[1] == "--streaming":
             streaming_only(torch.device("cuda", 0))
+        elif sys.argv[1] == "--extension":
+            extension_only(torch.device("cuda", 0))
         else:
             print(f"card: {card_line()}", flush=True)
             subsample_stage_times(torch.device("cuda", 0))

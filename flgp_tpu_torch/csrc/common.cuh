@@ -3,10 +3,21 @@
 // template parameter; the C entry points switch on it with this list.
 #pragma once
 
+#include <cuda_runtime.h>
+
 #include <cstddef>
 
 #define FLGP_R_CASES(X) \
   X(1) X(2) X(3) X(4) X(5) X(6) X(7) X(8) X(9) X(10) X(11) X(12) X(13) X(14) X(15) X(16)
+
+// The current device's SM count, for the grids of one block an SM and the
+// persistent grids.
+inline cudaError_t sm_count(int* sms) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  return err;
+}
 
 // Row-normalized weights of one point of an ELL graph whose R entries sit at
 // base, base + stride, ..., base + (R-1)*stride: stride 1 for the point-major

@@ -1,74 +1,275 @@
-// K5: the eigenvector extension on the point-major (n, r) ELL layout.
+// K5 and K8: the eigenvector extension Zn @ W, one body for both layouts.
 //
-// Replaces the TPU kernel in flgp_tpu/ops/pallas_kernels.py:
-//   K5 ell_norm_matmat  (_ell_norm_matmat_kernel) Zn @ W
+// Replaces the TPU kernels in flgp_tpu/ops/pallas_kernels.py:
+//   K5 ell_norm_matmat    (_ell_norm_matmat_kernel)   Zn @ W, (n, r) layout
+//   K8 ell_norm_matmat_t  (_ell_norm_matmat_t_kernel) Zn @ W, chunked (nch, r, c)
+//                                                     layout, point-major (nch*c, K)
 // with Zn = rownorm(Z diag(cscale)): w1 = w * cscale[idx], wn = w1 / (sum w1 + eps)
-// (normalized_point, common.cuh, shared with K4 and K6-K8 in ell_t.cu; K3
-// and K4 run through the bodies of K6 and K7 there, as the chunked layout
-// with c = 1).
+// (normalized_point, common.cuh, shared with K4 and K7 in ell_t.cu).  K5 is
+// the chunked layout with nch = n, c = 1, as K3 and K4 run K6's and K7's
+// bodies.  Entry (i, k, j) of the chunked layout is the k-th neighbour of
+// point i*c + j; pad points (past the real n, in the last chunk) carry zero
+// weights and get rows of exact zeros.
 //
-// What bounds it on the H100: the (n, K) output writes and the gathered
-// reads of W rows (r * K floats per row, L2-resident for s * K <= a few MB);
-// the compact graph is 8 bytes per nonzero (24 MB at n = 1e6, r = 3).
+// What bounds it on the H100: the (n, K) float32 output, written once
+// (5.12 GB at n = 1e7, K = 128; 512 MB at n = 1e6): 1.53 ms and 0.153 ms at
+// 3.35 TB/s.  The compact graph is 8 bytes a nonzero (240 MB and 24 MB at
+// r = 3).  W (s * K floats, 0.5 MB at s = 1024) is gathered r times an
+// output row, from L1 and L2, never from device memory more than once.
 //
-// Design: the TPU kernel recast the gather as a one-hot matmul because
-// Mosaic has none; Hopper gathers natively, so one warp per row: every lane
-// recomputes the row's r normalized weights, lanes stride the K output
-// columns, so the W reads and the output writes of a warp are contiguous.
+// Design.  The TPU kernel recast the gather as a one-hot matmul because
+// Mosaic has none; Hopper gathers natively.  The first body (kept as the
+// `legacy` body below) ran one warp a row with every lane redoing the
+// row's normalization and 4-byte accesses; it wrote 5.13 GB at about
+// 1.7 TB/s.  What held it back, and what this body does about it:
+//   1. One warp a row, one row a warp: each warp's life was one dependent
+//      chain (graph loads, cscale gathers, divide, W gathers, store) for
+//      400-512 bytes of output.  Here a warp takes a tile of 32 points and
+//      walks their 32 output rows (12.8-16 KB), kU items a lane in flight at
+//      once, and the grid is persistent (the SM count times the resident
+//      blocks, four an SM up to r = 8) and walks the tiles.  Where the tiles
+//      are too few to give every resident warp two (n = 4800, 7e4), `split`
+//      warps share a tile's output, each normalizing its 32 points itself.
+//   2. All 32 lanes redid normalized_point: here a lane normalizes its own
+//      point (unchanged normalized_point<R>, so the weights are the same
+//      floats) and writes the (weight, anchor) pairs to shared memory; the
+//      row walk reads them back, a broadcast where lanes share a row.
+//   3. 4-byte accesses, 78% of the lanes busy in the last pass at K = 100:
+//      here a lane takes 16-byte pieces (float4 gathers of W rows, float4
+//      stores) of the tile's flattened (row, piece) range, so every lane
+//      works at any K (K = 100: 25 pieces a row, 800 a tile).  When
+//      K % 4 != 0 or W or out is not 16-byte aligned, the same body runs
+//      with 4-byte pieces.
+//   4. The chunked layout's points are consecutive addresses: here a lane
+//      loads its own point's R (value, index) pairs, so a warp's loads are
+//      coalesced along c (and contiguous in the (n, r) layout).
+//   5. The output streamed through L2 with the default policy, competing
+//      with the W rows every row gathers: here every store is evict-first
+//      (st.global.cs, __stcs); plain stores were slower.
+// Four blocks an SM of 256 threads beat two with twice the items in flight
+// a lane, and more gathers in flight did not help: the W rows hit in L1 and
+// L2 whatever their order.  What is left between the body and its bound at
+// n = 1e7 is the graph's reads interleaved with the output's writes;
+// staging the next tile's graph early (cp.async, an L2 prefetch) did not
+// shorten it, nor did one block sweeping a contiguous range.
+// The sum is the old body's, in the same order: for each output element
+// acc = 0, then acc = fmaf(w[a], W[c[a]][k], acc) for a = 0..R-1, skipping
+// an entry with c[a] < 0.  So the output is the legacy body's bit for bit.
 // No atomics: deterministic.  Indices outside [0, s) contribute nothing
 // (knn never produces them; the guard keeps a bad input from reading out of
 // bounds), nor do zero weights.
 
 #include <cuda_runtime.h>
 
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kTile = 32;            // points a tile: one lane each
+constexpr int kWarps = 8;            // a block of 256 threads
+constexpr int kThreads = kWarps * 32;
+constexpr int kMaxSplit = 16;        // warps that may share one tile's output
+constexpr int kJobsPerWarp = 2;      // split until the jobs are this many times the warps
+
+struct Weighted {
+  float w;
+  int c;
+};
+
+__device__ __forceinline__ float4 fma_piece(float w, float4 g, float4 acc) {
+  return make_float4(fmaf(w, g.x, acc.x), fmaf(w, g.y, acc.y), fmaf(w, g.z, acc.z),
+                     fmaf(w, g.w, acc.w));
+}
+__device__ __forceinline__ float fma_piece(float w, float g, float acc) { return fmaf(w, g, acc); }
+
+template <class V>
+__device__ __forceinline__ V zero_piece() {
+  if constexpr (std::is_same<V, float4>::value) {
+    return make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  } else {
+    return 0.0f;
+  }
+}
+
+// One warp a job: job = tile * split + part.  The warp normalizes the
+// tile's 32 points (a lane each) into shared memory, then its lanes take
+// items part*32 + lane, + 32*split, ... of the tile's rows * pieces items in
+// row-major order, kU at a time: item t is piece t % pieces of row
+// t / pieces, and its output is the t-th piece of the tile's contiguous
+// output block.  V = float4 (16-byte pieces, K % 4 == 0 and W, out aligned)
+// or float.
+template <int R, class V>
+__global__ void __launch_bounds__(kThreads, R <= 8 ? 4 : 2)
+ell_norm_matmat_tiles_kernel(const float* __restrict__ vals, const int* __restrict__ idx,
+                             const float* __restrict__ cscale, const float* __restrict__ W,
+                             long long npts, int c, int s, int K, float eps, int split,
+                             float* __restrict__ out) {
+  // items a lane has in flight: R * kU gathers, at most 8 within the 64
+  // registers of four blocks an SM (r <= 8; two blocks above)
+  constexpr int kU = R <= 4 ? 2 : 1;
+  __shared__ Weighted pairs[kWarps][R][kTile];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  Weighted(&mine)[R][kTile] = pairs[warp];
+  const int pieces = K / static_cast<int>(sizeof(V) / sizeof(float));
+  const V* __restrict__ Wv = reinterpret_cast<const V*>(W);
+  V* __restrict__ outv = reinterpret_cast<V*>(out);
+  const long long jobs = (npts + kTile - 1) / kTile * split;
+  // a lane's next item is step items on: drow rows and dpiece pieces
+  const int step = kTile * split;
+  const int drow = step / pieces, dpiece = step % pieces;
+  for (long long job = static_cast<long long>(blockIdx.x) * kWarps + warp; job < jobs;
+       job += static_cast<long long>(gridDim.x) * kWarps) {
+    const long long tile = job / split;
+    const int part = static_cast<int>(job - tile * split);
+    const long long p0 = tile * kTile;
+    const long long p = p0 + lane;
+    int col[R];
+    float w[R];
+    if (p < npts) {
+      const size_t base = c == 1 ? static_cast<size_t>(p) * R
+                                 : static_cast<size_t>(p / c) * R * c + static_cast<size_t>(p % c);
+      normalized_point<R>(vals, idx, cscale, base, c, s, eps, col, w);
+    } else {
+#pragma unroll
+      for (int a = 0; a < R; ++a) {
+        col[a] = -1;
+        w[a] = 0.0f;
+      }
+    }
+    __syncwarp();   // the last job's reads of the pairs are done
+#pragma unroll
+    for (int a = 0; a < R; ++a) mine[a][lane] = Weighted{w[a], col[a]};
+    __syncwarp();
+
+    const int rows = static_cast<int>(min(static_cast<long long>(kTile), npts - p0));
+    V* __restrict__ otile = outv + static_cast<size_t>(p0) * pieces;
+    const int t0 = part * kTile + lane;
+    int row = t0 / pieces, piece = t0 - row * pieces;
+    while (row < rows) {
+      int rr[kU], pc[kU];
+#pragma unroll
+      for (int u = 0; u < kU; ++u) {
+        rr[u] = row;
+        pc[u] = piece;
+        row += drow;
+        piece += dpiece;
+        if (piece >= pieces) {
+          piece -= pieces;
+          ++row;
+        }
+      }
+      Weighted e[kU][R];
+      V g[kU][R];
+#pragma unroll
+      for (int u = 0; u < kU; ++u) {
+#pragma unroll
+        for (int a = 0; a < R; ++a) {
+          e[u][a] = rr[u] < rows ? mine[a][rr[u]] : Weighted{0.0f, -1};
+          g[u][a] = e[u][a].c >= 0
+                        ? __ldg(Wv + static_cast<size_t>(e[u][a].c) * pieces + pc[u])
+                        : zero_piece<V>();
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kU; ++u) {
+        if (rr[u] >= rows) continue;
+        V acc = zero_piece<V>();
+#pragma unroll
+        for (int a = 0; a < R; ++a) {
+          if (e[u][a].c >= 0) acc = fma_piece(e[u][a].w, g[u][a], acc);
+        }
+        __stcs(otile + rr[u] * pieces + pc[u], acc);
+      }
+    }
+  }
+}
+
+template <int R, class V>
+cudaError_t launch_tiles(const float* v, const int* ii, const float* cs, const float* w,
+                         long long npts, int c, int s, int K, float eps, float* o,
+                         cudaStream_t st) {
+  const auto kernel = ell_norm_matmat_tiles_kernel<R, V>;
+  int sms = 0, per_sm = 0;
+  cudaError_t err = sm_count(&sms);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, 0);
+  if (err != cudaSuccess) return err;
+  const long long resident = static_cast<long long>(sms) * per_sm;   // blocks at once
+  const long long tiles = (npts + kTile - 1) / kTile;
+  const int pieces = K / static_cast<int>(sizeof(V) / sizeof(float));
+  // share a tile among warps only while the tiles cannot give every
+  // resident warp kJobsPerWarp jobs, and never below a piece a lane
+  int split = 1;
+  while (split < kMaxSplit && split < pieces &&
+         tiles * split < kJobsPerWarp * resident * kWarps)
+    ++split;
+  const long long jobs = tiles * split;
+  long long blocks = (jobs + kWarps - 1) / kWarps;
+  if (blocks > resident) blocks = resident;
+  kernel<<<static_cast<unsigned>(blocks), kThreads, 0, st>>>(v, ii, cs, w, npts, c, s, K, eps,
+                                                             split, o);
+  return cudaGetLastError();
+}
 
 template <int R>
-__global__ void ell_norm_matmat_kernel(const float* __restrict__ vals,
-                                       const int* __restrict__ idx,
-                                       const float* __restrict__ cscale,
-                                       const float* __restrict__ W, int n, int s, int K,
-                                       float eps, float* __restrict__ out) {
-  const long long warp = (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
+cudaError_t launch_tiles_r(const float* v, const int* ii, const float* cs, const float* w,
+                           long long npts, int c, int s, int K, float eps, float* o,
+                           cudaStream_t st) {
+  const bool vec = K % 4 == 0 && reinterpret_cast<size_t>(w) % 16 == 0 &&
+                   reinterpret_cast<size_t>(o) % 16 == 0;
+  return vec ? launch_tiles<R, float4>(v, ii, cs, w, npts, c, s, K, eps, o, st)
+             : launch_tiles<R, float>(v, ii, cs, w, npts, c, s, K, eps, o, st);
+}
+
+// The first body, kept only as the new body's bit oracle (the `legacy` entry
+// points below, reached from the tests and chip_smoke.py): one warp a
+// point, every lane normalizing it, lanes striding the K columns.
+template <int R>
+__global__ void ell_norm_matmat_legacy_kernel(const float* __restrict__ vals,
+                                              const int* __restrict__ idx,
+                                              const float* __restrict__ cscale,
+                                              const float* __restrict__ W, long long npts, int c,
+                                              int s, int K, float eps, float* __restrict__ out) {
+  const long long p = (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
-  if (warp >= n) return;
-  const int row = static_cast<int>(warp);
-  int c[R];
+  if (p >= npts) return;
+  const size_t base = c == 1 ? static_cast<size_t>(p) * R
+                             : static_cast<size_t>(p / c) * R * c + static_cast<size_t>(p % c);
+  int col[R];
   float w[R];
-  normalized_point<R>(vals, idx, cscale, static_cast<size_t>(row) * R, 1, s, eps, c, w);
+  normalized_point<R>(vals, idx, cscale, base, c, s, eps, col, w);
+  float* orow = out + static_cast<size_t>(p) * K;
   for (int k = lane; k < K; k += 32) {
     float acc = 0.0f;
 #pragma unroll
     for (int a = 0; a < R; ++a) {
-      if (c[a] >= 0) acc = fmaf(w[a], W[static_cast<size_t>(c[a]) * K + k], acc);
+      if (col[a] >= 0) acc = fmaf(w[a], W[static_cast<size_t>(col[a]) * K + k], acc);
     }
-    out[static_cast<size_t>(row) * K + k] = acc;
+    orow[k] = acc;
   }
 }
 
-}  // namespace
-
-// vals, idx (n, r); cscale (s,); W (s, K) -> out (n, K).
-extern "C" int flgp_ell_norm_matmat(const void* vals, const void* idx, const void* cscale,
-                                    const void* W, int n, int r, int s, int K, float eps,
-                                    void* out, void* stream) {
-  if (n <= 0) return static_cast<int>(cudaSuccess);
-  const int rows_per_block = kThreads / 32;
-  const dim3 grid((n + rows_per_block - 1) / rows_per_block);
+int matmat(const void* vals, const void* idx, const void* cscale, const void* W, long long npts,
+           int r, int c, int s, int K, float eps, void* out, void* stream, bool legacy) {
+  if (npts <= 0 || K <= 0) return static_cast<int>(cudaSuccess);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* v = static_cast<const float*>(vals);
   const int* ii = static_cast<const int*>(idx);
   const float* cs = static_cast<const float*>(cscale);
   const float* w = static_cast<const float*>(W);
   float* o = static_cast<float*>(out);
+  const long long pts_per_block = 256 / 32;
+  const dim3 grid(static_cast<unsigned>((npts + pts_per_block - 1) / pts_per_block));
   switch (r) {
-#define FLGP_MATMAT_CASE(R)                                                              \
-  case R:                                                                                \
-    ell_norm_matmat_kernel<R><<<grid, kThreads, 0, st>>>(v, ii, cs, w, n, s, K, eps, o); \
+#define FLGP_MATMAT_CASE(R)                                                                  \
+  case R:                                                                                    \
+    if (!legacy) return static_cast<int>(launch_tiles_r<R>(v, ii, cs, w, npts, c, s, K, eps, \
+                                                           o, st));                          \
+    ell_norm_matmat_legacy_kernel<R><<<grid, 256, 0, st>>>(v, ii, cs, w, npts, c, s, K, eps, \
+                                                           o);                               \
     break;
     FLGP_R_CASES(FLGP_MATMAT_CASE)
 #undef FLGP_MATMAT_CASE
@@ -76,4 +277,36 @@ extern "C" int flgp_ell_norm_matmat(const void* vals, const void* idx, const voi
       return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// K5: vals, idx (n, r); cscale (s,); W (s, K) -> out (n, K).
+extern "C" int flgp_ell_norm_matmat(const void* vals, const void* idx, const void* cscale,
+                                    const void* W, int n, int r, int s, int K, float eps,
+                                    void* out, void* stream) {
+  return matmat(vals, idx, cscale, W, n, r, 1, s, K, eps, out, stream, false);
+}
+
+// K8: vals, idx (nch, r, c); cscale (s,); W (s, K) -> out (nch * c, K).
+extern "C" int flgp_ell_norm_matmat_t(const void* vals, const void* idx, const void* cscale,
+                                      const void* W, int nch, int r, int c, int s, int K,
+                                      float eps, void* out, void* stream) {
+  return matmat(vals, idx, cscale, W, static_cast<long long>(nch) * c, r, c, s, K, eps, out,
+                stream, false);
+}
+
+// The same two with the first body, for comparison only.
+extern "C" int flgp_ell_norm_matmat_legacy(const void* vals, const void* idx, const void* cscale,
+                                           const void* W, int n, int r, int s, int K, float eps,
+                                           void* out, void* stream) {
+  return matmat(vals, idx, cscale, W, n, r, 1, s, K, eps, out, stream, true);
+}
+
+extern "C" int flgp_ell_norm_matmat_t_legacy(const void* vals, const void* idx,
+                                             const void* cscale, const void* W, int nch, int r,
+                                             int c, int s, int K, float eps, void* out,
+                                             void* stream) {
+  return matmat(vals, idx, cscale, W, static_cast<long long>(nch) * c, r, c, s, K, eps, out,
+                stream, true);
 }

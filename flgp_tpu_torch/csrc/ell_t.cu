@@ -1,18 +1,19 @@
-// K3, K4 and K6-K8: the spectral-stage graph tail.  K6-K8 run on the
-// chunked feature-major (nch, r, c) ELL layout of the huge-n path
-// (ops/colmajor.py), K3 and K4 on the point-major (n, r) layout of the main
-// path through the same bodies: (n, r) is the chunked layout with nch = n,
-// c = 1.
+// K3, K4, K6 and K7: the spectral-stage graph tail before the eigenvector
+// extension.  K6 and K7 run on the chunked feature-major (nch, r, c) ELL
+// layout of the huge-n path (ops/colmajor.py), K3 and K4 on the point-major
+// (n, r) layout of the main path through the same bodies: (n, r) is the
+// chunked layout with nch = n, c = 1.
 //
 // Replaces the TPU kernels in flgp_tpu/ops/pallas_kernels.py:
 //   K3 ell_colsum         (_ell_colsum_kernel)        C = colsum(Z)
 //   K4 ell_norm_gram      (_ell_norm_gram_kernel)     G = Zn^T Zn, D = colsum(Zn)
 //   K6 ell_colsum_t       (_ell_colsum_t_kernel)      C = colsum(Z)
 //   K7 ell_norm_gram_t    (_ell_norm_gram_t_kernel)   G = Zn^T Zn, D = colsum(Zn)
-//   K8 ell_norm_matmat_t  (_ell_norm_matmat_t_kernel) Zn @ W, point-major (nch*c, K)
 // with Zn = rownorm(Z diag(cscale)): w1 = w * cscale[idx],
-// wn = w1 / (sum w1 + eps) (normalized_point, common.cuh; K5, the
-// point-major Zn @ W, is in ell.cu).  Entry (i, k, j) of the chunked layout
+// wn = w1 / (sum w1 + eps) (normalized_point, common.cuh).  K8, Zn @ W on
+// the chunked layout, shares one body with K5 in ell.cu: its output writes
+// (5.13 GB at n = 1e7) bound it, and that body keeps them streaming from
+// every SM, 16 bytes a store.  Entry (i, k, j) of the chunked layout
 // is the k-th neighbour of point i*c + j; pad points (past the real n, in the
 // last chunk) carry zero weights and add nothing.
 //
@@ -32,8 +33,7 @@
 // the amount a bin would have taken, so every sum is exact and C, G and D
 // are the same bits from run to run, whatever the grid, the table's size or
 // s (see common.cuh for the bound).  The wrappers round the float64 buffers
-// to float32 once.  K8 is bound by its 5.13 GB of output writes at n = 1e7
-// and the gathered W rows (s * K floats, L2-resident).
+// to float32 once.
 //
 // Design: a thread walks entries (column sums) or points (the Gram), so a
 // warp's loads are contiguous in both layouts: the chunked layout keeps the
@@ -64,8 +64,6 @@
 //       itself, so the result is right for any graph, s and table size; the
 //       kernel counts both kinds for the caller.  The float64 buffer is
 //       8 s^2 bytes: 8 MB at s = 1024, 1.2 GB at s = 12288.
-//   K8: one warp per point, lanes over K, as K5 does; every output offset
-//       is size_t (nch * c * K = 1.28e9 at n = 1e7, within 1.7x of 2^31).
 
 #include <cuda_runtime.h>
 
@@ -73,7 +71,6 @@
 
 namespace {
 
-constexpr int kThreads = 256;
 constexpr int kMaxSmemBins = 12288;  // 48 KB of fixed-point bins
 constexpr int kColsumThreads = 1024; // K3/K6: one block an SM
 constexpr int kColsumLoads = 4;      // entries a thread loads before it adds them
@@ -224,37 +221,6 @@ ell_norm_gram_t_kernel(const float* __restrict__ vals, const int* __restrict__ i
   }
 }
 
-template <int R>
-__global__ void ell_norm_matmat_t_kernel(const float* __restrict__ vals,
-                                         const int* __restrict__ idx,
-                                         const float* __restrict__ cscale,
-                                         const float* __restrict__ W, long long npts, int c,
-                                         int s, int K, float eps, float* __restrict__ out) {
-  const long long p = (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
-  if (p >= npts) return;
-  const size_t base = static_cast<size_t>(p / c) * R * c + static_cast<size_t>(p % c);
-  int col[R];
-  float w[R];
-  normalized_point<R>(vals, idx, cscale, base, c, s, eps, col, w);
-  float* orow = out + static_cast<size_t>(p) * K;
-  for (int k = lane; k < K; k += 32) {
-    float acc = 0.0f;
-#pragma unroll
-    for (int a = 0; a < R; ++a) {
-      if (col[a] >= 0) acc = fmaf(w[a], W[static_cast<size_t>(col[a]) * K + k], acc);
-    }
-    orow[k] = acc;
-  }
-}
-
-cudaError_t sm_count(int* sms) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
-  return err;
-}
-
 }  // namespace
 
 // vals, idx: nnz entries (f32, i32), the (n, r) or (nch, r, c) layout
@@ -316,34 +282,6 @@ extern "C" int flgp_ell_norm_gram_t(const void* vals, const void* idx, const voi
     break;
     FLGP_R_CASES(FLGP_GRAM_T_CASE)
 #undef FLGP_GRAM_T_CASE
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
-// vals, idx (nch, r, c); cscale (s,); W (s, K) -> out (nch * c, K).
-extern "C" int flgp_ell_norm_matmat_t(const void* vals, const void* idx, const void* cscale,
-                                      const void* W, int nch, int r, int c, int s, int K,
-                                      float eps, void* out, void* stream) {
-  const long long npts = static_cast<long long>(nch) * c;
-  if (npts <= 0) return static_cast<int>(cudaSuccess);
-  const long long pts_per_block = kThreads / 32;
-  const dim3 grid(static_cast<unsigned>((npts + pts_per_block - 1) / pts_per_block));
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float* v = static_cast<const float*>(vals);
-  const int* ii = static_cast<const int*>(idx);
-  const float* cs = static_cast<const float*>(cscale);
-  const float* w = static_cast<const float*>(W);
-  float* o = static_cast<float*>(out);
-  switch (r) {
-#define FLGP_MATMAT_T_CASE(R)                                                                  \
-  case R:                                                                                      \
-    ell_norm_matmat_t_kernel<R><<<grid, kThreads, 0, st>>>(v, ii, cs, w, npts, c, s, K, eps,  \
-                                                           o);                                 \
-    break;
-    FLGP_R_CASES(FLGP_MATMAT_T_CASE)
-#undef FLGP_MATMAT_T_CASE
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

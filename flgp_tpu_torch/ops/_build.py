@@ -40,6 +40,9 @@ _SIGNATURES = {
     "flgp_ell_colsum_t": [_P, _P, _L, _I, _P, _P],
     "flgp_ell_norm_gram_t": [_P, _P, _P, _I, _I, _I, _I, ctypes.c_float, _I, _P, _P, _P, _P],
     "flgp_ell_norm_matmat_t": [_P, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_float, _P, _P],
+    "flgp_ell_norm_matmat_legacy": [_P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_float, _P, _P],
+    "flgp_ell_norm_matmat_t_legacy": [_P, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_float, _P,
+                                      _P],
     "flgp_ell_matmat": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P],
     "flgp_ell_sym_matmat": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
 }

@@ -4,16 +4,16 @@ operator product ``ell_sym_matmat``, with their plain versions.
 K1 ``knn`` (csrc/knn.cu), K2 ``lae_weights`` (csrc/lae.cu), K3–K5
 ``ell_colsum``, ``ell_norm_gram``, ``ell_norm_matmat``, their chunked
 feature-major variants K6–K8 ``ell_colsum_t``, ``ell_norm_gram_t``,
-``ell_norm_matmat_t`` (csrc/ell_t.cu; K5 in csrc/ell.cu) and K9
+``ell_norm_matmat_t`` (csrc/ell_t.cu; K5 and K8 in csrc/ell.cu) and K9
 ``ell_matmat`` (csrc/ell_matmat.cu) replace the TPU kernels of the same
 names in flgp_tpu/ops/pallas_kernels.py (K2: ``fused_lae_tiles``, with the
-Gram assembly that feeds it).  K3 and K4 launch the bodies of K6 and K7 on
-the point-major (n, r) layout, which is the chunked one with c = 1; their
-sums are exact (fixed point in shared memory, float64 across blocks), so
-C, Ĝ and D are the same bits on every launch.  ``ell_sym_matmat``
-(csrc/ell_matmat.cu) is K9's gather applied to a graph and to its
-transpose in one launch: the product (Z + Zᵀ)·X of the sparse GLGP
-operator.
+Gram assembly that feeds it).  K3, K4 and K5 launch the bodies of K6, K7
+and K8 on the point-major (n, r) layout, which is the chunked one with
+c = 1; K3's and K4's sums are exact (fixed point in shared memory, float64
+across blocks), so C, Ĝ and D are the same bits on every launch.
+``ell_sym_matmat`` (csrc/ell_matmat.cu) is K9's gather applied to a graph
+and to its transpose in one launch: the product (Z + Zᵀ)·X of the sparse
+GLGP operator.
 
 Each wrapper takes its plain PyTorch version for tensors on the CPU, and only
 then.  For CUDA tensors it checks device, dtype (float32 values, int32
@@ -26,7 +26,7 @@ wrappers: the callers (``ops.knn``, ``ops.lae``, ``ops.spectrum``,
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -368,17 +368,38 @@ def ell_norm_matmat(values: torch.Tensor, indices: torch.Tensor, cscale: torch.T
     """rownorm(Z·diag(cscale)) @ W (K5), shape (n, K)."""
     if values.device.type == "cpu":
         return ell_norm_matmat_plain(values, indices, cscale, W, eps)
+    return _ell_norm_matmat(values, indices, cscale, W, eps)
+
+
+def _ell_norm_matmat(values: torch.Tensor, indices: torch.Tensor, cscale: torch.Tensor,
+                     W: torch.Tensor, eps: float, legacy: bool = False,
+                     out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K5 on CUDA tensors: K8's body on the (n, r) layout (c = 1).
+    ``legacy`` takes the first, warp-a-row body instead, the new body's bit
+    oracle, for the tests and chip_smoke.py only; ``out`` an (n, K) float32
+    buffer to write into (the tests pass one that is not 16-byte aligned)."""
     n, r = values.shape
-    s, K = W.shape
-    _check_fan_in(r)
     _check("values", values, torch.float32, (n, r), values.device)
     _check("indices", indices, torch.int32, (n, r), values.device)
+    lib = _build.load()
+    fn = lib.flgp_ell_norm_matmat_legacy if legacy else lib.flgp_ell_norm_matmat
+    return _matmat("ell_norm_matmat", fn, (n, r), values, indices, cscale, W, eps, out, n, r)
+
+
+def _matmat(name: str, fn, shape: tuple, values: torch.Tensor, indices: torch.Tensor,
+            cscale: torch.Tensor, W: torch.Tensor, eps: float, out: Optional[torch.Tensor],
+            rows: int, r: int) -> torch.Tensor:
+    """K5 and K8: one launch of ``fn`` (the graph's ``shape`` after the four
+    pointers) into ``out``, (rows, K), allocated when None."""
+    s, K = W.shape
+    _check_fan_in(r)
     _check("cscale", cscale, torch.float32, (s,), values.device)
     _check("W", W, torch.float32, (s, K), values.device)
-    out = torch.empty((n, K), dtype=torch.float32, device=values.device)
-    _launch("ell_norm_matmat", values.device, _build.load().flgp_ell_norm_matmat,
-            values.data_ptr(), indices.data_ptr(), cscale.data_ptr(), W.data_ptr(), n, r, s, K,
-            float(eps), out.data_ptr())
+    if out is None:
+        out = torch.empty((rows, K), dtype=torch.float32, device=values.device)
+    _check("out", out, torch.float32, (rows, K), values.device)
+    _launch(name, values.device, fn, values.data_ptr(), indices.data_ptr(), cscale.data_ptr(),
+            W.data_ptr(), *shape, s, K, float(eps), out.data_ptr())
     return out
 
 
@@ -468,16 +489,18 @@ def ell_norm_matmat_t(values: torch.Tensor, indices: torch.Tensor, cscale: torch
     (nch·c, K); the caller slices off the pad rows."""
     if values.device.type == "cpu":
         return ell_norm_matmat_t_plain(values, indices, cscale, W, eps)
+    return _ell_norm_matmat_t(values, indices, cscale, W, eps)
+
+
+def _ell_norm_matmat_t(values: torch.Tensor, indices: torch.Tensor, cscale: torch.Tensor,
+                       W: torch.Tensor, eps: float, legacy: bool = False,
+                       out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K8 on CUDA tensors; ``legacy`` and ``out`` as in ``_ell_norm_matmat``."""
     nch, r, c = _check_t(values, indices)
-    s, K = W.shape
-    _check_fan_in(r)
-    _check("cscale", cscale, torch.float32, (s,), values.device)
-    _check("W", W, torch.float32, (s, K), values.device)
-    out = torch.empty((nch * c, K), dtype=torch.float32, device=values.device)
-    _launch("ell_norm_matmat_t", values.device, _build.load().flgp_ell_norm_matmat_t,
-            values.data_ptr(), indices.data_ptr(), cscale.data_ptr(), W.data_ptr(), nch, r, c, s,
-            K, float(eps), out.data_ptr())
-    return out
+    lib = _build.load()
+    fn = lib.flgp_ell_norm_matmat_t_legacy if legacy else lib.flgp_ell_norm_matmat_t
+    return _matmat("ell_norm_matmat_t", fn, (nch, r, c), values, indices, cscale, W, eps, out,
+                   nch * c, r)
 
 
 # ---------------------------------------------------------------------------

@@ -435,6 +435,77 @@ def test_ell_t_kernels_match_plain(dev, gen, r, s):
     assert float(torch.max(torch.abs(out[-333:]))) == 0.0            # pad rows
 
 
+def _misaligned(t):
+    """A contiguous copy of t whose storage starts one float in: its data
+    pointer is not 16-byte aligned."""
+    buf = t.new_empty((t.numel() + 1,))
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    assert out.is_contiguous() and out.data_ptr() % 16 != 0
+    return out
+
+
+@pytest.mark.parametrize("case", ["point-major", "few-points", "many-tiles", "chunked",
+                                  "misaligned"])
+@pytest.mark.parametrize("K", [1, 3, 40, 100, 128, 130])
+@pytest.mark.parametrize("r", [1, 3, 5, 16])
+def test_ell_norm_matmat_body_is_the_legacy_body_bit_for_bit(dev, gen, r, K, case):
+    """K5 and K8's tiled body against the first, warp-a-row body (``legacy``):
+    the same bits (``torch.equal``) at K % 4 == 0 (16-byte pieces) and not,
+    on a ragged n (4001, 5 points, and 70,001, where warps walk several
+    tiles), on the chunked layout with c = 999 (tiles straddle chunks) and a
+    zero-weight pad tail, with a W and an output that are not 16-byte
+    aligned (the 4-byte pieces); duplicate anchors in a row, out-of-range
+    indices and a point with no weight, whose row and the pad rows must be
+    exact zeros."""
+    from flgp_tpu_torch.config import EPS
+    from flgp_tpu_torch.ops import hopper_kernels as hk
+
+    s, nan = 300, float("nan")
+    n = {"few-points": 5, "many-tiles": 70_001}.get(case, 4001)
+    vals = gen.uniform(0.1, 1.0, size=(n, r))
+    idx = gen.integers(0, s, size=(n, r))
+    if r > 1:
+        idx[::3, 1] = idx[::3, 0]                          # one anchor twice in a row
+    idx[0, 0] = s                                          # out of range, both sides
+    idx[n - 1, r - 1] = -7
+    vals[n // 2] = 0.0                                     # no weight: a row of zeros
+    v, i = _cuda(vals, dev), _cuda(idx, dev, torch.int32)
+    cs = _cuda(gen.uniform(0.5, 2.0, size=s), dev)
+    W = _cuda(gen.normal(size=(s, K)), dev)
+    before = hk.LAUNCHES["ell_norm_matmat"]
+    if case == "chunked":
+        c = 999
+        vt, it = _chunked(v, c), _chunked(i, c)
+        got = hk._ell_norm_matmat_t(vt, it, cs, W, EPS)
+        old = hk._ell_norm_matmat_t(vt, it, cs, W, EPS, legacy=True)
+        torch.cuda.synchronize()
+        assert got.shape == (vt.shape[0] * c, K)
+        assert float(torch.max(torch.abs(got[n:]))) == 0.0           # pad rows
+    elif case == "misaligned":
+        Wm = _misaligned(W)
+        got = hk._ell_norm_matmat(v, i, cs, Wm, EPS, out=_misaligned(W.new_full((n, K), nan)))
+        old = hk._ell_norm_matmat(v, i, cs, W, EPS, legacy=True)
+        c = 1000
+        vt, it = _chunked(v, c), _chunked(i, c)
+        got_t = hk._ell_norm_matmat_t(vt, it, cs, Wm, EPS,
+                                      out=_misaligned(W.new_full((vt.shape[0] * c, K), nan)))
+        old_t = hk._ell_norm_matmat_t(vt, it, cs, W, EPS, legacy=True)
+        torch.cuda.synchronize()
+        assert got.data_ptr() % 16 != 0
+        assert torch.equal(got_t, old_t) and not bool(torch.any(torch.isnan(got_t)))
+        assert torch.equal(got_t[:n], old)                  # the two layouts agree too
+    else:
+        got = hk._ell_norm_matmat(v, i, cs, W, EPS)
+        old = hk._ell_norm_matmat(v, i, cs, W, EPS, legacy=True)
+        torch.cuda.synchronize()
+        assert hk.LAUNCHES["ell_norm_matmat"] == before + 2
+        assert torch.equal(hk.ell_norm_matmat(v, i, cs, W), got)      # the public wrapper
+    assert torch.equal(got, old)
+    assert not bool(torch.any(torch.isnan(got)))
+    assert float(torch.max(torch.abs(got[n // 2]))) == 0.0
+
+
 @pytest.mark.parametrize("table_slots", [0, 2, 64, 16384])
 @pytest.mark.parametrize("r,s", [(2, 64), (4, 64), (4, 13000), (9, 64)])
 def test_ell_norm_gram_t_table_and_repeated_anchors(dev, gen, r, s, table_slots):
