@@ -7,6 +7,7 @@
     python3 chip_smoke.py --sampling
     python3 chip_smoke.py --streaming
     python3 chip_smoke.py --extension
+    python3 chip_smoke.py --wide
 
 (the second only counts K2's instructions in a library already built; the
 third only times the n=1e6 subsample stage, four calls from one seed, with
@@ -17,7 +18,7 @@ fifth builds, fits the torus, draws the n=1e7 path's anchors once and runs
 a reference HMC on the torus posterior, then phases 16–17 alone; the
 sixth builds and holds K5 and K8 to their first, warp-a-row body at the
 four shapes the fits launch them at, timed in turns, as phases 3, 6 and 11
-do in passing).
+do in passing; the seventh builds and runs phase 18 alone).
 Phases, each of which ends the script with a non-zero exit if it fails:
 
 1. the card: name and power limit from nvidia-smi; a CUDA device is required
@@ -186,7 +187,19 @@ Phases, each of which ends the script with a non-zero exit if it fails:
     single-process versions; chain-sharded HMC, NUTS and ChEES (16 chains)
     on phase 12's posterior, f's means within phase 12's Monte Carlo bound
     of its HMC run; ``sharded_smc_fn`` the bits of ``run_smc`` (4096
-    particles, one generator); the process group destroyed at the end.
+    particles, one generator); the process group destroyed at the end;
+18. K2–K8 above r = 16, through their run-time-r bodies: at r = 24, K2–K5 at the
+    n=1e6 shape and K2 and K6–K8 at the n=1e7 chunked shape against their plain
+    versions (K2 bit for bit, K3 and K6 equal to ``_colsum_fixed_plain``, K4 and
+    K7 within 1e-5·max of the float64 plain versions and the same bits from
+    launch to launch, K5 and K8 at 1e-5), each with its bound, the plain
+    version's time, the library call's and each family's run-time-r body
+    forced at r = 16 (``runtime_r``) against its templated body, the same bits
+    and both timed in turns; then ``fit_lae_logit_gp`` on the n=1e6 torus and
+    the n=1e7 chunked composition at r = 24, each within 0.01 of the same fit
+    with a float64 graph (plain versions only) on the card, with its stage
+    times and peak memory, launching K2–K5 (K2 and K6–K8, K2 once) and calling
+    no plain K2 nor float64 spectral composition (counted while it runs).
 
 Beside each kernel's time stand its bound (the least time the card could
 take: compulsory bytes at 3.35 TB/s or operations at the 67 TFLOP/s float32
@@ -201,6 +214,8 @@ errors, times and bounds; the last line is ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import contextlib
+import importlib
 import json
 import os
 import re
@@ -251,6 +266,7 @@ from flgp_tpu_torch.ops.sparse_graph import (  # noqa: E402
     SymCoo, glgp_operator, sym_structure, symmetrize_knn)
 from flgp_tpu_torch.ops.spectrum import spectrum_fused  # noqa: E402
 from flgp_tpu_torch.types import EigenPair, EllMatrix  # noqa: E402
+from flgp_tpu_torch.utils.metrics import MetricsReport  # noqa: E402
 
 # name -> (CUDA source, TPU kernel it replaces: the pallas_call line)
 KERNELS = {
@@ -1118,15 +1134,17 @@ def check_kernels_t(Xt7, dev, results: dict) -> None:
         _fail(f"chunked vs point-major eigenvectors: projector rel err {sub_err:.3e} > 1e-2")
 
 
-def huge_fit(Xt, ds, dev, seed: int) -> dict:
+def huge_fit(Xt, ds, dev, seed: int, r: int = SHAPES["huge"]["r"],
+             chunk: int = SHAPES["huge"]["chunk"]) -> dict:
     """The n=1e7 fit of the huge-n path, stage by stage, with a sync after
     each stage: k-means anchors on a 2^17-column sample, full-n cluster
     sizes, heat_kernel_spectrum_colmajor (cluster-normalized), _train_gpc on
-    the train rows cast to float64, and the O(n·K) predict tail."""
+    the train rows cast to float64, and the O(n·K) predict tail; the graph
+    in the cloud's dtype."""
     cfg = SHAPES["huge"]
     n, m, s, K = Xt.shape[1], cfg["m"], cfg["s"], cfg["K"]
-    fit_cfg = ft.FitConfig(graph=ft.GraphConfig(s=s, r=cfg["r"], K=K), sigma=1e-3, n_gibbs=50,
-                           gibbs_avg_sweeps=25, dtype=torch.float32, solve_dtype=torch.float64)
+    fit_cfg = ft.FitConfig(graph=ft.GraphConfig(s=s, r=r, K=K), sigma=1e-3, n_gibbs=50,
+                           gibbs_avg_sweeps=25, dtype=Xt.dtype, solve_dtype=torch.float64)
     g = fit_cfg.graph
     gen = torch.Generator(device=dev).manual_seed(seed)
     times = {}
@@ -1140,15 +1158,15 @@ def huge_fit(Xt, ds, dev, seed: int) -> dict:
         return out
 
     U = stage("anchors", lambda: col.kmeans_anchors_colmajor(gen, Xt, s, n_sample=1 << 17))
-    counts = stage("cluster_sizes", lambda: col.cluster_sizes_colmajor(Xt, U, cfg["chunk"]))
+    counts = stage("cluster_sizes", lambda: col.cluster_sizes_colmajor(Xt, U, chunk))
     eig = stage("graph+spectrum", lambda: col.heat_kernel_spectrum_colmajor(
-        Xt, U, g.r, K, g.gl, g.root, cluster_sizes=counts, chunk=cfg["chunk"]))
-    Y = torch.as_tensor(ds.y_train, dtype=torch.float32, device=dev)
-    N = torch.ones((m,), dtype=torch.float32, device=dev)
+        Xt, U, g.r, K, g.gl, g.root, cluster_sizes=counts, chunk=chunk))
+    Y = torch.as_tensor(ds.y_train, dtype=Xt.dtype, device=dev)
+    N = torch.ones((m,), dtype=Xt.dtype, device=dev)
     scfg, eig_m, (Ys, Ns) = _solve_cast(fit_cfg, EigenPair(eig.values, eig.vectors[:m]), Y, N)
     res = stage("train", lambda: _train_gpc(eig_m, Ys, Ns, slice(0, m), K, scfg))
     labels, probs, mean, var = stage("predict_tail", lambda: _gpc_lowrank_tail(
-        gen, eig, Ys, Ns, torch.arange(m, device=dev), K, scfg, res.x, 1, cfg["chunk"]))
+        gen, eig, Ys, Ns, torch.arange(m, device=dev), K, scfg, res.x, 1, chunk))
     for nm, arr in (("labels", labels), ("probs", probs), ("mean", mean), ("var", var)):
         if arr.shape != (n,) or not bool(torch.all(torch.isfinite(arr))):
             _fail(f"n=1e7 {nm}: shape {tuple(arr.shape)} or non-finite values")
@@ -2874,6 +2892,361 @@ def streaming_only(dev) -> None:
     print(card)
 
 
+# ---------------------------------------------------------------------------
+# 18. K2–K8 above r = 16 (also alone: --wide)
+# ---------------------------------------------------------------------------
+
+WIDE_R = 24     # partial warps in K2's run-time-r body, 576 Gram pairs a point
+# The plain versions of K2 and the float64 compositions of the spectral tail:
+# a float32 graph on the card reaches none of them at any r
+PLAIN_VERSIONS = (("flgp_tpu_torch.ops.lae", "lae_weights_plain"),
+                  ("flgp_tpu_torch.ops.hopper_kernels", "lae_weights_t_plain"),
+                  ("flgp_tpu_torch.ops.spectrum", "spectrum_from_Z"),
+                  ("flgp_tpu_torch.ops.colmajor", "spectrum_colmajor"))
+
+
+@contextlib.contextmanager
+def counted_plain_versions():
+    """Counts the calls of PLAIN_VERSIONS through their modules while open."""
+    counts = Counter()
+    saved = []
+    for mod_name, name in PLAIN_VERSIONS:
+        mod = importlib.import_module(mod_name)
+        fn = getattr(mod, name)
+        saved.append((mod, name, fn))
+
+        def counted(*args, _fn=fn, _name=name, **kwargs):
+            counts[_name] += 1
+            return _fn(*args, **kwargs)
+
+        setattr(mod, name, counted)
+    try:
+        yield counts
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def timed_once(fn) -> tuple:
+    """(fn(), the device ms of that one call)."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def runtime_r_at_16(name: str, templated, forced, reps: int) -> str:
+    """The run-time-r body forced at r = 16 (``runtime_r``) against the
+    templated body on the same inputs: the same bits, else the script
+    fails; both timed in turns (templated, run-time, run-time, templated)."""
+    a, b = templated(), forced()
+    torch.cuda.synchronize()
+    a, b = (a if isinstance(a, tuple) else (a,)), (b if isinstance(b, tuple) else (b,))
+    if not all(torch.equal(x, y) for x, y in zip(a, b)):
+        _fail(f"{name}: the run-time-r body at r = 16 differs from the templated body")
+    del a, b
+    turns = [cuda_ms(f, reps) for f in (templated, forced, forced, templated)]
+    return (f"r=16: templated {turns[0]:.4f}, {turns[3]:.4f} ms, run-time-r body {turns[1]:.4f}, "
+            f"{turns[2]:.4f} ms (in that order: templated, run-time, run-time, templated): the "
+            f"templated body's bits")
+
+
+def wide_row(label: str, name: str, ms: float, plain_ms: float, library_ms, wk: dict,
+             err: float, r16: str, note: str = "") -> None:
+    b_ms, b_by = bound(wk)
+    lib = "none" if library_ms is None else f"{library_ms:.4f} ms"
+    print(f"  {label:5s} {name:17s} r={WIDE_R}: kernel {ms:9.4f} ms  bound {b_ms:.4f} ms "
+          f"({b_by}; kernel at {b_ms / ms:.1%} of it)  plain {plain_ms:9.4f} ms  library {lib}  "
+          f"max_abs_err {err:.3e}{note}; {r16}", flush=True)
+
+
+def gram_checked(name: str, G, D, Gp, Dp) -> float:
+    """Ĝ and D within 1e-5·max of the float64 plain version's, else the
+    script fails; the larger error."""
+    for nm, a, b in (("G", G, Gp), ("D", D, Dp)):
+        if _maxabs(a, b) > 1e-5 * float(torch.max(torch.abs(b))):
+            _fail(f"{name} {nm} r={WIDE_R}: max abs err {_maxabs(a, b):.3e} > 1e-5·max|{nm}| "
+                  f"(f64 plain)")
+    return max(_maxabs(G, Gp), _maxabs(D, Dp))
+
+
+def wide_rows_large(dev) -> None:
+    """K2–K5 at r = 24 on the n=1e6 torus (s = 1024, K = 128) against their
+    plain versions, K2 bit for bit, beside bound and library call, and each
+    family's run-time-r body forced at r = 16 against its templated body."""
+    big = SHAPES["large"]
+    X = cloud(torus_rings(n=big["n"], m_train=big["m"], seed=big["seed"]), dev)
+    n, d, s, K, r = X.shape[0], X.shape[1], big["s"], big["K"], WIDE_R
+    g = torch.Generator(device=dev).manual_seed(7)
+    U = X[torch.randperm(n, generator=g, device=dev)[:s]].contiguous()
+    idx = knn(X, U, r).indices              # above r = 16 K1's plain version, as the fits take it
+    idx16 = knn(X, U, 16).indices
+    print(f"K2–K5 at r={r}, n=1e6 shape (n={n}, d={d}, s={s}, K={K}), ms per call:", flush=True)
+
+    def wk(name):
+        return work(name, n=n, r=r, s=s, K=K, d=d)
+
+    w = hk.lae_weights(X, U, idx)
+    ref, plain_ms = timed_once(lambda: lae_weights_plain(X, U, idx))
+    if not torch.equal(w, ref):
+        _fail(f"lae_weights r={r}: {int(torch.count_nonzero(w != ref))} weights differ from the "
+              f"plain version's")
+    del ref
+    w16 = hk.lae_weights(X, U, idx16)
+    r16 = runtime_r_at_16("lae_weights", lambda: hk.lae_weights(X, U, idx16),
+                          lambda: hk._lae_weights(X, U, idx16, 150, False, runtime_r=True), 3)
+    wide_row("large", "lae_weights", cuda_ms(lambda: hk.lae_weights(X, U, idx), 3), plain_ms,
+             None, wk("lae_weights"), 0.0, r16, "  (the plain version's bits)")
+
+    C = hk.ell_colsum(w, idx, s)
+    if not torch.equal(C, hk._colsum_fixed_plain(w, idx, s)):
+        _fail(f"ell_colsum r={r}: C is not _colsum_fixed_plain's bit for bit")
+    flat_i, flat_w = idx.reshape(-1).long(), w.reshape(-1)
+    wide_row("large", "ell_colsum", cuda_ms(lambda: hk.ell_colsum(w, idx, s), 10),
+             cuda_ms(lambda: hk.ell_colsum_plain(w, idx, s), 3),
+             cuda_ms(lambda: w.new_zeros((s,)).index_add_(0, flat_i, flat_w), 10),
+             wk("ell_colsum"), _maxabs(C, hk.ell_colsum_plain(w.double(), idx, s)),
+             "one body at every r (it walks the flat entries)",
+             "  (_colsum_fixed_plain's bits)")
+    del flat_i, flat_w
+
+    counts = torch.bincount(idx[:, 0].long(), minlength=s).to(torch.float32)
+    cscale = (1.0 / (C + EPS) * counts).contiguous()
+    cscale16 = (1.0 / (hk.ell_colsum(w16, idx16, s) + EPS) * counts).contiguous()
+    G, D, stats = hk._ell_norm_gram(w, idx, cscale, EPS, 0)
+    torch.cuda.synchronize()
+    kept, spilled = (int(x) for x in stats)
+    Gp, Dp = hk.ell_norm_gram_plain(w.double(), idx, cscale.double())
+    err = gram_checked("ell_norm_gram", G, D, Gp, Dp)
+    if not same_bits(lambda: hk.ell_norm_gram(w, idx, cscale), (G, D)):
+        _fail(f"ell_norm_gram r={r}: Ĝ or D changed bits over five launches")
+    lib_ms, lib_note = gram_library(hk._normalized(w, idx, cscale, EPS).values, idx, s, Gp, 3)
+    del Gp, Dp
+    r16 = runtime_r_at_16("ell_norm_gram", lambda: hk._ell_norm_gram(w16, idx16, cscale16, EPS, 0)[:2],
+                          lambda: hk._ell_norm_gram(w16, idx16, cscale16, EPS, 0,
+                                                    runtime_r=True)[:2], 5)
+    wide_row("large", "ell_norm_gram", cuda_ms(lambda: hk.ell_norm_gram(w, idx, cscale), 5),
+             cuda_ms(lambda: hk.ell_norm_gram_plain(w, idx, cscale), 2), lib_ms,
+             wk("ell_norm_gram"), err, r16,
+             f"  ({kept} of {kept + spilled} pair additions ({kept / max(kept + spilled, 1):.6f}) "
+             f"stayed in shared memory; the same bits over five launches; {lib_note})")
+
+    W = torch.randn((s, K), generator=g, device=dev, dtype=torch.float32)
+    got = hk.ell_norm_matmat(w, idx, cscale, W)
+    ref = hk.ell_norm_matmat_plain(w, idx, cscale, W)
+    _allclose(f"ell_norm_matmat r={r}", got, ref, 1e-5, 1e-5)
+    err = _maxabs(got, ref)
+    del got, ref
+    csr = ell_to_csr(hk._normalized(w, idx, cscale, EPS).values, idx, s)
+    r16 = runtime_r_at_16("ell_norm_matmat", lambda: hk.ell_norm_matmat(w16, idx16, cscale16, W),
+                          lambda: hk._ell_norm_matmat(w16, idx16, cscale16, W, EPS,
+                                                      runtime_r=True), 10)
+    wide_row("large", "ell_norm_matmat", cuda_ms(lambda: hk.ell_norm_matmat(w, idx, cscale, W), 10),
+             cuda_ms(lambda: hk.ell_norm_matmat_plain(w, idx, cscale, W), 3),
+             cuda_ms(lambda: torch.sparse.mm(csr, W), 10), wk("ell_norm_matmat"), err, r16)
+
+
+def wide_rows_huge(Xt, dev) -> None:
+    """K2 and K6–K8 at r = 24 at the n=1e7 chunked shape (153 chunks of
+    65,536 points, s = 1024, K = 128), as ``wide_rows_large`` holds K2–K5."""
+    cfg = SHAPES["huge"]
+    n, s, K, r, chunk = Xt.shape[1], cfg["s"], cfg["K"], WIDE_R, cfg["chunk"]
+    U = random_anchors(Xt, s, dev, seed=7)
+    idx, w = col.build_graph_colmajor(Xt, U, r, chunk=chunk)
+    idx16, w16 = col.build_graph_colmajor(Xt, U, 16, chunk=chunk)
+    nch, _, c = w.shape
+    print(f"K2, K6–K8 at r={r}, n=1e7 chunked shape (nch={nch}, c={c}, s={s}, K={K}; "
+          f"{nch * c - n} pad points), ms per call:", flush=True)
+
+    def wk(name):
+        return work(name, n=nch * c, r=r, s=s, K=K, d=Xt.shape[0])
+
+    ref, plain_ms = timed_once(lambda: hk.lae_weights_t_plain(Xt, U, idx))
+    if not torch.equal(w, ref):
+        _fail(f"lae_weights_t r={r}: {int(torch.count_nonzero(w != ref))} weights differ from the "
+              f"plain version's")
+    del ref
+    r16 = runtime_r_at_16("lae_weights_t", lambda: hk.lae_weights_t(Xt, U, idx16),
+                          lambda: hk._lae_weights_t(Xt, U, idx16, 150, False, runtime_r=True), 1)
+    wide_row("huge", "lae_weights_t", cuda_ms(lambda: hk.lae_weights_t(Xt, U, idx), 2), plain_ms,
+             None, work("lae_weights", n=n, r=r, s=s, d=Xt.shape[0]), 0.0, r16,
+             "  (the plain version's bits, the pads exact zeros)")
+
+    C = hk.ell_colsum_t(w, idx, s)
+    if not torch.equal(C, hk._colsum_fixed_plain(w, idx, s)):
+        _fail(f"ell_colsum_t r={r}: C is not _colsum_fixed_plain's bit for bit")
+    flat_i, flat_w = idx.reshape(-1).long(), w.reshape(-1)
+    wide_row("huge", "ell_colsum_t", cuda_ms(lambda: hk.ell_colsum_t(w, idx, s), 10),
+             cuda_ms(lambda: hk.ell_colsum_t_plain(w, idx, s), 3),
+             cuda_ms(lambda: w.new_zeros((s,)).index_add_(0, flat_i, flat_w), 10),
+             wk("ell_colsum_t"), _maxabs(C, hk.ell_colsum_t_plain(w.double(), idx, s)),
+             "one body at every r (it walks the flat entries)",
+             "  (_colsum_fixed_plain's bits)")
+    del flat_i, flat_w
+
+    counts = torch.bincount(col.point_major(idx, n)[:, 0].long(), minlength=s).to(torch.float32)
+    cscale = (1.0 / (C + EPS) * counts).contiguous()
+    cscale16 = (1.0 / (hk.ell_colsum_t(w16, idx16, s) + EPS) * counts).contiguous()
+    G, D, stats = hk._ell_norm_gram_t(w, idx, cscale, EPS, 0)
+    torch.cuda.synchronize()
+    kept, spilled = (int(x) for x in stats)
+    Gp, Dp = hk.ell_norm_gram_t_plain(w.double(), idx, cscale.double())
+    err = gram_checked("ell_norm_gram_t", G, D, Gp, Dp)
+    if not same_bits(lambda: hk.ell_norm_gram_t(w, idx, cscale), (G, D), launches=2):
+        _fail(f"ell_norm_gram_t r={r}: Ĝ or D changed bits over three launches")
+    lib_ms, lib_note = gram_library(col.point_major(hk._normalized_t(w, idx, cscale, EPS), nch * c),
+                                    col.point_major(idx, nch * c), s, Gp, 1)
+    del Gp, Dp
+    torch.cuda.empty_cache()
+    r16 = runtime_r_at_16("ell_norm_gram_t",
+                          lambda: hk._ell_norm_gram_t(w16, idx16, cscale16, EPS, 0)[:2],
+                          lambda: hk._ell_norm_gram_t(w16, idx16, cscale16, EPS, 0,
+                                                      runtime_r=True)[:2], 2)
+    wide_row("huge", "ell_norm_gram_t", cuda_ms(lambda: hk.ell_norm_gram_t(w, idx, cscale), 3),
+             cuda_ms(lambda: hk.ell_norm_gram_t_plain(w, idx, cscale), 1), lib_ms,
+             wk("ell_norm_gram_t"), err, r16,
+             f"  ({kept} of {kept + spilled} pair additions ({kept / max(kept + spilled, 1):.6f}) "
+             f"stayed in shared memory; the same bits over three launches; {lib_note})")
+
+    g = torch.Generator(device=dev).manual_seed(8)
+    W = torch.randn((s, K), generator=g, device=dev, dtype=torch.float32)
+    got = hk.ell_norm_matmat_t(w, idx, cscale, W)
+    ref = hk.ell_norm_matmat_t_plain(w, idx, cscale, W)
+    _allclose(f"ell_norm_matmat_t r={r}", got, ref, 1e-5, 1e-5)
+    if float(torch.max(torch.abs(got[n:]))) != 0.0:
+        _fail(f"ell_norm_matmat_t r={r}: a pad row is not zero")
+    err = _maxabs(got, ref)
+    del got, ref
+    torch.cuda.empty_cache()
+    r16 = runtime_r_at_16("ell_norm_matmat_t",
+                          lambda: hk.ell_norm_matmat_t(w16, idx16, cscale16, W),
+                          lambda: hk._ell_norm_matmat_t(w16, idx16, cscale16, W, EPS,
+                                                        runtime_r=True), 2)
+    del idx16, w16
+    csr = ell_to_csr(col.point_major(hk._normalized_t(w, idx, cscale, EPS), nch * c),
+                     col.point_major(idx, nch * c), s)
+    wide_row("huge", "ell_norm_matmat_t",
+             cuda_ms(lambda: hk.ell_norm_matmat_t(w, idx, cscale, W), 3),
+             cuda_ms(lambda: hk.ell_norm_matmat_t_plain(w, idx, cscale, W), 1),
+             cuda_ms(lambda: torch.sparse.mm(csr, W), 3), wk("ell_norm_matmat_t"), err, r16)
+
+
+def wide_fit(name: str, run, need: tuple) -> dict:
+    """One fit (``run`` returns (error, stage times)) with the launch counts
+    set to 0 just before it and read just after, the plain versions of
+    PLAIN_VERSIONS counted and the peak device memory taken: a float32 run
+    must launch every kernel of ``need`` and call none of those plain
+    versions, else the script fails."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    hk.reset_launches()
+    with counted_plain_versions() as plain:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        err, stages = run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = {k: v for k, v in hk.LAUNCHES.items() if v}
+    peak = torch.cuda.max_memory_allocated()
+    print(f"  {name}: err {err:.6f}  wall {wall:.3f} s  [{stages}]  peak memory "
+          f"{peak / 2**30:.2f} GiB  launches {launches}  plain versions called {dict(plain)}",
+          flush=True)
+    missing = [k for k in need if not hk.LAUNCHES[k]]
+    if missing:
+        _fail(f"{name} launched no {missing} kernel")
+    if need and sum(plain.values()):
+        _fail(f"{name}: a float32 graph on the card took a plain version: {dict(plain)}")
+    return dict(err=err, wall=wall, launches=launches, peak=peak)
+
+
+def wide_fits(dev, ds7) -> None:
+    """The two fits at r = 24 through the entry points, each held to the same
+    fit with the float64 graph (plain versions only) on the card + 0.01:
+    ``fit_lae_logit_gp`` at the n=1e6 torus shape (s = 1024, K = 128; K2–K5
+    launched) and the n=1e7 chunked composition of phase 7 (K2, K6–K8
+    launched, K2 once; the float64 run in chunks of 2^20 points, the same
+    graph in fewer, larger pieces)."""
+    big = SHAPES["large"]
+    ds = torus_rings(n=big["n"], m_train=big["m"], seed=big["seed"])
+    print(f"r={WIDE_R} fits (f32 graph and f64 tail; gate: the f64 graph's error + 0.01):",
+          flush=True)
+
+    def large(dtype):
+        cfg = ft.FitConfig(graph=ft.GraphConfig(s=big["s"], r=WIDE_R, K=big["K"]), sigma=1e-3,
+                           n_gibbs=50, gibbs_avg_sweeps=25, dtype=dtype,
+                           solve_dtype=torch.float64)
+        report = MetricsReport()
+        res = ft.fit_lae_logit_gp(torch.Generator(device=dev).manual_seed(1), ds.x_train,
+                                  ds.y_train, ds.x_test, cfg=cfg, report=report, device=dev)
+        if res.posterior_mean.shape != (big["n"] - big["m"],) or not np.all(
+                np.isfinite(res.posterior_mean)):
+            _fail(f"fit_lae_logit_gp r={WIDE_R}: posterior mean of shape "
+                  f"{res.posterior_mean.shape} or not finite")
+        stages = "  ".join(f"{st.name} {st.wall_s:.3f}" for st in report.stages)
+        return float(np.mean(res.y_test != ds.y_test)), f"{stages}  t {float(res.pars['t']):.6g}"
+
+    runs = [wide_fit(f"fit_lae_logit_gp n=1e6 r={WIDE_R} {nm}", lambda dt=dt: large(dt), need)
+            for nm, dt, need in (("float32", torch.float32, MAIN_PATH[1:]),
+                                 ("float64", torch.float64, ()))]
+    gate = runs[1]["err"] + 0.01
+    if runs[0]["err"] > gate:
+        _fail(f"fit_lae_logit_gp r={WIDE_R}: err {runs[0]['err']} > the float64 graph's + 0.01 "
+              f"({gate})")
+
+    cfg = SHAPES["huge"]
+    Xt = feature_major(ds7, dev)
+
+    def huge(X, chunk):
+        f = huge_fit(X, ds7, dev, seed=40, r=WIDE_R, chunk=chunk)
+        return f["err"], "  ".join(f"{k} {v:.3f}" for k, v in f["times"].items())
+
+    runs = [wide_fit(f"n=1e7 chunked fit r={WIDE_R} float32", lambda: huge(Xt, cfg["chunk"]),
+                     ("lae_weights",) + HUGE_PATH[2:])]
+    if runs[0]["launches"]["lae_weights"] != 1:
+        _fail(f"the n=1e7 fit at r={WIDE_R} launched lae_weights "
+              f"{runs[0]['launches']['lae_weights']} times, not once")
+    Xt64 = Xt.double()
+    del Xt
+    runs.append(wide_fit(f"n=1e7 chunked fit r={WIDE_R} float64", lambda: huge(Xt64, 1 << 20),
+                         ()))
+    gate = runs[1]["err"] + 0.01
+    if runs[0]["err"] > gate:
+        _fail(f"n=1e7 fit r={WIDE_R}: err {runs[0]['err']} > the float64 graph's + 0.01 "
+              f"({gate})")
+
+
+def wide_phase(dev, ds7=None) -> None:
+    """Phase 18: K2–K8 at r = 24 at the n=1e6 and n=1e7 shapes, then the two
+    r = 24 fits.  ``ds7``: the n=1e7 torus of phase 7, made here if None."""
+    t0 = time.perf_counter()
+    wide_rows_large(dev)
+    torch.cuda.empty_cache()
+    if ds7 is None:
+        cfg = SHAPES["huge"]
+        ds7 = torus_rings(n=cfg["n"], m_train=cfg["m"], seed=cfg["seed"])
+    Xt = feature_major(ds7, dev)
+    wide_rows_huge(Xt, dev)
+    del Xt
+    torch.cuda.empty_cache()
+    wide_fits(dev, ds7)
+    torch.cuda.empty_cache()
+    print(f"phase 18: {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def wide_only(dev) -> None:
+    """``--wide``: the card, the build, then phase 18 alone."""
+    card = card_line()
+    print(f"card: {card}", flush=True)
+    _, build_s = _timed(lambda: (_build.build(), _build.load()))
+    print(f"build: {build_s:.1f} s", flush=True)
+    wide_phase(dev)
+    print(card)
+
+
 def extension_only(dev) -> None:
     """``--extension``: the card, the build, then K5 and K8 (the eigenvector
     extension) against the warp-a-row body at the shapes the fits launch them at:
@@ -3099,7 +3472,12 @@ def main() -> None:
 
     # 16. and 17. the out-of-core fits and the multi-device layer
     streaming_phases(dev, huge, phase4, sampling, card)
+    ds7 = huge["ds"]
     del huge, sampling
+
+    # 18. K2–K8 above r = 16, and the two r = 24 fits
+    wide_phase(dev, ds7)
+    del ds7
 
     # K1–K5: launches of the torus fit, times at the n=1e6 shape; K6–K8:
     # launches of the first n=1e7 fit, times at the n=1e7 shape; K9: launches
@@ -3132,7 +3510,7 @@ if __name__ == "__main__":
     if len(sys.argv) == 3 and sys.argv[1] == "--sass":
         print_sass(Path(sys.argv[2]))      # K2's step count of any build of the library
     elif sys.argv[1:] in (["--subsample-times"], ["--sampling"], ["--streaming"],
-                          ["--extension"]):
+                          ["--extension"], ["--wide"]):
         if not torch.cuda.is_available():
             _fail("torch.cuda.is_available() is false: this smoke test needs an NVIDIA GPU")
         pin_full_precision()
@@ -3142,6 +3520,8 @@ if __name__ == "__main__":
             streaming_only(torch.device("cuda", 0))
         elif sys.argv[1] == "--extension":
             extension_only(torch.device("cuda", 0))
+        elif sys.argv[1] == "--wide":
+            wide_only(torch.device("cuda", 0))
         else:
             print(f"card: {card_line()}", flush=True)
             subsample_stage_times(torch.device("cuda", 0))

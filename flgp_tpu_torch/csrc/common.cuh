@@ -1,6 +1,7 @@
 // Shared by the kernel sources: the fan-in values the kernels are
 // instantiated for.  A kernel keeps r values per row in registers, so r is a
-// template parameter; the C entry points switch on it with this list.
+// template parameter; the C entry points switch on it with this list, and
+// send every other r to the kernel family's one run-time-r body.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -9,6 +10,11 @@
 
 #define FLGP_R_CASES(X) \
   X(1) X(2) X(3) X(4) X(5) X(6) X(7) X(8) X(9) X(10) X(11) X(12) X(13) X(14) X(15) X(16)
+constexpr int kTemplatedMaxR = 16;   // the last of FLGP_R_CASES
+
+// Shared memory a block may take on the H100 (and the H200): 227 KB.  The
+// run-time-r bodies size their per-point arrays against it.
+constexpr size_t kMaxBlockSmem = 232448;
 
 // The current device's SM count, for the grids of one block an SM and the
 // persistent grids.
@@ -43,6 +49,20 @@ __device__ __forceinline__ void normalized_point(const float* __restrict__ vals,
   const float rinv = 1.0f / (rs + eps);
 #pragma unroll
   for (int a = 0; a < R; ++a) w[a] *= rinv;
+}
+
+// normalized_point's first loop, one entry at a time: the run-time-r bodies
+// form each w1 with it, sum them in normalized_point's order and scale by
+// the same rinv, so they get the same floats.
+__device__ __forceinline__ float scaled_entry(const float* __restrict__ vals,
+                                              const int* __restrict__ idx,
+                                              const float* __restrict__ cscale, size_t at, int s,
+                                              int& c) {
+  c = idx[at];
+  const bool ok = c >= 0 && c < s;
+  const float w = ok ? vals[at] * cscale[c] : 0.0f;
+  if (w == 0.0f) c = -1;
+  return w;
 }
 
 // A block-private table in shared memory for scattered sums whose targets

@@ -58,6 +58,22 @@
 // No atomics: deterministic.  Indices outside [0, s) contribute nothing
 // (knn never produces them; the guard keeps a bad input from reading out of
 // bounds), nor do zero weights.
+//
+// Fan-in.  The tiled body keeps a lane's R pairs and R x kU gathers in
+// registers, so R is a template parameter, 1 <= R <= 16.  Every larger r
+// takes the run-time-r variant of the same body (the TPU kernels take any
+// r): the tile's pairs in dynamic shared memory, `cap` of a point's r in the
+// warp's slice (r itself while the block's eight slices fit 227 KB: r <= 113;
+// an entry past the slice is formed again from the graph with the point's
+// rinv, kept beside the pairs), the weights formed as normalized_point forms
+// them (scaled_entry, common.cuh) and summed into rinv in its order, and
+// the same fmaf chain a = 0 .. r-1 from +0 with the same skipped entries,
+// its gathers issued eight at a time ahead of their multiply-adds (one at
+// a time, the body ran 40% slower than the templated one at r = 16 on an
+// H100).  So at r <= 16 it gives the templated body's bits, and at every r
+// the output is the plain version's product to rounding.  The r gathers of
+// an output piece hit W's rows in L1 and L2; the bound is the output's
+// writes as above, plus the graph's 8r bytes a point.
 
 #include <cuda_runtime.h>
 
@@ -224,6 +240,143 @@ cudaError_t launch_tiles_r(const float* v, const int* ii, const float* cs, const
              : launch_tiles<R, float>(v, ii, cs, w, npts, c, s, K, eps, o, st);
 }
 
+// The run-time-r tiled body: the tile's pairs, [warp][a][lane] for a < cap,
+// and each lane's rinv after them in dynamic shared memory; one item (a
+// piece of a row) at a time, its r gathers issued kBatch at a time.
+constexpr int kBatch = 8;
+
+template <class V>
+__global__ void __launch_bounds__(kThreads)
+ell_norm_matmat_wide_kernel(const float* __restrict__ vals, const int* __restrict__ idx,
+                            const float* __restrict__ cscale, const float* __restrict__ W,
+                            long long npts, int r, int c, int s, int K, float eps, int split,
+                            int cap, float* __restrict__ out) {
+  extern __shared__ Weighted wide_pairs[];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  Weighted* mine = wide_pairs + static_cast<size_t>(warp) * cap * kTile;
+  float* rinvs = reinterpret_cast<float*>(wide_pairs + static_cast<size_t>(kWarps) * cap * kTile) +
+                 warp * kTile;
+  const int pieces = K / static_cast<int>(sizeof(V) / sizeof(float));
+  const V* __restrict__ Wv = reinterpret_cast<const V*>(W);
+  V* __restrict__ outv = reinterpret_cast<V*>(out);
+  const long long jobs = (npts + kTile - 1) / kTile * split;
+  const int step = kTile * split;
+  const int drow = step / pieces, dpiece = step % pieces;
+  const int held = min(r, cap);
+  for (long long job = static_cast<long long>(blockIdx.x) * kWarps + warp; job < jobs;
+       job += static_cast<long long>(gridDim.x) * kWarps) {
+    const long long tile = job / split;
+    const int part = static_cast<int>(job - tile * split);
+    const long long p0 = tile * kTile;
+    const long long p = p0 + lane;
+    __syncwarp();   // the last job's reads of the pairs are done
+    float rinv = 0.0f;
+    if (p < npts) {
+      const size_t base = c == 1 ? static_cast<size_t>(p) * r
+                                 : static_cast<size_t>(p / c) * r * c + static_cast<size_t>(p % c);
+      float rs = 0.0f;
+      for (int a = 0; a < r; ++a) {
+        int col;
+        const float w1 = scaled_entry(vals, idx, cscale, base + static_cast<size_t>(a) * c, s,
+                                      col);
+        rs += w1;
+        if (a < held) mine[a * kTile + lane] = Weighted{w1, col};
+      }
+      rinv = 1.0f / (rs + eps);
+      for (int a = 0; a < held; ++a) mine[a * kTile + lane].w *= rinv;
+    } else {
+      for (int a = 0; a < held; ++a) mine[a * kTile + lane] = Weighted{0.0f, -1};
+    }
+    rinvs[lane] = rinv;
+    __syncwarp();
+
+    const int rows = static_cast<int>(min(static_cast<long long>(kTile), npts - p0));
+    V* __restrict__ otile = outv + static_cast<size_t>(p0) * pieces;
+    const int t0 = part * kTile + lane;
+    int row = t0 / pieces, piece = t0 - row * pieces;
+    while (row < rows) {
+      size_t pbase = 0;   // the row's point's entries, where some are not held
+      if (held < r) {
+        const long long pp = p0 + row;
+        pbase = c == 1 ? static_cast<size_t>(pp) * r
+                       : static_cast<size_t>(pp / c) * r * c + static_cast<size_t>(pp % c);
+      }
+      V acc = zero_piece<V>();
+      int a = 0;
+      // kBatch gathers in flight before their multiply-adds, in order
+      for (; a + kBatch <= held; a += kBatch) {
+        Weighted e[kBatch];
+        V g[kBatch];
+#pragma unroll
+        for (int t = 0; t < kBatch; ++t) {
+          e[t] = mine[(a + t) * kTile + row];
+          g[t] = e[t].c >= 0 ? __ldg(Wv + static_cast<size_t>(e[t].c) * pieces + piece)
+                             : zero_piece<V>();
+        }
+#pragma unroll
+        for (int t = 0; t < kBatch; ++t) {
+          if (e[t].c >= 0) acc = fma_piece(e[t].w, g[t], acc);
+        }
+      }
+      for (; a < r; ++a) {
+        Weighted e;
+        if (a < held) {
+          e = mine[a * kTile + row];
+        } else {
+          e.w = scaled_entry(vals, idx, cscale, pbase + static_cast<size_t>(a) * c, s, e.c) *
+                rinvs[row];
+        }
+        const V g = e.c >= 0 ? __ldg(Wv + static_cast<size_t>(e.c) * pieces + piece)
+                             : zero_piece<V>();
+        if (e.c >= 0) acc = fma_piece(e.w, g, acc);
+      }
+      __stcs(otile + row * pieces + piece, acc);
+      row += drow;
+      piece += dpiece;
+      if (piece >= pieces) {
+        piece -= pieces;
+        ++row;
+      }
+    }
+  }
+}
+
+template <class V>
+cudaError_t launch_wide(const float* v, const int* ii, const float* cs, const float* w,
+                        long long npts, int r, int c, int s, int K, float eps, int pair_cap,
+                        float* o, cudaStream_t st) {
+  const auto kernel = ell_norm_matmat_wide_kernel<V>;
+  constexpr size_t per_pair = static_cast<size_t>(kWarps) * kTile * sizeof(Weighted);
+  constexpr size_t rinvs = static_cast<size_t>(kWarps) * kTile * sizeof(float);
+  long long cap = (kMaxBlockSmem - rinvs) / per_pair;
+  if (cap > r) cap = r;
+  if (pair_cap > 0 && cap > pair_cap) cap = pair_cap;
+  const size_t smem = static_cast<size_t>(cap) * per_pair + rinvs;
+  int sms = 0, per_sm = 0;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err == cudaSuccess) err = sm_count(&sms);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) per_sm = 1;
+  const long long resident = static_cast<long long>(sms) * per_sm;
+  const long long tiles = (npts + kTile - 1) / kTile;
+  const int pieces = K / static_cast<int>(sizeof(V) / sizeof(float));
+  int split = 1;
+  while (split < kMaxSplit && split < pieces &&
+         tiles * split < kJobsPerWarp * resident * kWarps)
+    ++split;
+  const long long jobs = tiles * split;
+  long long blocks = (jobs + kWarps - 1) / kWarps;
+  if (blocks > resident) blocks = resident;
+  kernel<<<static_cast<unsigned>(blocks), kThreads, smem, st>>>(v, ii, cs, w, npts, r, c, s, K,
+                                                                eps, split,
+                                                                static_cast<int>(cap), o);
+  return cudaGetLastError();
+}
+
 // The first body, kept only as the new body's bit oracle (the `legacy` entry
 // points below, reached from the tests and chip_smoke.py): one warp a
 // point, every lane normalizing it, lanes striding the K columns.
@@ -252,15 +405,28 @@ __global__ void ell_norm_matmat_legacy_kernel(const float* __restrict__ vals,
   }
 }
 
+// Body: 0 the tiled body (templated up to r = 16, run-time r above), 1 the
+// legacy body (r <= 16), 2 the run-time-r tiled body at any r >= 1 with at
+// most pair_cap (> 0; 0: as many as fit) pairs a point in shared memory
 int matmat(const void* vals, const void* idx, const void* cscale, const void* W, long long npts,
-           int r, int c, int s, int K, float eps, void* out, void* stream, bool legacy) {
+           int r, int c, int s, int K, float eps, void* out, void* stream, int body,
+           int pair_cap = 0) {
   if (npts <= 0 || K <= 0) return static_cast<int>(cudaSuccess);
+  if (r < 1) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* v = static_cast<const float*>(vals);
   const int* ii = static_cast<const int*>(idx);
   const float* cs = static_cast<const float*>(cscale);
   const float* w = static_cast<const float*>(W);
   float* o = static_cast<float*>(out);
+  const bool legacy = body == 1;
+  if (body == 2 || (body == 0 && r > kTemplatedMaxR)) {
+    const bool vec = K % 4 == 0 && reinterpret_cast<size_t>(w) % 16 == 0 &&
+                     reinterpret_cast<size_t>(o) % 16 == 0;
+    return static_cast<int>(
+        vec ? launch_wide<float4>(v, ii, cs, w, npts, r, c, s, K, eps, pair_cap, o, st)
+            : launch_wide<float>(v, ii, cs, w, npts, r, c, s, K, eps, pair_cap, o, st));
+  }
   const long long pts_per_block = 256 / 32;
   const dim3 grid(static_cast<unsigned>((npts + pts_per_block - 1) / pts_per_block));
   switch (r) {
@@ -285,7 +451,7 @@ int matmat(const void* vals, const void* idx, const void* cscale, const void* W,
 extern "C" int flgp_ell_norm_matmat(const void* vals, const void* idx, const void* cscale,
                                     const void* W, int n, int r, int s, int K, float eps,
                                     void* out, void* stream) {
-  return matmat(vals, idx, cscale, W, n, r, 1, s, K, eps, out, stream, false);
+  return matmat(vals, idx, cscale, W, n, r, 1, s, K, eps, out, stream, 0);
 }
 
 // K8: vals, idx (nch, r, c); cscale (s,); W (s, K) -> out (nch * c, K).
@@ -293,14 +459,14 @@ extern "C" int flgp_ell_norm_matmat_t(const void* vals, const void* idx, const v
                                       const void* W, int nch, int r, int c, int s, int K,
                                       float eps, void* out, void* stream) {
   return matmat(vals, idx, cscale, W, static_cast<long long>(nch) * c, r, c, s, K, eps, out,
-                stream, false);
+                stream, 0);
 }
 
-// The same two with the first body, for comparison only.
+// The same two with the first body, for comparison only (r <= 16).
 extern "C" int flgp_ell_norm_matmat_legacy(const void* vals, const void* idx, const void* cscale,
                                            const void* W, int n, int r, int s, int K, float eps,
                                            void* out, void* stream) {
-  return matmat(vals, idx, cscale, W, n, r, 1, s, K, eps, out, stream, true);
+  return matmat(vals, idx, cscale, W, n, r, 1, s, K, eps, out, stream, 1);
 }
 
 extern "C" int flgp_ell_norm_matmat_t_legacy(const void* vals, const void* idx,
@@ -308,5 +474,15 @@ extern "C" int flgp_ell_norm_matmat_t_legacy(const void* vals, const void* idx,
                                              int c, int s, int K, float eps, void* out,
                                              void* stream) {
   return matmat(vals, idx, cscale, W, static_cast<long long>(nch) * c, r, c, s, K, eps, out,
-                stream, true);
+                stream, 1);
+}
+
+// K5 (nch = n, c = 1) and K8 through the run-time-r body at any r >= 1, at
+// most pair_cap (> 0; 0: as many as fit) pairs a point in shared memory: the
+// templated body's bit oracle at r <= 16, for the tests and the smoke test.
+extern "C" int flgp_ell_norm_matmat_wide(const void* vals, const void* idx, const void* cscale,
+                                         const void* W, int nch, int r, int c, int s, int K,
+                                         float eps, int pair_cap, void* out, void* stream) {
+  return matmat(vals, idx, cscale, W, static_cast<long long>(nch) * c, r, c, s, K, eps, out,
+                stream, 2, pair_cap);
 }

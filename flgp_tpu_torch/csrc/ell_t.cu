@@ -64,6 +64,22 @@
 //       itself, so the result is right for any graph, s and table size; the
 //       kernel counts both kinds for the caller.  The float64 buffer is
 //       8 s^2 bytes: 8 MB at s = 1024, 1.2 GB at s = 12288.
+//
+// Fan-in.  K3/K6 walk the flat entries and take any r as they are.  K4/K7's
+// body keeps a point's r weights and anchors in registers, so r is a
+// template parameter, 1 <= r <= 16; every larger r takes the run-time-r
+// body below, which the TPU kernels' any-r matches: a warp a point, its
+// (weight, anchor) pairs in the warp's slice of shared memory beside the
+// table (the slice holds `cap` of them, r at every r whose 32 warps' pairs
+// fit the 227 KB beside table and histogram: r <= 380 at s = 1024; an entry
+// past it is formed again from the graph where it is needed), the
+// r(r+1)/2 pairs a <= b dealt to the lanes 32 apart, row by row.  Every
+// lane forms the point's row sum itself, the entries in order from its
+// broadcast loads, with normalized_point's expressions (scaled_entry,
+// common.cuh): the same weights, so the same terms into the same exact
+// sums, and Ĝ and D are the templated body's bits at every r both take.
+// What bounds it is as above: the graph's bytes, and the pair additions,
+// r(r+1)/2 a point, into the table.
 
 #include <cuda_runtime.h>
 
@@ -133,6 +149,86 @@ ell_colsum_t_kernel(const float* __restrict__ vals, const int* __restrict__ idx,
 __device__ __forceinline__ void gram_add(double* __restrict__ G, int s, int lo, int hi, double v) {
   atomicAdd(G + static_cast<size_t>(lo) * s + hi, v);
   if (lo != hi) atomicAdd(G + static_cast<size_t>(hi) * s + lo, v);
+}
+
+// The run-time-r body's steps, each what the templated body above does
+// inline.  The templated body keeps them inline: through these helpers, with
+// normalized_point forming its entries through scaled_entry, it ran 4%
+// slower at r = 3 on an H100.
+// adds a point's normalized weight w of anchor col to D: into the block's
+// fixed-point bin (dlocal), else, or at |w| >= kFixedMax, into the float64 cell
+__device__ __forceinline__ void d_add(unsigned* dhist, bool dlocal, double* __restrict__ D,
+                                      int col, float w) {
+  if (dlocal && fabsf(w) < kFixedMax) {
+    const int carry = fixed_add(dhist + col, w);
+    if (carry) atomicAdd(D + col, carry * kFixedWrap);
+  } else {
+    atomicAdd(D + col, fixed_value(w));
+  }
+}
+
+// adds the product of slots a <= b of one point, weights wa, wb on anchors
+// ca, cb (both >= 0), to G: into the table's slot for the sorted anchor pair
+// when it finds one (kept), else into the global cells (spilled)
+template <bool UNROLL>
+__device__ __forceinline__ void pair_add(int* keys, unsigned* sums, unsigned slots,
+                                         double* __restrict__ G, int s, int a, int b, int ca,
+                                         int cb, float wa, float wb, unsigned& kept,
+                                         unsigned& spilled) {
+  const int lo = min(ca, cb), hi = max(ca, cb);
+  // slots a < b on one anchor: the (a, b) and (b, a) products both
+  // belong on the diagonal
+  const float twice = (b > a && lo == hi) ? 2.0f : 1.0f;
+  const float v = twice * wa * wb;
+  const int h = (slots && fabsf(v) < kFixedMax)
+                    ? smem_table_slot<UNROLL>(keys, slots, lo * s + hi)
+                    : -1;
+  if (h >= 0) {
+    ++kept;
+    const int carry = fixed_add(sums + h, v);
+    if (carry) gram_add(G, s, lo, hi, carry * kFixedWrap);
+  } else {
+    ++spilled;
+    gram_add(G, s, lo, hi, fixed_value(v));
+  }
+}
+
+// the table and the histogram emptied, before the block's first addition
+__device__ __forceinline__ void gram_smem_init(int* keys, unsigned* sums, unsigned slots,
+                                               unsigned* dhist, bool dlocal, int s) {
+  for (unsigned h = threadIdx.x; h < slots; h += blockDim.x) {
+    keys[h] = kEmptyKey;
+    sums[h] = 0u;
+  }
+  if (dlocal) {
+    for (int b = threadIdx.x; b < s; b += blockDim.x) dhist[b] = 0u;
+  }
+  __syncthreads();
+}
+
+// after the block's last addition: every non-empty slot and bin added once to
+// the global cells, the counts to stats
+__device__ __forceinline__ void gram_flush(const int* keys, const unsigned* sums, unsigned slots,
+                                           const unsigned* dhist, bool dlocal, int s,
+                                           double* __restrict__ G, double* __restrict__ D,
+                                           unsigned kept, unsigned spilled,
+                                           unsigned long long* __restrict__ stats) {
+  __syncthreads();
+  for (unsigned h = threadIdx.x; h < slots; h += blockDim.x) {
+    const int key = keys[h];
+    if (key != kEmptyKey && sums[h]) gram_add(G, s, key / s, key % s, sums[h] * kFixedUnit);
+  }
+  if (dlocal) {
+    for (int b = threadIdx.x; b < s; b += blockDim.x) {
+      if (dhist[b]) atomicAdd(D + b, dhist[b] * kFixedUnit);
+    }
+  }
+  kept = __reduce_add_sync(0xffffffffu, kept);
+  spilled = __reduce_add_sync(0xffffffffu, spilled);
+  if ((threadIdx.x & 31) == 0) {
+    if (kept) atomicAdd(stats, static_cast<unsigned long long>(kept));
+    if (spilled) atomicAdd(stats + 1, static_cast<unsigned long long>(spilled));
+  }
 }
 
 // Dynamic shared memory: keys[slots] | sums[slots] | dhist[s] (the last only
@@ -221,6 +317,84 @@ ell_norm_gram_t_kernel(const float* __restrict__ vals, const int* __restrict__ i
   }
 }
 
+// A point's (normalized weight, anchor) pair in the run-time-r body
+struct Pair {
+  float w;
+  int c;
+};
+
+// entry a of the point at base (entries `stride` apart): from the warp's
+// slice while a < cap, else formed again from the graph, the same floats
+__device__ __forceinline__ Pair wide_entry(const Pair* pairs, int cap, int a,
+                                           const float* __restrict__ vals,
+                                           const int* __restrict__ idx,
+                                           const float* __restrict__ cscale, size_t base,
+                                           size_t stride, int s, float rinv) {
+  if (a < cap) return pairs[a];
+  int col;
+  const float w1 = scaled_entry(vals, idx, cscale, base + a * stride, s, col);
+  return Pair{w1 * rinv, col};
+}
+
+// K4/K7 at run-time r: a warp a point, walking the points 32 warps a block
+// apart.  Dynamic shared memory as the templated body's, then, 8-byte
+// aligned, each warp's `cap` pairs.
+__global__ void __launch_bounds__(kGramThreads)
+ell_norm_gram_wide_kernel(const float* __restrict__ vals, const int* __restrict__ idx,
+                          const float* __restrict__ cscale, long long npts, int r, int c, int s,
+                          float eps, unsigned slots, int cap, double* __restrict__ G,
+                          double* __restrict__ D, unsigned long long* __restrict__ stats) {
+  extern __shared__ int gram_smem[];
+  int* keys = gram_smem;
+  unsigned* sums = reinterpret_cast<unsigned*>(gram_smem + slots);
+  unsigned* dhist = sums + slots;
+  const bool dlocal = s <= kMaxSmemBins;
+  const size_t head = 2 * static_cast<size_t>(slots) + (dlocal ? s : 0);   // words
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int warps = blockDim.x >> 5;
+  Pair* pairs = reinterpret_cast<Pair*>(gram_smem + ((head + 1) & ~static_cast<size_t>(1))) +
+                static_cast<size_t>(warp) * cap;
+  gram_smem_init(keys, sums, slots, dhist, dlocal, s);
+
+  unsigned kept = 0, spilled = 0;
+  const long long stride = static_cast<long long>(gridDim.x) * warps;
+  for (long long p = static_cast<long long>(blockIdx.x) * warps + warp; p < npts; p += stride) {
+    const size_t base = c == 1 ? static_cast<size_t>(p) * r
+                               : static_cast<size_t>(p / c) * r * c + static_cast<size_t>(p % c);
+    // the row sum in normalized_point's order, every lane alike; lane
+    // a % 32 keeps entry a
+    float rs = 0.0f;
+    for (int a = 0; a < r; ++a) {
+      int col;
+      const float w1 = scaled_entry(vals, idx, cscale, base + static_cast<size_t>(a) * c, s, col);
+      rs += w1;
+      if (a < cap && (a & 31) == lane) pairs[a] = Pair{w1, col};
+    }
+    const float rinv = 1.0f / (rs + eps);
+    for (int a = lane; a < r && a < cap; a += 32) pairs[a].w *= rinv;
+    __syncwarp();
+    for (int a = lane; a < r; a += 32) {
+      const Pair e = wide_entry(pairs, cap, a, vals, idx, cscale, base, c, s, rinv);
+      if (e.c >= 0) d_add(dhist, dlocal, D, e.c, e.w);
+    }
+    // the pairs a <= b of the upper triangle row by row, lane l taking the
+    // l-th and every 32nd after it
+    int a = 0, b = lane;
+    while (a < r && b >= r) b += ++a - r;
+    while (a < r) {
+      const Pair ea = wide_entry(pairs, cap, a, vals, idx, cscale, base, c, s, rinv);
+      const Pair eb = wide_entry(pairs, cap, b, vals, idx, cscale, base, c, s, rinv);
+      if (ea.c >= 0 && eb.c >= 0)
+        pair_add<false>(keys, sums, slots, G, s, a, b, ea.c, eb.c, ea.w, eb.w, kept, spilled);
+      b += 32;
+      while (a < r && b >= r) b += ++a - r;
+    }
+    __syncwarp();   // the pairs read before the next point's overwrite them
+  }
+  gram_flush(keys, sums, slots, dhist, dlocal, s, G, D, kept, spilled, stats);
+}
+
 }  // namespace
 
 // vals, idx: nnz entries (f32, i32), the (n, r) or (nch, r, c) layout
@@ -241,28 +415,24 @@ extern "C" int flgp_ell_colsum_t(const void* vals, const void* idx, long long nn
   return static_cast<int>(cudaGetLastError());
 }
 
-// vals, idx (nch, r, c), or (n, r) with nch = n, c = 1; cscale (s,) -> G (s, s),
-// D (s,), both float64, and stats (2,) uint64 (pair additions kept in shared memory, sent to global
-// cells), all zeroed by the caller.  table_slots: the shared-memory table's
-// size, a power of two in [2, 2^14], 0 for the default; s above 46340 runs
-// without the table.
-extern "C" int flgp_ell_norm_gram_t(const void* vals, const void* idx, const void* cscale,
-                                    int nch, int r, int c, int s, float eps, int table_slots,
-                                    void* G, void* D, void* stats, void* stream) {
+namespace {
+
+// flgp_ell_norm_gram_t and its run-time-r twin; wide: the run-time-r body at
+// any r, pair_cap > 0 holding at most that many pairs a warp in shared memory
+int norm_gram(const void* vals, const void* idx, const void* cscale, int nch, int r, int c, int s,
+              float eps, int table_slots, void* G, void* D, void* stats, void* stream, bool wide,
+              int pair_cap) {
   const long long npts = static_cast<long long>(nch) * c;
   if (npts <= 0) return static_cast<int>(cudaSuccess);
   unsigned slots = table_slots ? static_cast<unsigned>(table_slots) : kGramSlots;
-  if (table_slots < 0 || slots < 2 || slots > kGramSlots || (slots & (slots - 1)))
+  if (r < 1 || table_slots < 0 || slots < 2 || slots > kGramSlots || (slots & (slots - 1)))
     return static_cast<int>(cudaErrorInvalidValue);
   if (s > kGramMaxKeyS) slots = 0;
-  const size_t smem = static_cast<size_t>(slots) * (sizeof(int) + sizeof(unsigned)) +
-                      (s <= kMaxSmemBins ? static_cast<size_t>(s) * sizeof(unsigned) : 0);
+  size_t smem = static_cast<size_t>(slots) * (sizeof(int) + sizeof(unsigned)) +
+                (s <= kMaxSmemBins ? static_cast<size_t>(s) * sizeof(unsigned) : 0);
   int sms = 0;
   cudaError_t err = sm_count(&sms);
   if (err != cudaSuccess) return static_cast<int>(err);
-  long long blocks = (npts + kGramThreads - 1) / kGramThreads;
-  if (blocks > sms) blocks = sms;
-  const dim3 grid(static_cast<unsigned>(blocks));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* v = static_cast<const float*>(vals);
   const int* ii = static_cast<const int*>(idx);
@@ -270,6 +440,25 @@ extern "C" int flgp_ell_norm_gram_t(const void* vals, const void* idx, const voi
   double* g = static_cast<double*>(G);
   double* dd = static_cast<double*>(D);
   unsigned long long* stt = static_cast<unsigned long long*>(stats);
+  if (wide || r > kTemplatedMaxR) {
+    constexpr int warps = kGramThreads / 32;
+    const size_t head = (smem + sizeof(Pair) - 1) / sizeof(Pair) * sizeof(Pair);
+    long long cap = head < kMaxBlockSmem ? (kMaxBlockSmem - head) / (warps * sizeof(Pair)) : 0;
+    if (cap > r) cap = r;
+    if (pair_cap > 0 && cap > pair_cap) cap = pair_cap;
+    smem = head + static_cast<size_t>(cap) * warps * sizeof(Pair);
+    long long blocks = (npts + warps - 1) / warps;
+    if (blocks > sms) blocks = sms;
+    err = cudaFuncSetAttribute(ell_norm_gram_wide_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    ell_norm_gram_wide_kernel<<<static_cast<unsigned>(blocks), kGramThreads, smem, st>>>(
+        v, ii, cs, npts, r, c, s, eps, slots, static_cast<int>(cap), g, dd, stt);
+    return static_cast<int>(cudaGetLastError());
+  }
+  long long blocks = (npts + kGramThreads - 1) / kGramThreads;
+  if (blocks > sms) blocks = sms;
+  const dim3 grid(static_cast<unsigned>(blocks));
   switch (r) {
 #define FLGP_GRAM_T_CASE(R)                                                                    \
   case R:                                                                                      \
@@ -282,8 +471,32 @@ extern "C" int flgp_ell_norm_gram_t(const void* vals, const void* idx, const voi
     break;
     FLGP_R_CASES(FLGP_GRAM_T_CASE)
 #undef FLGP_GRAM_T_CASE
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// vals, idx (nch, r, c), or (n, r) with nch = n, c = 1; cscale (s,) -> G (s, s),
+// D (s,), both float64, and stats (2,) uint64 (pair additions kept in shared memory, sent to global
+// cells), all zeroed by the caller.  table_slots: the shared-memory table's
+// size, a power of two in [2, 2^14], 0 for the default; s above 46340 runs
+// without the table.  r <= 16 takes the templated body, a larger r the
+// run-time-r body.
+extern "C" int flgp_ell_norm_gram_t(const void* vals, const void* idx, const void* cscale,
+                                    int nch, int r, int c, int s, float eps, int table_slots,
+                                    void* G, void* D, void* stats, void* stream) {
+  return norm_gram(vals, idx, cscale, nch, r, c, s, eps, table_slots, G, D, stats, stream, false,
+                   0);
+}
+
+// The same through the run-time-r body at any r >= 1, holding at most
+// pair_cap (> 0; 0: as many as fit) pairs a warp in shared memory: the
+// templated body's bit oracle at r <= 16, for the tests and the smoke test.
+extern "C" int flgp_ell_norm_gram_t_wide(const void* vals, const void* idx, const void* cscale,
+                                         int nch, int r, int c, int s, float eps,
+                                         int table_slots, int pair_cap, void* G, void* D,
+                                         void* stats, void* stream) {
+  return norm_gram(vals, idx, cscale, nch, r, c, s, eps, table_slots, G, D, stats, stream, true,
+                   pair_cap);
 }

@@ -61,6 +61,13 @@
 // variant and lae_fused.cu the fused one, two nvcc processes side by side
 // (the 16 fan-ins of one variant take a compiler about as long as all the
 // other sources of the library).
+//
+// Fan-in.  These bodies take 1 <= r <= 16 (G's triangle in registers).  Every
+// larger r goes to the exact variant's run-time-r body in lae_wide.cu: a
+// warp a point, G in shared memory, the same roundings in the same order, so
+// the plain version's bits at every r up to the one limit left, r^2 floats
+// of G beside the momentum table in one block's 227 KB (r = 240 at 150
+// steps).  The fused variant stays r <= 16.
 
 #include "lae.cuh"
 
@@ -91,7 +98,9 @@ __global__ void div_check_kernel(unsigned long long* __restrict__ bad) {
 // X: point p's coordinate k at X[p*xs_p + k*xs_k] (f32); U (s, d) f32;
 // idx (nch, r, c) i32 with nch*c = npts >= n, the (n, r) layout being c = 1;
 // alpha (iters,) f32, the momentum sequence -> out as idx, f32, zero on the
-// npts - n pad points.  1 <= r <= 16.  fused != 0 takes the fused variant.
+// npts - n pad points.  r <= 16 takes the templated body, a larger r the
+// run-time-r body (r^2 + iters floats within 227 KB); fused != 0 takes the
+// fused variant, r <= 16 only.
 extern "C" int flgp_lae(const void* X, long long xs_p, long long xs_k, const void* U,
                         const void* idx, long long n, long long npts, int c, int s, int d, int r,
                         int iters, const void* alpha, int fused, void* out, void* stream) {
@@ -104,6 +113,21 @@ extern "C" int flgp_lae(const void* X, long long xs_p, long long xs_k, const voi
                         static_cast<const float*>(alpha), static_cast<float*>(out),
                         static_cast<cudaStream_t>(stream)};
   return fused ? flgp_k2::launch_fused(a) : flgp_k2::launch<false>(a);
+}
+
+// flgp_lae's exact variant through the run-time-r body at any r it takes
+// (1 <= r, r^2 + iters floats within 227 KB): the templated bodies' bit
+// oracle at r <= 16, for the tests and the smoke test.
+extern "C" int flgp_lae_wide(const void* X, long long xs_p, long long xs_k, const void* U,
+                             const void* idx, long long n, long long npts, int c, int s, int d,
+                             int r, int iters, const void* alpha, void* out, void* stream) {
+  if (npts <= 0) return static_cast<int>(cudaSuccess);
+  if (c <= 0 || iters < 0 || n > npts) return static_cast<int>(cudaErrorInvalidValue);
+  const flgp_k2::Args a{static_cast<const float*>(X), xs_p, xs_k, static_cast<const float*>(U),
+                        static_cast<const int*>(idx), n, npts, c, s, d, r, iters,
+                        static_cast<const float*>(alpha), static_cast<float*>(out),
+                        static_cast<cudaStream_t>(stream)};
+  return flgp_k2::launch_wide(a);
 }
 
 // *bad (zeroed by the caller) += the number of floats on which the

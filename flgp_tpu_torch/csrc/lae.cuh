@@ -1,7 +1,8 @@
 // K2's kernel body and launcher, shared by lae.cu (the exact variant and
 // the C entry points) and lae_fused.cu (the fused variant): two translation
 // units, so that nvcc compiles the 16 fan-ins of each variant side by side.
-// The design is described in lae.cu.
+// Every other r goes to the run-time-r body of lae_wide.cu (exact variant
+// only).  The design is described in lae.cu.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -213,6 +214,8 @@ struct Args {
   cudaStream_t stream;
 };
 
+int launch_wide(const Args& a);   // the run-time-r body, compiled in lae_wide.cu
+
 template <bool FUSED>
 int launch(const Args& a) {
   const dim3 grid(static_cast<unsigned>((a.npts + kThreads - 1) / kThreads));
@@ -226,7 +229,8 @@ int launch(const Args& a) {
     FLGP_R_CASES(FLGP_LAE_CASE)
 #undef FLGP_LAE_CASE
     default:
-      return static_cast<int>(cudaErrorInvalidValue);
+      if constexpr (FUSED) return static_cast<int>(cudaErrorInvalidValue);
+      else return launch_wide(a);
   }
   return static_cast<int>(cudaGetLastError());
 }

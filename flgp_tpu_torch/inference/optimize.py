@@ -11,6 +11,10 @@ batch picks the seed, then a hand-written Adam runs in log-transformed
 (bound-respecting) coordinates on ``torch.autograd`` gradients and keeps the
 best iterate.  It is deterministic, so in float64 it lands on the JAX
 package's result.
+
+The three minimizers build their grids on ``device``: the CUDA device when
+it is None (``config.resolve_device``, which raises without one), as every
+entry point of the port runs on the card unless the caller names the CPU.
 """
 
 from __future__ import annotations
@@ -19,6 +23,8 @@ import math
 from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
+
+from ..config import resolve_device
 
 
 class Scalar1DResult(NamedTuple):
@@ -63,6 +69,7 @@ def minimize_1d_log(
     points, each shrinking the bracket by 2/(width−1)) and the returned
     objective always use the exact ``fn``.  Non-finite values count as +inf.
     """
+    device = resolve_device(device, "minimize_1d_log")
     lo_l = torch.log(torch.tensor(lo, dtype=dtype, device=device))
     hi_l = torch.log(torch.tensor(hi, dtype=dtype, device=device))
     g = lambda u: _finite(fn(torch.exp(u)))  # noqa: E731
@@ -205,6 +212,7 @@ def minimize_t_noise(
     lanes, and the better of the Adam iterate and the grid seed is returned,
     with the gradient norm taken at the returned point.  Every field of the
     result has shape (lanes,)."""
+    device = resolve_device(device, "minimize_t_noise")
     ts = _log_grid(t_range, n_grid, dtype, device)
     ns = _log_grid(noise_range, n_grid, dtype, device)
     T, Nz = torch.meshgrid(ts, ns, indexing="ij")
@@ -247,6 +255,7 @@ def minimize_t_noisevec(
     homoscedastic noise), joined by the point (t0, noise0), picks the
     starting basin; Adam then runs over the full (t, noise-vector) space.
     The result's noise has shape (lanes, m), its other fields (lanes,)."""
+    device = resolve_device(device, "minimize_t_noisevec")
     ts = _log_grid(t_range, n_grid, dtype, device)
     ns = _log_grid(noise_range, n_grid, dtype, device)
     T, Nz = torch.meshgrid(ts, ns, indexing="ij")

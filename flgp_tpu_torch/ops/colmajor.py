@@ -26,7 +26,7 @@ from ..config import EPS, KernelType, LaplacianType
 from ..types import EigenPair, EllMatrix
 from . import hopper_kernels as hk
 from .kmeans import kmeans
-from .knn import KERNEL_MAX_R, knn
+from .knn import knn
 from .lae import lae_weights_t
 from .spectrum import _top_k_eigh, spectrum_from_Z
 
@@ -200,13 +200,13 @@ def heat_kernel_spectrum_colmajor(
     of ``fit.spectral.build_spectrum`` given anchors, with device memory
     O(n·r) for the graph plus the (n, K) vectors.
 
-    float32 with r ≤ 16 takes the fused tail (K6–K8); float64 the exact
+    float32 takes the fused tail (K6–K8) at every r; float64 the exact
     composition.  Unlike the reference, a cluster-normalized Laplacian
     without cluster sizes raises on both branches."""
     n = Xt.shape[1]
     s = U.shape[0]
     idx, w = build_graph_colmajor(Xt, U, r, kernel, epsilon_sq4, lae_iters, chunk)
-    if w.dtype == torch.float32 and r <= KERNEL_MAX_R:
+    if w.dtype == torch.float32:
         return spectrum_fused_colmajor(idx, w, s, K, gl, root, n, cluster_sizes)
     wn = normalize_colmajor(idx, w, s, gl, cluster_sizes)
     return spectrum_colmajor(idx, wn, s, K, root, n)

@@ -15,6 +15,18 @@ across blocks), so C, Ĝ and D are the same bits on every launch.
 and to its transpose in one launch: the product (Z + Zᵀ)·X of the sparse
 GLGP operator.
 
+Fan-in.  K1 takes 1 ≤ r ≤ 16 (``KERNEL_MAX_R``), as the reference's
+``fused_knn``; its wider r is the reference's XLA product, the plain version
+here (``ops.knn``).  K2–K8 take every r the TPU kernels take: K3 and K6 walk
+the flat entries at any r, K4/K7 and K5/K8 have templated bodies for
+r ≤ 16 and a run-time-r body for every larger r, and K2 has a run-time-r
+body for 17 ≤ r ≤ ``lae_max_r(iters)`` (its one limit, shared memory:
+r = 240 at 150 steps; above it the wrapper raises).  The private
+``runtime_r=True`` of ``_lae_weights``, ``_ell_norm_gram`` and
+``_ell_norm_matmat`` (and their ``_t`` twins) forces the run-time-r body
+at r ≤ 16, for the tests and chip_smoke.py: it gives the templated bodies'
+bits.
+
 Each wrapper takes its plain PyTorch version for tensors on the CPU, and only
 then.  For CUDA tensors it checks device, dtype (float32 values, int32
 indices), shape and contiguity, raises on anything else, launches the kernel
@@ -59,9 +71,10 @@ def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple,
         raise ValueError(f"{name} must be contiguous")
 
 
-def _check_fan_in(r: int) -> None:
-    if not 1 <= r <= KERNEL_MAX_R:
-        raise ValueError(f"the CUDA kernels take 1 <= r <= {KERNEL_MAX_R}, got r={r}")
+def _check_r(name: str, r: int, most: Optional[int] = None) -> None:
+    if r < 1 or (most is not None and r > most):
+        limit = "" if most is None else f" <= {most}"
+        raise ValueError(f"the CUDA kernel {name} takes 1 <= r{limit}, got r={r}")
 
 
 def _launch(name: str, device: torch.device, fn, *args) -> None:
@@ -117,7 +130,7 @@ def _knn(X: torch.Tensor, U: torch.Tensor, r: int, split: int,
     the tests and chip_smoke.py only.  The result depends on neither."""
     n, d = X.shape
     s = U.shape[0]
-    _check_fan_in(r)
+    _check_r("knn", r, KERNEL_MAX_R)
     if r > s:
         raise ValueError(f"knn needs r <= s, got r={r}, s={s}")
     _check("X", X, torch.float32, (n, d), X.device)
@@ -145,6 +158,27 @@ def _knn(X: torch.Tensor, U: torch.Tensor, r: int, split: int,
 
 
 _MOMENTUM = {}   # (iters, device) -> the FISTA momentum table on that device
+_BLOCK_SMEM = 232448          # shared memory a block may take on the H100: 227 KB
+_TEMPLATED_MAX_R = 16         # the fan-ins of the templated bodies (csrc/common.cuh)
+
+
+def _lae_wide_floats(r: int, iters: int) -> int:
+    """Shared floats of a block of K2's run-time-r body with one warp
+    (csrc/lae_wide.cu: ``launch_wide_ns``): the momentum table, then the
+    warp's slice, a broadcast vector of 32·NS floats and, at r > 32, the
+    r × r Gram, each padded to 16 bytes."""
+    ns = 1 if r <= 32 else 2 if r <= 64 else 4 if r <= 128 else 8
+    return -(-iters // 4) * 4 + -(-(32 * ns + (r * r if ns > 1 else 0)) // 4) * 4
+
+
+def lae_max_r(iters: int = 150) -> int:
+    """The largest r K2 takes on the card for ``iters`` steps: a point's r²
+    Gram floats beside the momentum table's ``iters`` floats in one block's
+    shared memory (r = 240 at 150 steps).  The one fan-in limit of K2–K8."""
+    r = _TEMPLATED_MAX_R
+    while r < 256 and 4 * _lae_wide_floats(r + 1, int(iters)) <= _BLOCK_SMEM:
+        r += 1
+    return r
 
 
 def _momentum_table(iters: int, device: torch.device) -> torch.Tensor:
@@ -163,17 +197,18 @@ def lae_weights(X: torch.Tensor, anchors: torch.Tensor, knn_idx: torch.Tensor,
 
 
 def _lae_weights(X: torch.Tensor, anchors: torch.Tensor, knn_idx: torch.Tensor, iters: int,
-                 fused: bool) -> torch.Tensor:
+                 fused: bool, runtime_r: bool = False) -> torch.Tensor:
     """K2 on CUDA tensors, point-major.  ``fused`` takes the kernel's
-    fused-multiply-add variant, which is not the plain version bit for bit;
-    no fit uses it, the smoke test and the card tests measure it."""
+    fused-multiply-add variant (r ≤ 16), which is not the plain version bit
+    for bit; no fit uses it, the smoke test and the card tests measure it.
+    ``runtime_r`` takes the run-time-r body at any r it holds."""
     n, d = X.shape
     r = knn_idx.shape[1]
     _check("X", X, torch.float32, (n, d), X.device)
     _check("knn_idx", knn_idx, torch.int32, (n, r), X.device)
     out = torch.empty((n, r), dtype=torch.float32, device=X.device)
     # the (n, r) layout is the chunked one with c = 1
-    _launch_lae(X, d, 1, d, anchors, knn_idx, n, n, 1, r, iters, fused, out)
+    _launch_lae(X, d, 1, d, anchors, knn_idx, n, n, 1, r, iters, fused, runtime_r, out)
     return out
 
 
@@ -204,8 +239,9 @@ def lae_weights_t(Xt: torch.Tensor, anchors: torch.Tensor, knn_idx_t: torch.Tens
 
 
 def _lae_weights_t(Xt: torch.Tensor, anchors: torch.Tensor, knn_idx_t: torch.Tensor, iters: int,
-                   fused: bool) -> torch.Tensor:
-    """K2 on CUDA tensors, feature-major; ``fused`` as in ``_lae_weights``."""
+                   fused: bool, runtime_r: bool = False) -> torch.Tensor:
+    """K2 on CUDA tensors, feature-major; ``fused`` and ``runtime_r`` as in
+    ``_lae_weights``."""
     d, n = Xt.shape
     if knn_idx_t.dim() != 3:
         raise ValueError(f"knn_idx_t must be (nch, r, c), got shape {tuple(knn_idx_t.shape)}")
@@ -215,24 +251,28 @@ def _lae_weights_t(Xt: torch.Tensor, anchors: torch.Tensor, knn_idx_t: torch.Ten
     _check("Xt", Xt, torch.float32, (d, n), Xt.device)
     _check("knn_idx_t", knn_idx_t, torch.int32, (nch, r, c), Xt.device)
     out = torch.empty((nch, r, c), dtype=torch.float32, device=Xt.device)
-    _launch_lae(Xt, 1, n, d, anchors, knn_idx_t, n, nch * c, c, r, iters, fused, out)
+    _launch_lae(Xt, 1, n, d, anchors, knn_idx_t, n, nch * c, c, r, iters, fused, runtime_r, out)
     return out
 
 
 def _launch_lae(X: torch.Tensor, xs_p: int, xs_k: int, d: int, anchors: torch.Tensor,
                 idx: torch.Tensor, n: int, npts: int, c: int, r: int, iters: int, fused: bool,
-                out: torch.Tensor) -> None:
+                runtime_r: bool, out: torch.Tensor) -> None:
     """Both K2 entries: coordinate k < d of point p is at X[p·xs_p + k·xs_k];
     idx and out are (npts/c, r, c), of which (n, r) is the case c = 1."""
     s = anchors.shape[0]
-    _check_fan_in(r)
-    _check("anchors", anchors, torch.float32, (s, d), X.device)
     if not 0 <= int(iters) <= 12288:
         raise ValueError(f"the CUDA kernel takes 0 <= iters <= 12288, got iters={iters}")
-    _launch("lae_weights", X.device, _build.load().flgp_lae,
-            X.data_ptr(), xs_p, xs_k, anchors.data_ptr(), idx.data_ptr(), n, npts, c, s, d, r,
-            int(iters), _momentum_table(iters, X.device).data_ptr(), int(bool(fused)),
-            out.data_ptr())
+    _check_r("lae_weights" + (" (fused)" if fused else ""), r,
+             _TEMPLATED_MAX_R if fused else lae_max_r(iters))
+    _check("anchors", anchors, torch.float32, (s, d), X.device)
+    lib = _build.load()
+    head = (X.data_ptr(), xs_p, xs_k, anchors.data_ptr(), idx.data_ptr(), n, npts, c, s, d, r,
+            int(iters), _momentum_table(iters, X.device).data_ptr())
+    if runtime_r:
+        _launch("lae_weights", X.device, lib.flgp_lae_wide, *head, out.data_ptr())
+    else:
+        _launch("lae_weights", X.device, lib.flgp_lae, *head, int(bool(fused)), out.data_ptr())
 
 
 # ---------------------------------------------------------------------------
@@ -331,29 +371,37 @@ def ell_norm_gram_partial(values: torch.Tensor, indices: torch.Tensor, cscale: t
 
 
 def _ell_norm_gram(values: torch.Tensor, indices: torch.Tensor, cscale: torch.Tensor,
-                   eps: float, table_slots: int, rounded: bool = True) -> Tuple[torch.Tensor, ...]:
-    """K4 on CUDA tensors: K7's body on the (n, r) layout; ``table_slots``
-    and the counts returned beside Ĝ and D as in ``_ell_norm_gram_t``."""
+                   eps: float, table_slots: int, rounded: bool = True, runtime_r: bool = False,
+                   pair_cap: int = 0) -> Tuple[torch.Tensor, ...]:
+    """K4 on CUDA tensors: K7's body on the (n, r) layout; ``table_slots``,
+    ``runtime_r``, ``pair_cap`` and the counts returned beside Ĝ and D as in
+    ``_ell_norm_gram_t``."""
     n, r = values.shape
     _check("values", values, torch.float32, (n, r), values.device)
     _check("indices", indices, torch.int32, (n, r), values.device)
-    return _gram("ell_norm_gram", values, indices, cscale, eps, table_slots, n, r, 1, rounded)
+    return _gram("ell_norm_gram", values, indices, cscale, eps, table_slots, n, r, 1, rounded,
+                 runtime_r, pair_cap)
 
 
 def _gram(name: str, values: torch.Tensor, indices: torch.Tensor, cscale: torch.Tensor,
-          eps: float, table_slots: int, nch: int, r: int, c: int,
-          rounded: bool = True) -> Tuple[torch.Tensor, ...]:
+          eps: float, table_slots: int, nch: int, r: int, c: int, rounded: bool = True,
+          runtime_r: bool = False, pair_cap: int = 0) -> Tuple[torch.Tensor, ...]:
     """K4 and K7: one launch into a zeroed float64 buffer that holds Ĝ, D
     and the two counts; Ĝ and D rounded to float32 once, in one cast (left
     in float64 without ``rounded``)."""
     s = cscale.shape[0]
-    _check_fan_in(r)
+    _check_r(name, r)
     _check("cscale", cscale, torch.float32, (s,), values.device)
     buf = torch.zeros((s * s + s + 2,), dtype=torch.float64, device=values.device)
     stats = buf[s * s + s:].view(torch.int64)
-    _launch(name, values.device, _build.load().flgp_ell_norm_gram_t,
-            values.data_ptr(), indices.data_ptr(), cscale.data_ptr(), nch, r, c, s, float(eps),
-            int(table_slots), buf.data_ptr(), buf[s * s:].data_ptr(), stats.data_ptr())
+    lib = _build.load()
+    head = (values.data_ptr(), indices.data_ptr(), cscale.data_ptr(), nch, r, c, s, float(eps),
+            int(table_slots))
+    tail = (buf.data_ptr(), buf[s * s:].data_ptr(), stats.data_ptr())
+    if runtime_r:
+        _launch(name, values.device, lib.flgp_ell_norm_gram_t_wide, *head, int(pair_cap), *tail)
+    else:
+        _launch(name, values.device, lib.flgp_ell_norm_gram_t, *head, *tail)
     out = buf[:s * s + s].to(torch.float32) if rounded else buf[:s * s + s]
     return out[:s * s].view(s, s), out[s * s:], stats
 
@@ -373,33 +421,46 @@ def ell_norm_matmat(values: torch.Tensor, indices: torch.Tensor, cscale: torch.T
 
 def _ell_norm_matmat(values: torch.Tensor, indices: torch.Tensor, cscale: torch.Tensor,
                      W: torch.Tensor, eps: float, legacy: bool = False,
-                     out: Optional[torch.Tensor] = None) -> torch.Tensor:
+                     out: Optional[torch.Tensor] = None, runtime_r: bool = False,
+                     pair_cap: int = 0) -> torch.Tensor:
     """K5 on CUDA tensors: K8's body on the (n, r) layout (c = 1).
-    ``legacy`` takes the first, warp-a-row body instead, the new body's bit
-    oracle, for the tests and chip_smoke.py only; ``out`` an (n, K) float32
-    buffer to write into (the tests pass one that is not 16-byte aligned)."""
+    ``legacy`` takes the first, warp-a-row body instead (r ≤ 16), the tiled
+    body's bit oracle, and ``runtime_r`` the run-time-r tiled body at any r,
+    holding at most ``pair_cap`` (0: as many as fit) of a point's pairs in
+    shared memory, the templated body's bit oracle at r ≤ 16: both for the
+    tests and chip_smoke.py only.  ``out``: an (n, K) float32 buffer to write
+    into (the tests pass one that is not 16-byte aligned)."""
     n, r = values.shape
     _check("values", values, torch.float32, (n, r), values.device)
     _check("indices", indices, torch.int32, (n, r), values.device)
-    lib = _build.load()
-    fn = lib.flgp_ell_norm_matmat_legacy if legacy else lib.flgp_ell_norm_matmat
-    return _matmat("ell_norm_matmat", fn, (n, r), values, indices, cscale, W, eps, out, n, r)
+    return _matmat("ell_norm_matmat", (n, r, 1), values, indices, cscale, W, eps, out, legacy,
+                   runtime_r, pair_cap)
 
 
-def _matmat(name: str, fn, shape: tuple, values: torch.Tensor, indices: torch.Tensor,
+def _matmat(name: str, shape: tuple, values: torch.Tensor, indices: torch.Tensor,
             cscale: torch.Tensor, W: torch.Tensor, eps: float, out: Optional[torch.Tensor],
-            rows: int, r: int) -> torch.Tensor:
-    """K5 and K8: one launch of ``fn`` (the graph's ``shape`` after the four
-    pointers) into ``out``, (rows, K), allocated when None."""
+            legacy: bool, runtime_r: bool, pair_cap: int) -> torch.Tensor:
+    """K5 and K8: one launch on the graph's (nch, r, c) ``shape`` into
+    ``out``, (nch·c, K), allocated when None."""
+    nch, r, c = shape
     s, K = W.shape
-    _check_fan_in(r)
+    _check_r(name, r, _TEMPLATED_MAX_R if legacy else None)
     _check("cscale", cscale, torch.float32, (s,), values.device)
     _check("W", W, torch.float32, (s, K), values.device)
     if out is None:
-        out = torch.empty((rows, K), dtype=torch.float32, device=values.device)
-    _check("out", out, torch.float32, (rows, K), values.device)
-    _launch(name, values.device, fn, values.data_ptr(), indices.data_ptr(), cscale.data_ptr(),
-            W.data_ptr(), *shape, s, K, float(eps), out.data_ptr())
+        out = torch.empty((nch * c, K), dtype=torch.float32, device=values.device)
+    _check("out", out, torch.float32, (nch * c, K), values.device)
+    lib = _build.load()
+    head = (values.data_ptr(), indices.data_ptr(), cscale.data_ptr(), W.data_ptr())
+    if runtime_r:
+        fn, args = lib.flgp_ell_norm_matmat_wide, (nch, r, c, s, K, float(eps), int(pair_cap))
+    elif values.dim() == 2:
+        fn = lib.flgp_ell_norm_matmat_legacy if legacy else lib.flgp_ell_norm_matmat
+        args = (nch, r, s, K, float(eps))
+    else:
+        fn = lib.flgp_ell_norm_matmat_t_legacy if legacy else lib.flgp_ell_norm_matmat_t
+        args = (nch, r, c, s, K, float(eps))
+    _launch(name, values.device, fn, *head, *args, out.data_ptr())
     return out
 
 
@@ -440,15 +501,16 @@ def ell_colsum_t(values: torch.Tensor, indices: torch.Tensor, s: int) -> torch.T
 
 def ell_norm_gram_t_plain(values: torch.Tensor, indices: torch.Tensor, cscale: torch.Tensor,
                           eps: float = EPS) -> Tuple[torch.Tensor, torch.Tensor]:
-    """D by scatter-add, Ĝ by a scatter-add of all r² pairs of each point."""
+    """D by scatter-add, Ĝ by a scatter-add of all r² pairs of each point,
+    chunk by chunk, so the (r, r, c) pair arrays stay one chunk's size."""
     s = cscale.shape[0]
     wn = _normalized_t(values, indices, cscale, eps)
-    idx = indices.long()
     D = EllMatrix(wn, indices, s).colsum()
-    pairs = (wn[:, :, None, :] * wn[:, None, :, :]).reshape(-1)
-    flat = (idx[:, :, None, :] * s + idx[:, None, :, :]).reshape(-1)
-    G = values.new_zeros((s * s,)).index_add_(0, flat, pairs).reshape(s, s)
-    return G, D
+    G = values.new_zeros((s * s,))
+    for w, idx in zip(wn, indices.long()):
+        G.index_add_(0, (idx[:, None, :] * s + idx[None, :, :]).reshape(-1),
+                     (w[:, None, :] * w[None, :, :]).reshape(-1))
+    return G.reshape(s, s), D
 
 
 def ell_norm_gram_t(values: torch.Tensor, indices: torch.Tensor, cscale: torch.Tensor,
@@ -460,16 +522,20 @@ def ell_norm_gram_t(values: torch.Tensor, indices: torch.Tensor, cscale: torch.T
 
 
 def _ell_norm_gram_t(values: torch.Tensor, indices: torch.Tensor, cscale: torch.Tensor,
-                     eps: float, table_slots: int) -> Tuple[torch.Tensor, ...]:
+                     eps: float, table_slots: int, runtime_r: bool = False,
+                     pair_cap: int = 0) -> Tuple[torch.Tensor, ...]:
     """K7 on CUDA tensors.  ``table_slots`` is the size of the kernel's
     shared-memory table of pair sums (a power of two in [2, 16384]; 0 lets the
     entry point choose).  The result does not depend on it, bit for bit: only
     the share of additions that stay in shared memory does; the tests force
-    it.  Also returns the kernel's counts (pair additions kept in shared
-    memory, sent straight to the global cells) as an int64 tensor on the
-    device."""
+    it.  ``runtime_r`` takes the run-time-r body at any r, holding at most
+    ``pair_cap`` (0: as many as fit) of a point's pairs in shared memory, the
+    rest formed again from the graph; nor do they change a bit.  Also returns
+    the kernel's counts (pair additions kept in shared memory, sent straight
+    to the global cells) as an int64 tensor on the device."""
     nch, r, c = _check_t(values, indices)
-    return _gram("ell_norm_gram_t", values, indices, cscale, eps, table_slots, nch, r, c)
+    return _gram("ell_norm_gram_t", values, indices, cscale, eps, table_slots, nch, r, c,
+                 runtime_r=runtime_r, pair_cap=pair_cap)
 
 
 def ell_norm_matmat_t_plain(values: torch.Tensor, indices: torch.Tensor, cscale: torch.Tensor,
@@ -494,13 +560,13 @@ def ell_norm_matmat_t(values: torch.Tensor, indices: torch.Tensor, cscale: torch
 
 def _ell_norm_matmat_t(values: torch.Tensor, indices: torch.Tensor, cscale: torch.Tensor,
                        W: torch.Tensor, eps: float, legacy: bool = False,
-                       out: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """K8 on CUDA tensors; ``legacy`` and ``out`` as in ``_ell_norm_matmat``."""
+                       out: Optional[torch.Tensor] = None, runtime_r: bool = False,
+                       pair_cap: int = 0) -> torch.Tensor:
+    """K8 on CUDA tensors; ``legacy``, ``out``, ``runtime_r`` and
+    ``pair_cap`` as in ``_ell_norm_matmat``."""
     nch, r, c = _check_t(values, indices)
-    lib = _build.load()
-    fn = lib.flgp_ell_norm_matmat_t_legacy if legacy else lib.flgp_ell_norm_matmat_t
-    return _matmat("ell_norm_matmat_t", fn, (nch, r, c), values, indices, cscale, W, eps, out,
-                   nch * c, r)
+    return _matmat("ell_norm_matmat_t", (nch, r, c), values, indices, cscale, W, eps, out,
+                   legacy, runtime_r, pair_cap)
 
 
 # ---------------------------------------------------------------------------

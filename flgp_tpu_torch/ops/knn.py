@@ -8,8 +8,10 @@ import torch
 
 from .distance import sqdist
 
-# Largest fan-in the CUDA kernel is instantiated for (its top-r list lives
-# in registers); wider requests take the plain version.
+# Largest fan-in K1, the CUDA kNN kernel, is instantiated for (its top-r
+# list lives in registers), as the reference's ``fused_knn`` takes r <= 16;
+# wider requests take the plain version, as the reference's take its XLA
+# product.  K1's limit alone: K2–K8 take every r (ops/hopper_kernels.py).
 KERNEL_MAX_R = 16
 
 
@@ -24,7 +26,8 @@ def knn(X: torch.Tensor, U: torch.Tensor, r: int, block: int = 8192) -> KnnResul
 
     float32 with r ≤ 16 goes through the hand-written kernel's wrapper (which
     itself runs the plain version for CPU tensors); float64 and wider r take
-    the plain version on any device.
+    the plain version on any device, as the reference sends them to
+    ``knn_xla``.
     """
     if X.dtype == torch.float32 and U.dtype == torch.float32 and r <= KERNEL_MAX_R:
         from . import hopper_kernels

@@ -12,8 +12,6 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .knn import KERNEL_MAX_R
-
 
 def project_simplex(v: torch.Tensor) -> torch.Tensor:
     """Euclidean projection of each row of v onto the probability simplex
@@ -44,10 +42,11 @@ def lae_weights(
     """Anchor-embedding weights, shape (n, r): row i solves the simplex LSQ
     over anchors[knn_idx[i]].
 
-    float32 with r ≤ 16 goes through the hand-written kernel's wrapper;
-    float64 and wider r take the plain version on any device."""
-    if (X.dtype == torch.float32 and anchors.dtype == torch.float32
-            and knn_idx.shape[1] <= KERNEL_MAX_R):
+    float32 goes through the hand-written kernel's wrapper at every r (on
+    the card up to ``hopper_kernels.lae_max_r``, above which it raises);
+    float64 takes the plain version on any device, as the reference's x64
+    gate does."""
+    if X.dtype == torch.float32 and anchors.dtype == torch.float32:
         from . import hopper_kernels
 
         return hopper_kernels.lae_weights(X, anchors, knn_idx.to(torch.int32), iters)
@@ -79,12 +78,11 @@ def lae_weights_t(
     ``ops.colmajor``: Xt (d, n), knn_idx_t (nch, r, c) with nch·c ≥ n →
     weights (nch, r, c), exactly 0 on the pad points past n.
 
-    float32 with r ≤ 16 is one launch of the hand-written kernel over the
-    whole cloud; float64 and wider r take the plain version chunk by chunk."""
+    float32 is one launch of the hand-written kernel over the whole cloud at
+    every r it takes; float64 takes the plain version chunk by chunk."""
     from . import hopper_kernels
 
-    if (Xt.dtype == torch.float32 and anchors.dtype == torch.float32
-            and knn_idx_t.shape[1] <= KERNEL_MAX_R):
+    if Xt.dtype == torch.float32 and anchors.dtype == torch.float32:
         return hopper_kernels.lae_weights_t(Xt, anchors, knn_idx_t.to(torch.int32), iters)
     return hopper_kernels.lae_weights_t_plain(Xt, anchors, knn_idx_t, iters)
 

@@ -14,7 +14,7 @@ import torch
 from ..config import EPS, LaplacianType
 from ..types import EigenPair, EllMatrix
 from . import hopper_kernels as hk
-from .knn import KERNEL_MAX_R, knn
+from .knn import knn
 from .lae import lae_weights
 from .laplacian import normalize_graph_laplacian
 
@@ -59,16 +59,17 @@ def spectrum_fused(
 ) -> EigenPair:
     """normalize_graph_laplacian + spectrum_from_Z from the RAW ELL graph.
 
-    float32 with r ≤ 16 runs the fused tail through kernels K3–K5: the same
+    float32 runs the fused tail through kernels K3–K5 at every r: the same
     math, reassociated as  AᵀA = diag(dinv)·(ZₙᵀZₙ)·diag(dinv)  with
     D = colsum(Zₙ), so one graph pass yields Ĝ and D, and a second the
     eigenvector extension with every diagonal scale folded into the (s, K)
-    operand.  float64 takes the exact op composition on any device.
+    operand.  float64 takes the exact op composition on any device, as the
+    reference's x64 gate does.
     """
     gl = LaplacianType(gl)
     if gl == LaplacianType.CLUSTER_NORMALIZED and cluster_sizes is None:
         raise ValueError("cluster-normalized Laplacian requires cluster sizes")
-    if values.dtype != torch.float32 or values.shape[1] > KERNEL_MAX_R:
+    if values.dtype != torch.float32:
         Z = normalize_graph_laplacian(EllMatrix(values, indices, s), gl, cluster_sizes)
         return spectrum_from_Z(Z, K, root)
 

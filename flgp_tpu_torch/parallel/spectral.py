@@ -12,8 +12,8 @@ extension (K5) are per row, on each rank's rows.  This is
 ``ops.spectrum.spectrum_fused``'s algebra: Ĝ and D are reduced in float64
 from the kernels' exact partial sums and rounded to float32 once, so on the
 card the sharded spectrum is the single-device spectrum bit for bit, at any
-world size.  float64 graphs, and r above the kernels' limit, take the plain
-versions of the same three steps.
+world size.  float64 graphs take the plain versions of the same three
+steps; float32 takes the kernels at every r.
 
 The GPR objective and prediction reduce the K-dim row statistics of the
 eigenvector store with one all-reduce; the (n, K) vectors never gather.
@@ -29,7 +29,7 @@ import torch
 from ..config import EPS, GraphConfig, KernelType, LaplacianType
 from ..ops import hopper_kernels as hk
 from ..ops import linalg
-from ..ops.knn import KERNEL_MAX_R, knn
+from ..ops.knn import knn
 from ..ops.lae import lae_weights
 from ..ops.spectrum import _top_k_eigh
 from ..types import EllMatrix
@@ -57,7 +57,7 @@ def _spectrum_from_local_ell(mesh: Mesh, Z: EllMatrix, counts, g: GraphConfig,
         raise ValueError("cluster-normalized Laplacian requires cluster sizes")
     values = Z.values.contiguous()
     s, dtype = Z.num_cols, values.dtype
-    kernels = dtype == torch.float32 and values.shape[1] <= KERNEL_MAX_R
+    kernels = dtype == torch.float32
     indices = Z.indices.to(torch.int32).contiguous() if kernels else Z.indices
     if gl == LaplacianType.RW:
         cscale = torch.ones((s,), dtype=dtype, device=values.device)

@@ -197,19 +197,23 @@ def test_normalize_matches_reference(gl, layout):
 # ---------------------------------------------------------------------------
 
 
+@pytest.mark.parametrize("r,s", [(3, 24), (24, 48)])
 @pytest.mark.parametrize("dtype", ["f64", "f32"])
 @pytest.mark.parametrize("kernel", ["lae", "se"])
-def test_spectrum_matches_reference(kernel, dtype):
+def test_spectrum_matches_reference(kernel, dtype, r, s):
     """f64: the exact composition on both sides.  f32: the port's fused
     K6 → K7 → eigh → K8 tail (plain versions) against the reference's f32
-    composition."""
-    X, U = _data(n=413, s=24, seed=5)
+    composition; at r = 24 the same (K1 takes its plain version there, the
+    reference its XLA product), with r < s: at r = s every point's LAE
+    problem spans all the anchors, and the two float32 paths each land some
+    5e-6 from the float64 eigenvalues, on either side."""
+    X, U = _data(n=413, s=s, seed=5)
     K, eps4 = 10, 4.0 * 0.8 ** 2
     npd, tdt = (np.float64, torch.float64) if dtype == "f64" else (np.float32, torch.float32)
-    got = col.heat_kernel_spectrum_colmajor(T(X, tdt).T, T(U, tdt), 3, K,
+    got = col.heat_kernel_spectrum_colmajor(T(X, tdt).T, T(U, tdt), r, K,
                                             LaplacianType.NORMALIZED, True, KernelType(kernel),
                                             eps4, chunk=128)
-    ref = jcol.heat_kernel_spectrum_colmajor(jnp.asarray(X.T, npd), jnp.asarray(U, npd), 3, K,
+    ref = jcol.heat_kernel_spectrum_colmajor(jnp.asarray(X.T, npd), jnp.asarray(U, npd), r, K,
                                              JLaplacian.NORMALIZED, True, kernel=JKernel(kernel),
                                              epsilon_sq4=jnp.asarray(eps4, npd), chunk=128)
     assert got.vectors.shape == (413, K) and got.vectors.dtype == tdt

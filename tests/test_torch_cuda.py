@@ -401,6 +401,165 @@ def test_fit_launches_every_kernel(dev):
     assert np.all(np.isfinite(res.posterior_mean))
 
 
+# ---------------------------------------------------------------------------
+# K2–K8 above r = 16: the run-time-r bodies
+# ---------------------------------------------------------------------------
+
+
+def _lae_problem(gen, dev, n, r, d=3, s=400):
+    from flgp_tpu_torch.ops.knn import knn_plain
+
+    X = _cuda(gen.normal(size=(n, d)), dev)
+    U = _cuda(gen.normal(size=(s, d)), dev)
+    return X, U, knn_plain(X, U, r).indices
+
+
+def _feature_major(X, idx, c):
+    """(Xt (d, n), the (nch, r, c) index array with index 0 on the pads)."""
+    return X.T.contiguous(), _chunked(idx, c)
+
+
+@pytest.mark.parametrize("r", [17, 24, 32, 33, 64, 65, 100])
+def test_lae_wide_body_is_the_plain_version_bit_for_bit(dev, gen, r):
+    """K2 above r = 16 (a warp a point, G in shared memory; one, two and
+    four slots a lane, partial warps) equals ``lae_weights_plain`` bit for
+    bit in both layouts, on a ragged n, with exact zeros on the pad points."""
+    from flgp_tpu_torch.ops import hopper_kernels as hk
+    from flgp_tpu_torch.ops.lae import lae_weights_plain
+
+    n, c = 3001, 768
+    X, U, idx = _lae_problem(gen, dev, n, r)
+    before = hk.LAUNCHES["lae_weights"]
+    got = hk.lae_weights(X, U, idx)
+    Xt, idx_t = _feature_major(X, idx, c)
+    got_t = hk.lae_weights_t(Xt, U, idx_t)
+    torch.cuda.synchronize()
+    assert hk.LAUNCHES["lae_weights"] == before + 2
+    assert torch.equal(got, lae_weights_plain(X, U, idx))
+    flat = got_t.transpose(1, 2).reshape(-1, r)
+    assert torch.equal(flat[:n], got)
+    assert float(torch.max(torch.abs(flat[n:]))) == 0.0              # the pad points
+    assert float(torch.max(torch.abs(got.sum(1) - 1))) <= 1e-5 and float(got.min()) >= 0
+
+
+def test_lae_above_its_shared_memory_limit_raises(dev, gen):
+    """K2's one fan-in limit: r² Gram floats and the momentum table in 227 KB
+    (r = 240 at 150 steps).  Above it, and the fused variant above 16, the
+    wrapper raises; at it, the kernel runs."""
+    from flgp_tpu_torch.ops import hopper_kernels as hk
+    from flgp_tpu_torch.ops.lae import lae_weights_plain
+
+    assert hk.lae_max_r(150) == 240 and hk.lae_max_r(12288) < 240
+    X, U, idx = _lae_problem(gen, dev, 40, 241, s=300)
+    with pytest.raises(ValueError, match="240"):
+        hk.lae_weights(X, U, idx)
+    Xt, idx_t = _feature_major(X, idx, 128)
+    with pytest.raises(ValueError, match="240"):
+        hk.lae_weights_t(Xt, U, idx_t)
+    assert torch.equal(hk.lae_weights(X, U, idx[:, :240].contiguous()),
+                       lae_weights_plain(X, U, idx[:, :240]))
+    with pytest.raises(ValueError):
+        hk._lae_weights(X, U, idx[:, :17].contiguous(), 150, fused=True)
+
+
+@pytest.mark.parametrize("r", [1, 3, 16])
+def test_runtime_r_bodies_are_the_templated_bodies_bit_for_bit(dev, gen, r):
+    """The run-time-r body of each kernel family, forced at r ≤ 16
+    (``runtime_r``), gives the templated body's bits: K2 in both layouts,
+    K4 and K7 (Ĝ, D and the counts' total), K5 and K8; K4/K7 and K5/K8 also
+    with one pair a point held in shared memory, the rest formed again from
+    the graph.  K3 and K6 have one body for every r."""
+    from flgp_tpu_torch.config import EPS
+    from flgp_tpu_torch.ops import hopper_kernels as hk
+
+    X, U, idx = _lae_problem(gen, dev, 3001, r)
+    assert torch.equal(hk._lae_weights(X, U, idx, 150, False, runtime_r=True),
+                       hk.lae_weights(X, U, idx))
+    Xt, idx_t = _feature_major(X, idx, 768)
+    assert torch.equal(hk._lae_weights_t(Xt, U, idx_t, 150, False, runtime_r=True),
+                       hk.lae_weights_t(Xt, U, idx_t))
+
+    v, i, _, _ = _point_major_graph(gen, dev, 4001, r, 64)
+    cs = _cuda(gen.uniform(0.5, 2.0, size=64), dev)
+    W = _cuda(gen.normal(size=(64, 40)), dev)
+    vt, it = _chunked(v, 999), _chunked(i, 999)
+    for cap in (0, 1):
+        G, D, stats = hk._ell_norm_gram(v, i, cs, EPS, 0)
+        Gw, Dw, stats_w = hk._ell_norm_gram(v, i, cs, EPS, 0, runtime_r=True, pair_cap=cap)
+        assert torch.equal(G, Gw) and torch.equal(D, Dw)
+        assert int(stats.sum()) == int(stats_w.sum())
+        Gt, Dt, _ = hk._ell_norm_gram_t(vt, it, cs, EPS, 0, runtime_r=True, pair_cap=cap)
+        assert torch.equal(G, Gt) and torch.equal(D, Dt)
+        assert torch.equal(hk._ell_norm_matmat(v, i, cs, W, EPS, runtime_r=True, pair_cap=cap),
+                           hk.ell_norm_matmat(v, i, cs, W))
+        assert torch.equal(hk._ell_norm_matmat_t(vt, it, cs, W, EPS, runtime_r=True,
+                                                 pair_cap=cap),
+                           hk.ell_norm_matmat_t(vt, it, cs, W))
+
+
+@pytest.mark.parametrize("pair_cap", [0, 5])
+@pytest.mark.parametrize("s", [64, 13000])
+@pytest.mark.parametrize("r", [17, 24, 40])
+def test_ell_colsum_and_gram_at_wide_r_are_exact(dev, gen, r, s, pair_cap):
+    """K3/K6 and K4/K7 above r = 16, with a repeated anchor in every third
+    row and an out-of-range index: C equals ``_colsum_fixed_plain`` bit for
+    bit; Ĝ and D lie within 1e-5·max of the float64 plain version and are
+    the same bits in both layouts, with pairs formed again from the graph
+    (``pair_cap``) or not; the counts add up to the r(r+1)/2 pairs of every
+    point with a weight."""
+    from flgp_tpu_torch.config import EPS
+    from flgp_tpu_torch.ops import hopper_kernels as hk
+
+    n = 4000
+    v, i, v0, i0 = _point_major_graph(gen, dev, n, r, s)
+    cs = _cuda(gen.uniform(0.5, 2.0, size=s), dev)
+    before = dict(hk.LAUNCHES)
+    C = hk.ell_colsum(v, i, s)
+    assert torch.equal(C, hk._colsum_fixed_plain(v, i, s))
+    assert torch.equal(hk.ell_colsum_t(_chunked(v, 768), _chunked(i, 768), s), C)
+    G, D, stats = hk._ell_norm_gram(v, i, cs, EPS, 0, runtime_r=pair_cap > 0, pair_cap=pair_cap)
+    torch.cuda.synchronize()
+    assert hk.LAUNCHES["ell_norm_gram"] == before["ell_norm_gram"] + 1
+    Gp, Dp = hk.ell_norm_gram_plain(v0.double(), i0, cs.double(), EPS)
+    assert float(torch.max(torch.abs(G - Gp))) <= 1e-5 * float(torch.max(torch.abs(Gp)))
+    assert float(torch.max(torch.abs(D - Dp))) <= 1e-5 * float(torch.max(torch.abs(Dp)))
+    assert int(stats.sum()) == n * r * (r + 1) // 2 - r
+    G2, D2 = hk.ell_norm_gram(v, i, cs)
+    assert torch.equal(G, G2) and torch.equal(D, D2)
+    G3, D3 = hk.ell_norm_gram_t(_chunked(v, 768), _chunked(i, 768), cs)
+    assert torch.equal(G, G3) and torch.equal(D, D3)
+
+
+@pytest.mark.parametrize("pair_cap", [0, 7])
+@pytest.mark.parametrize("K", [3, 40, 128])
+@pytest.mark.parametrize("r", [17, 24, 120])
+def test_ell_norm_matmat_at_wide_r_matches_plain(dev, gen, r, K, pair_cap):
+    """K5 and K8 above r = 16 (r = 120: more than the 113 pairs a point the
+    shared slices hold) against the plain version at the tolerance of
+    ``test_ell_kernels_match_plain``, on a ragged n and the chunked layout
+    with a zero-weight pad tail; the same bits whatever share of the pairs
+    is formed again from the graph, and the pad rows exact zeros."""
+    from flgp_tpu_torch.config import EPS
+    from flgp_tpu_torch.ops import hopper_kernels as hk
+
+    n, s = 4001, 300
+    v, i, v0, i0 = _point_major_graph(gen, dev, n, r, s)
+    cs = _cuda(gen.uniform(0.5, 2.0, size=s), dev)
+    W = _cuda(gen.normal(size=(s, K)), dev)
+    before = hk.LAUNCHES["ell_norm_matmat"]
+    got = hk.ell_norm_matmat(v, i, cs, W)
+    torch.cuda.synchronize()
+    assert hk.LAUNCHES["ell_norm_matmat"] == before + 1
+    torch.testing.assert_close(got, hk.ell_norm_matmat_plain(v0, i0, cs, W), rtol=1e-5,
+                               atol=1e-5)
+    assert torch.equal(hk._ell_norm_matmat(v, i, cs, W, EPS, runtime_r=True, pair_cap=pair_cap),
+                       got)
+    vt, it = _chunked(v, 999), _chunked(i, 999)
+    got_t = hk._ell_norm_matmat_t(vt, it, cs, W, EPS, runtime_r=True, pair_cap=pair_cap)
+    assert torch.equal(got_t[:n], got)
+    assert float(torch.max(torch.abs(got_t[n:]))) == 0.0
+
+
 def _chunked_graph(gen, dev, nch, r, c, s, n_pad):
     vals = gen.uniform(0.1, 1.0, size=(nch, r, c))
     vals[-1, :, c - n_pad:] = 0.0                       # zero-weight pad tail

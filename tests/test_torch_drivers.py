@@ -249,6 +249,20 @@ def test_device_none_without_cuda_raises(name):
         getattr(ft, name)(gen(), ds.x_train, ds.y_train, ds.x_test, device="meta")
 
 
+@pytest.mark.parametrize("name", ["minimize_1d_log", "minimize_t_noise", "minimize_t_noisevec"])
+def test_optimizers_device_none_without_cuda_raises(monkeypatch, name):
+    """The optimizers build their grids on the card unless the caller names a
+    device: with no CUDA device, ``device=None`` raises instead of running on
+    the CPU, as the fit entry points do."""
+    from flgp_tpu_torch.inference import optimize
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    fn = getattr(optimize, name)
+    args = (lambda t, nz: t,) + ((3,) if name == "minimize_t_noisevec" else ())
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        fn(*args)
+
+
 @pytest.fixture(scope="module")
 def spiral_exact():
     from flgp_tpu_torch.datasets import spiral_r, spiral_r_anchors

@@ -150,7 +150,7 @@ def test_minimize_1d_log_expands_past_the_window():
     def f_j(x):
         return jnp.where(x < 2e-2, jnp.nan, (jnp.log(x) - np.log(5e4)) ** 2)
 
-    res = minimize_1d_log(f_t, dtype=torch.float64)
+    res = minimize_1d_log(f_t, dtype=torch.float64, device="cpu")
     ref = jmin(f_j, dtype=jnp.float64)
     assert res.n_expansions == int(ref.n_expansions) >= 1
     np.testing.assert_allclose(float(res.x), float(ref.x), rtol=1e-9)

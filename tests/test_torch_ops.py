@@ -216,7 +216,8 @@ def test_lae_f64_matches_lae_weights_xla(rng, r):
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=0, atol=1e-10)
 
 
-@pytest.mark.parametrize("n,d,s,r,iters", [(700, 3, 64, 3, 150), (300, 4, 32, 4, 100)])
+@pytest.mark.parametrize("n,d,s,r,iters", [(700, 3, 64, 3, 150), (300, 4, 32, 4, 100),
+                                            (256, 3, 64, 24, 150)])
 def test_lae_f32_matches_pallas_interpret(rng, n, d, s, r, iters):
     X, U = _points(rng, n, s, d, dup_anchor=False)
     X32, U32 = T(X, torch.float32), T(U, torch.float32)
@@ -296,15 +297,17 @@ def _graph32(rng, n=450, d=3, s=48, r=3):
     return w, idx, cs, s
 
 
-def test_ell_colsum_plain_matches_pallas(rng):
-    w, idx, _, s = _graph32(rng)
+@pytest.mark.parametrize("r", [3, 24])
+def test_ell_colsum_plain_matches_pallas(rng, r):
+    w, idx, _, s = _graph32(rng, r=r)
     got = hk.ell_colsum(T(w, torch.float32), T(idx, torch.int32), s)
     ref = pk.ell_colsum(jnp.asarray(w), jnp.asarray(idx), s, block=128, interpret=True)
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=2e-5, atol=2e-5)
 
 
-def test_ell_norm_gram_plain_matches_pallas(rng):
-    w, idx, cs, s = _graph32(rng)
+@pytest.mark.parametrize("r", [3, 24])
+def test_ell_norm_gram_plain_matches_pallas(rng, r):
+    w, idx, cs, s = _graph32(rng, r=r)
     G, D = hk.ell_norm_gram(T(w, torch.float32), T(idx, torch.int32), T(cs, torch.float32))
     Gr, Dr = pk.ell_norm_gram(jnp.asarray(w), jnp.asarray(idx), jnp.asarray(cs), block=128,
                               interpret=True)
@@ -312,8 +315,9 @@ def test_ell_norm_gram_plain_matches_pallas(rng):
     np.testing.assert_allclose(D.numpy(), np.asarray(Dr), atol=2e-5)
 
 
-def test_ell_norm_matmat_plain_matches_pallas(rng):
-    w, idx, cs, s = _graph32(rng)
+@pytest.mark.parametrize("r", [3, 24])
+def test_ell_norm_matmat_plain_matches_pallas(rng, r):
+    w, idx, cs, s = _graph32(rng, r=r)
     W = rng.normal(size=(s, 8)).astype(np.float32)
     got = hk.ell_norm_matmat(T(w, torch.float32), T(idx, torch.int32), T(cs, torch.float32),
                              T(W, torch.float32))
@@ -366,6 +370,77 @@ def test_wrappers_take_plain_version_on_cpu_without_counting(rng):
                                 "ell_norm_matmat_t", "ell_matmat", "ell_sym_matmat"}
 
 
+# F9: the five call sites of K2–K8 route every float32 graph to the kernels'
+# wrappers at every r (here r = 24, above K1's 16); float64 reaches none of
+# them, and ops.knn.knn at r = 24 takes its plain version, as the reference
+# takes its XLA product.
+ROUTES = {
+    "lae_weights": {"lae_weights"},
+    "lae_weights_t": {"lae_weights_t"},
+    "spectrum_fused": {"ell_colsum", "ell_norm_gram", "ell_norm_matmat"},
+    "heat_kernel_spectrum_colmajor": {"lae_weights_t", "ell_colsum_t", "ell_norm_gram_t",
+                                      "ell_norm_matmat_t"},
+    "sharded_spectrum": {"lae_weights", "ell_colsum_partial", "ell_norm_gram_partial",
+                         "ell_norm_matmat"},
+}
+
+
+@pytest.mark.parametrize("site", sorted(ROUTES))
+def test_float32_graphs_reach_the_kernels_at_every_r(rng, monkeypatch, site):
+    from flgp_tpu_torch.config import GraphConfig, KernelType
+    from flgp_tpu_torch.ops import colmajor as col
+    from flgp_tpu_torch.ops import knn as knn_mod
+    from flgp_tpu_torch.ops import lae as lae_mod
+    from flgp_tpu_torch.parallel.mesh import Mesh
+    from flgp_tpu_torch.parallel.spectral import sharded_spectrum_fn
+
+    calls = []
+
+    def recorded(name, fn):
+        def call(*args, **kwargs):
+            calls.append(name)
+            return fn(*args, **kwargs)
+        return call
+
+    for name in ("knn", "lae_weights", "lae_weights_t", "ell_colsum", "ell_colsum_partial",
+                 "ell_norm_gram", "ell_norm_gram_partial", "ell_norm_matmat", "ell_colsum_t",
+                 "ell_norm_gram_t", "ell_norm_matmat_t"):
+        monkeypatch.setattr(hk, name, recorded(name, getattr(hk, name)))
+    monkeypatch.setattr(knn_mod, "knn_plain", recorded("knn_plain", knn_mod.knn_plain))
+
+    n, s, r, K = 200, 40, 24, 6
+    X, U = _points(rng, n, s, 3, dup_anchor=False)
+    counts = rng.integers(1, 20, size=(s,)).astype(np.float64)
+    cn = LaplacianType.CLUSTER_NORMALIZED
+    for dtype in (torch.float32, torch.float64):
+        Xp, Up, cp = T(X, dtype), T(U, dtype), T(counts, dtype)
+        idx = knn_plain(Xp, Up, r).indices
+        w = lae_weights_plain(Xp, Up, idx, 20)
+        calls.clear()
+        if site == "lae_weights":
+            out = lae_mod.lae_weights(Xp, Up, idx, iters=20)
+        elif site == "lae_weights_t":
+            out = lae_mod.lae_weights_t(Xp.T.contiguous(), Up, idx.T.contiguous()[None], 20)
+        elif site == "spectrum_fused":
+            out = spectrum_fused(w, idx, s, K, cn, True, cp).vectors
+        elif site == "heat_kernel_spectrum_colmajor":
+            out = col.heat_kernel_spectrum_colmajor(Xp.T.contiguous(), Up, r, K, cn, True,
+                                                    cluster_sizes=cp, lae_iters=20,
+                                                    chunk=128).vectors
+        else:
+            g = GraphConfig(s=s, r=r, K=K, gl=cn, kernel=KernelType.LAE)
+            out = sharded_spectrum_fn(Mesh(None, "data", 0, 1, torch.device("cpu")), g)(
+                Xp, Up, cp)[1]
+        assert out.dtype == dtype and bool(torch.all(torch.isfinite(out)))
+        kernels = set(calls) - {"knn_plain"}
+        if dtype == torch.float32:
+            assert kernels == ROUTES[site], calls
+        else:
+            assert kernels == set(), calls
+        if site in ("heat_kernel_spectrum_colmajor", "sharded_spectrum"):
+            assert "knn_plain" in calls                  # K1 stays r <= 16
+
+
 # ---------------------------------------------------------------------------
 # spectrum
 # ---------------------------------------------------------------------------
@@ -377,9 +452,10 @@ def _heat_block(values, vectors, t=1.0):
     return (vectors * w) @ vectors.T
 
 
+@pytest.mark.parametrize("r", [3, 24])
 @pytest.mark.parametrize("gl", ["rw", "normalized", "cluster-normalized"])
-def test_spectrum_fused_f64_matches_reference(rng, gl):
-    n, d, s, r = 300, 3, 32, 3
+def test_spectrum_fused_f64_matches_reference(rng, gl, r):
+    n, d, s = 300, 3, 32
     X, U = _points(rng, n, s, d, dup_anchor=False)
     idx = knn_plain(T(X), T(U), r).indices.numpy()
     w = rng.uniform(0.1, 1.0, size=(n, r))

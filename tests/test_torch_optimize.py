@@ -67,7 +67,7 @@ def test_minimize_t_noise_matches_reference(m, K):
     eig_t, eig_j, Y = _gpr_problem(m, K)
     got = opt.minimize_t_noise(
         lambda t, nz: gpr.gpr_nmll_posterior(eig_t, T(Y), slice(0, m), K, t, nz, SIGMA),
-        adam_steps=60, dtype=torch.float64)
+        adam_steps=60, dtype=torch.float64, device="cpu")
     ref = jopt.minimize_t_noise(
         lambda t, nz: jgpr.gpr_nmll_posterior(eig_j, jnp.asarray(Y), jnp.arange(m), K, t, nz,
                                               SIGMA),
@@ -83,7 +83,7 @@ def test_minimize_t_noisevec_matches_reference():
     eig_t, eig_j, Y = _gpr_problem(m, K, seed=5)
     got = gpr_opt_result_to_numpy(opt.minimize_t_noisevec(
         lambda t, nz: gpr.gpr_nmll_posterior(eig_t, T(Y), slice(0, m), K, t, nz, SIGMA),
-        m, adam_steps=60, dtype=torch.float64))
+        m, adam_steps=60, dtype=torch.float64, device="cpu"))
     ref = jopt.minimize_t_noisevec(
         lambda t, nz: jgpr.gpr_nmll_posterior(eig_j, jnp.asarray(Y), jnp.arange(m), K, t, nz,
                                               SIGMA),
@@ -102,7 +102,7 @@ def test_a_failed_cholesky_counts_as_inf_not_as_an_error():
         return linalg.chol_logdet_half(linalg.cholesky(C)) + (nz - 0.5) ** 2
 
     res = opt.minimize_t_noise(fn, t_range=(1.0, 1e3), n_grid=4, adam_steps=5,
-                               dtype=torch.float64)
+                               dtype=torch.float64, device="cpu")
     assert np.isfinite(float(res.obj)) and float(res.t) < 1.5
 
 
@@ -123,7 +123,7 @@ def test_lanes_of_one_adam_run_equal_their_own_runs(per_point, m, K):
 
     stacked = EigenPair(torch.stack([p.values for p in pairs])[:, None],
                         torch.stack([p.vectors for p in pairs])[:, None])
-    kw = dict(adam_steps=40, dtype=torch.float64)
+    kw = dict(adam_steps=40, dtype=torch.float64, device="cpu")
     run = (lambda fn, **k: opt.minimize_t_noisevec(fn, m, **k, **kw)) if per_point else \
         (lambda fn, **k: opt.minimize_t_noise(fn, **k, **kw))
     lanes = run(objective(stacked), lanes=3)
