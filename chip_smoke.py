@@ -8,17 +8,21 @@
     python3 chip_smoke.py --streaming
     python3 chip_smoke.py --extension
     python3 chip_smoke.py --wide
+    python3 chip_smoke.py --knn-times
 
 (the second only counts K2's instructions in a library already built; the
 third only times the n=1e6 subsample stage, four calls from one seed, with
 the package beside the script: a copy of the script in another tree of the
-repo times that tree's subsampler; the fourth builds, fits the torus and
+repo times that tree's subsampler, and so does the eighth, K1's r ≤ 16
+rows; the fourth builds, fits the torus and
 the multiclass LAE model of phase 11, then runs phases 12–15 alone; the
 fifth builds, fits the torus, draws the n=1e7 path's anchors once and runs
 a reference HMC on the torus posterior, then phases 16–17 alone; the
 sixth builds and holds K5 and K8 to their first, warp-a-row body at the
 four shapes the fits launch them at, timed in turns, as phases 3, 6 and 11
-do in passing; the seventh builds and runs phase 18 alone).
+do in passing; the seventh builds and runs phase 18 alone; the eighth
+builds and times K1 at r = 3 at the n=1e6 shape, the n=1e7 chunk and the
+multiclass shape, and at r = 1 at the chunk).
 Phases, each of which ends the script with a non-zero exit if it fails:
 
 1. the card: name and power limit from nvidia-smi; a CUDA device is required
@@ -72,7 +76,10 @@ Phases, each of which ends the script with a non-zero exit if it fails:
    memory;
 8. K1 as the GLGP graph calls it (self-kNN, s = n = 1e5, d = 3, r = 8) vs
    its plain version: differing rows near-ties only, d² within 1e-5, every
-   point its own nearest neighbour at d² ≈ 0; then
+   point its own nearest neighbour at d² ≈ 0; the same at the default
+   threshold's r through the run-time-r body, r = 1000 on that cloud (its
+   plain version and the two-call yardstick on the first 2048 rows) and
+   r = 48 on the torus (n = 4800), each with its bound; then
    K9 ``ell_matmat`` vs its plain version at the shape the SE torus fit
    launches it at (spectrum_from_Z: n = 4800, s = 600, r = 3, K = 100; the
    kernels line takes K9's numbers from this one) and, as side rows that no
@@ -93,7 +100,8 @@ Phases, each of which ends the script with a non-zero exit if it fails:
    each piece of one LOBPCG iteration at that shape and at the torus GLGP
    fit's;
 10. fits through the entry points, f32 graph and f64 tail, cold and warm:
-    ``fit_gl_logit_gp`` (sparse LOBPCG; ``ell_sym_matmat`` must be launched)
+    ``fit_gl_logit_gp`` (sparse LOBPCG; K1 for its r = 48 self-kNN and
+    ``ell_sym_matmat`` must be launched)
     and ``fit_se_logit_gp`` (K9 must be) on the torus, ``fit_lae_regression_gp``,
     ``fit_se_regression_gp`` and ``fit_nystrom_regression_gp`` on the spiral;
 11. multiclass and the extras: K1–K5 vs their plain versions at the
@@ -188,18 +196,21 @@ Phases, each of which ends the script with a non-zero exit if it fails:
     on phase 12's posterior, f's means within phase 12's Monte Carlo bound
     of its HMC run; ``sharded_smc_fn`` the bits of ``run_smc`` (4096
     particles, one generator); the process group destroyed at the end;
-18. K2–K8 above r = 16, through their run-time-r bodies: at r = 24, K2–K5 at the
-    n=1e6 shape and K2 and K6–K8 at the n=1e7 chunked shape against their plain
-    versions (K2 bit for bit, K3 and K6 equal to ``_colsum_fixed_plain``, K4 and
-    K7 within 1e-5·max of the float64 plain versions and the same bits from
-    launch to launch, K5 and K8 at 1e-5), each with its bound, the plain
-    version's time, the library call's and each family's run-time-r body
-    forced at r = 16 (``runtime_r``) against its templated body, the same bits
-    and both timed in turns; then ``fit_lae_logit_gp`` on the n=1e6 torus and
-    the n=1e7 chunked composition at r = 24, each within 0.01 of the same fit
-    with a float64 graph (plain versions only) on the card, with its stage
-    times and peak memory, launching K2–K5 (K2 and K6–K8, K2 once) and calling
-    no plain K2 nor float64 spectral composition (counted while it runs).
+18. K1–K8 above r = 16, through their run-time-r bodies: at r = 24, K1–K5 at the
+    n=1e6 shape, K1 at the multiclass shape (d = 16) and at one n=1e7 chunk
+    (beside its r = 3 body), and K2 and K6–K8 at the n=1e7 chunked shape
+    against their plain versions (K1 near-ties only, none at d = 2, K2 bit
+    for bit, K3 and K6 equal to ``_colsum_fixed_plain``, K4 and K7 within
+    1e-5·max of the float64 plain versions and the same bits from launch to
+    launch, K5 and K8 at 1e-5), each with its bound, the plain version's
+    time, the library call's (K1: the two-call yardstick) and each family's
+    run-time-r body forced at r = 16 (``runtime_r``) against its templated
+    body, the same bits and both timed in turns; then ``fit_lae_logit_gp`` on
+    the n=1e6 torus and the n=1e7 chunked composition at r = 24, each within
+    0.01 of the same fit with a float64 graph (plain versions only) on the
+    card, with its stage times and peak memory, launching K1–K5 (K1, K2 and
+    K6–K8, K2 once) and calling no plain K1 or K2 nor float64 spectral
+    composition (counted while it runs).
 
 Beside each kernel's time stand its bound (the least time the card could
 take: compulsory bytes at 3.35 TB/s or operations at the 67 TFLOP/s float32
@@ -1225,18 +1236,34 @@ def huge_phase(dev, results: dict) -> tuple:
     return launches, dict(ds=ds7, anchors=last["anchors"], counts=last["counts"])
 
 
-def check_self_knn(X: torch.Tensor, r: int, results: dict):
+GL_TORUS_R = 48        # the torus GLGP fit's self-kNN: gl_threshold 0.01 of n = 4800
+SELF_WIDE_R = 1000     # the default threshold's self-kNN at n = 1e5
+SELF_WIDE_ROWS = 2048  # the rows its plain version runs on: all 1e5 would take tens of seconds
+
+
+def check_self_knn(X: torch.Tensor, r: int, results: dict, key: str = "lobpcg", rows=None,
+                   max_share: float = 1e-3, twin_share: float = 1e-4):
     """K1 as the GLGP graph calls it, anchors = the points themselves (s = n),
-    against its plain version: rows may differ only on near-ties, d² within
-    1e-5, and each point's nearest neighbour is the point itself at d² ≈ 0
-    unless another point lies within the expanded form's rounding of it."""
+    against its plain version: rows may differ only on near-ties (at most
+    ``max_share`` of them), d² within 1e-5, and each point's nearest
+    neighbour is the point itself at d² ≈ 0 unless another point lies within
+    the expanded form's rounding of it (at most ``twin_share`` of the points:
+    rare in a Gaussian cloud, common on the torus's rings, where neighbours
+    along a ring sit closer than that rounding).  With ``rows``, the plain version
+    and the two-call yardstick run on the first ``rows`` points only
+    (against all n anchors), and their times are for those rows; the
+    yardstick runs only where its (rows, n) product fits in 4 GiB.  Times
+    under ``key`` in ``results``."""
     n, d = X.shape
+    m = n if rows is None else rows
     got = hk.knn(X, X, r)
     torch.cuda.synchronize()
-    ref = knn_plain(X, X, r)
+    Xm = X[:m]
+    ref = knn_plain(Xm, X, r)
+    gi, gd = got.indices[:m], got.sqdists[:m]
     x2 = torch.sum(X * X, dim=1)
-    differ = torch.any(got.indices != ref.indices, dim=1)
-    gap = torch.abs(got.sqdists[differ] - ref.sqdists[differ])
+    differ = torch.any(gi != ref.indices, dim=1)
+    gap = torch.abs(gd[differ] - ref.sqdists[differ])
     n_far = int(torch.sum(torch.any(gap > 2e-5 * x2.max(), dim=1)))
     me = torch.arange(n, device=X.device, dtype=got.indices.dtype)
     not_self = got.indices[:, 0] != me
@@ -1245,29 +1272,35 @@ def check_self_knn(X: torch.Tensor, r: int, results: dict):
     twin_ok = torch.any(got.indices[not_self] == me[not_self, None], dim=1) & (
         got.sqdists[not_self, min(1, r - 1)] <= 2e-5 * x2[not_self])
     ms = cuda_ms(lambda: hk.knn(X, X, r), 5)
-    plain_ms = cuda_ms(lambda: knn_plain(X, X, r), 2)
+    plain_ms = cuda_ms(lambda: knn_plain(Xm, X, r), 2 if rows is None else 1)
+    lib_ms = cuda_ms(lambda: knn_library(Xm, X, r), 3) if m * n <= 1 << 30 else None
     ent = results["knn"]
-    ent["max_abs_err"] = max(ent["max_abs_err"], _maxabs(got.sqdists, ref.sqdists))
-    ent.update(ms_lobpcg=ms, plain_ms_lobpcg=plain_ms,
-               work_lobpcg=work("knn", n=n, r=r, s=n, d=d))
-    print(f"self-kNN (K1, s = n = {n}, d = {d}, r = {r}) vs plain: {int(differ.sum())} rows "
+    err = _maxabs(gd, ref.sqdists)
+    ent["max_abs_err"] = max(ent["max_abs_err"], err)
+    w = work("knn", n=n, r=r, s=n, d=d)
+    ent.update({f"ms_{key}": ms, f"plain_ms_{key}": plain_ms, f"library_ms_{key}": lib_ms,
+                f"work_{key}": w})
+    on = "" if rows is None else f" on the first {m} rows"
+    lib = "none (the product would not fit)" if lib_ms is None else (
+        f"{lib_ms:.3f} ms{on} (addmm + topk, two calls)")
+    print(f"self-kNN (K1, s = n = {n}, d = {d}, r = {r}) vs plain{on}: {int(differ.sum())} rows "
           f"differ (largest d² gap on them {float(gap.max()) if gap.numel() else 0.0:.3e}), "
           f"{n_far} of them not near-ties; {int(not_self.sum())} points are not their "
           f"own nearest neighbour; self d² in [{float(got.sqdists[:, 0].min()):.3e}, "
-          f"{float(got.sqdists[:, 0].max()):.3e}]; max_abs_err "
-          f"{_maxabs(got.sqdists, ref.sqdists):.3e}; kernel {ms:.3f} ms  plain {plain_ms:.3f} ms  "
-          f"bound {bound(ent['work_lobpcg'])[0]:.4f} ms ({bound(ent['work_lobpcg'])[1]})",
-          flush=True)
+          f"{float(got.sqdists[:, 0].max()):.3e}]; max_abs_err {err:.3e}; kernel {ms:.3f} ms  "
+          f"plain {plain_ms:.3f} ms{on}  library {lib}  bound {bound(w)[0]:.4f} ms "
+          f"({bound(w)[1]})", flush=True)
     # 1e10 pairs at d = 3: the kernel's fmaf chain and the plain version's
     # matmul round x·u differently, so more rows than at s = 1024 swap two
-    # neighbours whose d² agree to the last bits; up to 0.1% may, near-ties all
-    if int(differ.sum()) > 1e-3 * n or n_far:
-        _fail(f"self-kNN: {int(differ.sum())} of {n} rows differ, {n_far} not near-ties")
-    _allclose("self-kNN d²", got.sqdists, ref.sqdists, 1e-5, 1e-5)
-    if int(not_self.sum()) > 1e-4 * n or not bool(torch.all(twin_ok)):
-        _fail(f"self-kNN: {int(not_self.sum())} points are not their own nearest neighbour")
+    # neighbours whose d² agree to the last bits; at r = 8 up to 0.1% may,
+    # near-ties all (at r = 1000 most rows hold such a pair)
+    if int(differ.sum()) > max(1.0, max_share * m) or n_far:
+        _fail(f"self-kNN r={r}: {int(differ.sum())} of {m} rows differ, {n_far} not near-ties")
+    _allclose(f"self-kNN d² r={r}", gd, ref.sqdists, 1e-5, 1e-5)
+    if int(not_self.sum()) > twin_share * n or not bool(torch.all(twin_ok)):
+        _fail(f"self-kNN r={r}: {int(not_self.sum())} points are not their own nearest neighbour")
     if float(torch.max(torch.abs(got.sqdists[:, 0]))) > 2e-5 * float(x2.max()):
-        _fail("self-kNN: a point's distance to itself is not ≈ 0")
+        _fail(f"self-kNN r={r}: a point's distance to itself is not ≈ 0")
 
 
 def gaussian_graph(dev, seed: int, results=None):
@@ -1279,6 +1312,8 @@ def gaussian_graph(dev, seed: int, results=None):
                     dtype=torch.float32)
     if results is not None:
         check_self_knn(X, r, results)
+        check_self_knn(X, SELF_WIDE_R, results, key="self_wide", rows=SELF_WIDE_ROWS,
+                       max_share=1.0)
     res = knn(X, X, r)
     vals = torch.exp(-res.sqdists / torch.mean(res.sqdists))
     return glgp_operator(symmetrize_knn(res.indices, vals, n))[0]
@@ -1356,7 +1391,8 @@ def check_ell_sym_matmat(dev, g, cases: dict, results: dict) -> None:
 
 def check_ell_matmat(dev, results: dict):
     """Phase 8: the self-kNN (K1) that builds the LOBPCG-shape graph against
-    its plain version, then K9 against its plain version, with the library
+    its plain version, and K1 at the GLGP default threshold's wide r (1000
+    on that cloud, 48 on the torus), then K9 against its plain version, with the library
     call and the operator's transposed half beside it, then the symmetric
     operator product.  The first K9 shape is the one the SE torus fit
     launches it at (``se_spectrum_at`` -> ``spectrum_from_Z``); no fit
@@ -1374,6 +1410,7 @@ def check_ell_matmat(dev, results: dict):
     Xs = torch.as_tensor(np.concatenate([dt.x_train, dt.x_test]), dtype=torch.float32, device=dev)
     Us = Xs[torch.randperm(Xs.shape[0], generator=g, device=dev)[:tor["s"]]].contiguous()
     res_s = hk.knn(Xs, Us, tor["r"])
+    check_self_knn(Xs, GL_TORUS_R, results, key="self_torus", twin_share=1.0)
     Xt = torch.randn((tor["n"], 2), generator=g, device=dev, dtype=torch.float32)
     rest = knn_plain(Xt, Xt, 48)
     op_t = glgp_operator(symmetrize_knn(
@@ -1553,6 +1590,9 @@ def grid_fits(dev) -> dict:
     resid = gl["res"].metrics["gl_eigensolve_max_residual"]
     if gl["launches"].get("ell_sym_matmat", 0) == 0 or not np.isfinite(resid):
         _fail(f"fit_gl_logit_gp: ell_sym_matmat launches {gl['launches']}, residual {resid}")
+    if gl["launches"].get("knn", 0) == 0:
+        _fail(f"fit_gl_logit_gp: its r={GL_TORUS_R} self-kNN launched no knn kernel: "
+              f"{gl['launches']}")
     gate = ERR_GATE
     if gl["score"] > ERR_GATE:
         # GLGP on this data is honestly worse than the anchor-graph kernels:
@@ -2893,13 +2933,14 @@ def streaming_only(dev) -> None:
 
 
 # ---------------------------------------------------------------------------
-# 18. K2–K8 above r = 16 (also alone: --wide)
+# 18. K1–K8 above r = 16 (also alone: --wide)
 # ---------------------------------------------------------------------------
 
 WIDE_R = 24     # partial warps in K2's run-time-r body, 576 Gram pairs a point
-# The plain versions of K2 and the float64 compositions of the spectral tail:
-# a float32 graph on the card reaches none of them at any r
-PLAIN_VERSIONS = (("flgp_tpu_torch.ops.lae", "lae_weights_plain"),
+# The plain versions of K1 and K2 and the float64 compositions of the
+# spectral tail: a float32 graph on the card reaches none of them at any r
+PLAIN_VERSIONS = (("flgp_tpu_torch.ops.knn", "knn_plain"),
+                  ("flgp_tpu_torch.ops.lae", "lae_weights_plain"),
                   ("flgp_tpu_torch.ops.hopper_kernels", "lae_weights_t_plain"),
                   ("flgp_tpu_torch.ops.spectrum", "spectrum_from_Z"),
                   ("flgp_tpu_torch.ops.colmajor", "spectrum_colmajor"))
@@ -2964,6 +3005,25 @@ def wide_row(label: str, name: str, ms: float, plain_ms: float, library_ms, wk: 
           f"max_abs_err {err:.3e}{note}; {r16}", flush=True)
 
 
+def knn_wide_row(label: str, X, U, r: int, reps: int, max_share: float = 1e-4):
+    """K1's run-time-r body at (X, U, r) against its plain version
+    (``check_knn``: near-ties only, none at d = 2, d² within 1e-5), timed
+    beside the plain version, the two-call yardstick and the bound, and the
+    body forced at r = 16 against the templated one; (result, kernel ms)."""
+    got, ref = check_knn(label, X, U, r, max_share)
+    err = _maxabs(got.sqdists, ref.sqdists)
+    del ref
+    ms = cuda_ms(lambda: hk.knn(X, U, r), reps)
+    plain_ms = cuda_ms(lambda: knn_plain(X, U, r), 1)
+    lib_ms = cuda_ms(lambda: knn_library(X, U, r), reps)
+    r16 = runtime_r_at_16("knn", lambda: hk.knn(X, U, 16),
+                          lambda: hk._knn(X, U, 16, 0, runtime_r=True), reps)
+    n, d = X.shape
+    wide_row(label, "knn", ms, plain_ms, lib_ms, work("knn", n=n, r=r, s=U.shape[0], d=d), err,
+             r16, f"  (d={d}, n={n}, s={U.shape[0]}; library: addmm + topk, two calls)")
+    return got, ms
+
+
 def gram_checked(name: str, G, D, Gp, Dp) -> float:
     """Ĝ and D within 1e-5·max of the float64 plain version's, else the
     script fails; the larger error."""
@@ -2975,7 +3035,7 @@ def gram_checked(name: str, G, D, Gp, Dp) -> float:
 
 
 def wide_rows_large(dev) -> None:
-    """K2–K5 at r = 24 on the n=1e6 torus (s = 1024, K = 128) against their
+    """K1–K5 at r = 24 on the n=1e6 torus (s = 1024, K = 128) against their
     plain versions, K2 bit for bit, beside bound and library call, and each
     family's run-time-r body forced at r = 16 against its templated body."""
     big = SHAPES["large"]
@@ -2983,9 +3043,9 @@ def wide_rows_large(dev) -> None:
     n, d, s, K, r = X.shape[0], X.shape[1], big["s"], big["K"], WIDE_R
     g = torch.Generator(device=dev).manual_seed(7)
     U = X[torch.randperm(n, generator=g, device=dev)[:s]].contiguous()
-    idx = knn(X, U, r).indices              # above r = 16 K1's plain version, as the fits take it
+    print(f"K1–K5 at r={r}, n=1e6 shape (n={n}, d={d}, s={s}, K={K}), ms per call:", flush=True)
+    idx = knn_wide_row("large", X, U, r, 5)[0].indices
     idx16 = knn(X, U, 16).indices
-    print(f"K2–K5 at r={r}, n=1e6 shape (n={n}, d={d}, s={s}, K={K}), ms per call:", flush=True)
 
     def wk(name):
         return work(name, n=n, r=r, s=s, K=K, d=d)
@@ -3051,11 +3111,20 @@ def wide_rows_large(dev) -> None:
 
 
 def wide_rows_huge(Xt, dev) -> None:
-    """K2 and K6–K8 at r = 24 at the n=1e7 chunked shape (153 chunks of
-    65,536 points, s = 1024, K = 128), as ``wide_rows_large`` holds K2–K5."""
+    """K1 at r = 24 on one 65,536-point chunk (K1's launch shape there,
+    beside the r = 3 body's time), then K2 and K6–K8 at r = 24 at the n=1e7
+    chunked shape (153 chunks of 65,536 points, s = 1024, K = 128), as
+    ``wide_rows_large`` holds K1–K5."""
     cfg = SHAPES["huge"]
     n, s, K, r, chunk = Xt.shape[1], cfg["s"], cfg["K"], WIDE_R, cfg["chunk"]
     U = random_anchors(Xt, s, dev, seed=7)
+    Xc = Xt[:, :chunk].T.contiguous()
+    print(f"K1 at r={r}, one chunk of the n=1e7 cloud (n={chunk}, s={s}), ms per call:", flush=True)
+    ms = knn_wide_row("chunk", Xc, U, r, 20)[1]
+    ms3 = cuda_ms(lambda: hk.knn(Xc, U, 3), 50)
+    print(f"  chunk knn r={r} over the r=3 body ({ms3:.4f} ms, same call): {ms / ms3:.2f}x",
+          flush=True)
+    del Xc
     idx, w = col.build_graph_colmajor(Xt, U, r, chunk=chunk)
     idx16, w16 = col.build_graph_colmajor(Xt, U, 16, chunk=chunk)
     nch, _, c = w.shape
@@ -3163,11 +3232,24 @@ def wide_fit(name: str, run, need: tuple) -> dict:
     return dict(err=err, wall=wall, launches=launches, peak=peak)
 
 
+def wide_rows_multiclass(dev) -> None:
+    """K1 at r = 24 at the multiclass shape (``mnist_like``, n = 7e4, d = 16,
+    s = 600): the run-time-r body at a width the tiled body takes at r ≤ 16."""
+    from flgp_tpu_torch.datasets import mnist_like
+
+    X = cloud(mnist_like(n=MNIST["n"], m_train=MNIST["m"], seed=MNIST["seed"]), dev)
+    g = torch.Generator(device=dev).manual_seed(9)
+    U = X[torch.randperm(X.shape[0], generator=g, device=dev)[:MNIST["s"]]].contiguous()
+    print(f"K1 at r={WIDE_R}, multiclass shape (n={X.shape[0]}, d={X.shape[1]}, s={MNIST['s']}), "
+          f"ms per call:", flush=True)
+    knn_wide_row("mnist", X, U, WIDE_R, 10, max_share=1e-2)
+
+
 def wide_fits(dev, ds7) -> None:
     """The two fits at r = 24 through the entry points, each held to the same
     fit with the float64 graph (plain versions only) on the card + 0.01:
-    ``fit_lae_logit_gp`` at the n=1e6 torus shape (s = 1024, K = 128; K2–K5
-    launched) and the n=1e7 chunked composition of phase 7 (K2, K6–K8
+    ``fit_lae_logit_gp`` at the n=1e6 torus shape (s = 1024, K = 128; K1–K5
+    launched) and the n=1e7 chunked composition of phase 7 (K1, K2, K6–K8
     launched, K2 once; the float64 run in chunks of 2^20 points, the same
     graph in fewer, larger pieces)."""
     big = SHAPES["large"]
@@ -3190,7 +3272,7 @@ def wide_fits(dev, ds7) -> None:
         return float(np.mean(res.y_test != ds.y_test)), f"{stages}  t {float(res.pars['t']):.6g}"
 
     runs = [wide_fit(f"fit_lae_logit_gp n=1e6 r={WIDE_R} {nm}", lambda dt=dt: large(dt), need)
-            for nm, dt, need in (("float32", torch.float32, MAIN_PATH[1:]),
+            for nm, dt, need in (("float32", torch.float32, MAIN_PATH),
                                  ("float64", torch.float64, ()))]
     gate = runs[1]["err"] + 0.01
     if runs[0]["err"] > gate:
@@ -3205,7 +3287,7 @@ def wide_fits(dev, ds7) -> None:
         return f["err"], "  ".join(f"{k} {v:.3f}" for k, v in f["times"].items())
 
     runs = [wide_fit(f"n=1e7 chunked fit r={WIDE_R} float32", lambda: huge(Xt, cfg["chunk"]),
-                     ("lae_weights",) + HUGE_PATH[2:])]
+                     HUGE_PATH)]
     if runs[0]["launches"]["lae_weights"] != 1:
         _fail(f"the n=1e7 fit at r={WIDE_R} launched lae_weights "
               f"{runs[0]['launches']['lae_weights']} times, not once")
@@ -3220,10 +3302,13 @@ def wide_fits(dev, ds7) -> None:
 
 
 def wide_phase(dev, ds7=None) -> None:
-    """Phase 18: K2–K8 at r = 24 at the n=1e6 and n=1e7 shapes, then the two
-    r = 24 fits.  ``ds7``: the n=1e7 torus of phase 7, made here if None."""
+    """Phase 18: K1–K8 at r = 24 at the n=1e6 and n=1e7 shapes (K1 also at
+    the multiclass shape), then the two r = 24 fits.  ``ds7``: the n=1e7
+    torus of phase 7, made here if None."""
     t0 = time.perf_counter()
     wide_rows_large(dev)
+    torch.cuda.empty_cache()
+    wide_rows_multiclass(dev)
     torch.cuda.empty_cache()
     if ds7 is None:
         cfg = SHAPES["huge"]
@@ -3314,6 +3399,37 @@ def extension_only(dev) -> None:
     row("ell_norm_matmat_t", "huge", (w, idx, cscale, W), nch * c, csr,
         f"nch={nch}, r={r}, c={c}, s={s}, K={K}, {nch * c - n} pad points")
     print(card)
+
+
+def knn_times(dev) -> None:
+    """``--knn-times``: the card, the build, then K1's r ≤ 16 rows as the
+    kernels line and phases 3 and 11 take them (r = 3 at the n=1e6 shape,
+    r = 3 and 1 at one n=1e7 chunk, r = 3 at the multiclass shape: the
+    template body at d = 2 and the tiled one at d = 16), with the package
+    beside the script.  Run a copy of the script in another tree of the repo
+    to time that tree's K1, the two trees in turns in one call."""
+    from flgp_tpu_torch.datasets import mnist_like
+
+    print(f"card: {card_line()}", flush=True)
+    _build.build()
+    _build.load()
+    g = torch.Generator(device=dev).manual_seed(7)
+    rows = []
+    big, huge = SHAPES["large"], SHAPES["huge"]
+    for label, X, s, rs in (
+            ("large", cloud(torus_rings(n=big["n"], m_train=big["m"], seed=big["seed"]), dev),
+             big["s"], (3,)),
+            ("chunk", torch.as_tensor(torus_rings(n=huge["chunk"] + huge["m"], m_train=huge["m"],
+                                                  seed=huge["seed"]).x_test,
+                                      dtype=torch.float32, device=dev).contiguous(), huge["s"],
+             (3, 1)),
+            ("mnist", cloud(mnist_like(n=MNIST["n"], m_train=MNIST["m"], seed=MNIST["seed"]), dev),
+             MNIST["s"], (3,))):
+        U = X[torch.randperm(X.shape[0], generator=g, device=dev)[:s]].contiguous()
+        for r in rs:
+            rows.append(f"{label} r={r} {cuda_ms(lambda: hk.knn(X, U, r), 50):.4f}")
+        del X, U
+    print(f"K1 ms a call ({ROOT.name}): " + ", ".join(rows), flush=True)
 
 
 def subsample_stage_times(dev, calls: int = 4) -> None:
@@ -3475,7 +3591,7 @@ def main() -> None:
     ds7 = huge["ds"]
     del huge, sampling
 
-    # 18. K2–K8 above r = 16, and the two r = 24 fits
+    # 18. K1–K8 above r = 16, and the two r = 24 fits
     wide_phase(dev, ds7)
     del ds7
 
@@ -3510,7 +3626,7 @@ if __name__ == "__main__":
     if len(sys.argv) == 3 and sys.argv[1] == "--sass":
         print_sass(Path(sys.argv[2]))      # K2's step count of any build of the library
     elif sys.argv[1:] in (["--subsample-times"], ["--sampling"], ["--streaming"],
-                          ["--extension"], ["--wide"]):
+                          ["--extension"], ["--wide"], ["--knn-times"]):
         if not torch.cuda.is_available():
             _fail("torch.cuda.is_available() is false: this smoke test needs an NVIDIA GPU")
         pin_full_precision()
@@ -3522,6 +3638,8 @@ if __name__ == "__main__":
             extension_only(torch.device("cuda", 0))
         elif sys.argv[1] == "--wide":
             wide_only(torch.device("cuda", 0))
+        elif sys.argv[1] == "--knn-times":
+            knn_times(torch.device("cuda", 0))
         else:
             print(f"card: {card_line()}", flush=True)
             subsample_stage_times(torch.device("cuda", 0))

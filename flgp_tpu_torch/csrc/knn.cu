@@ -2,7 +2,11 @@
 //
 // Replaces the TPU kernel flgp_tpu/ops/pallas_kernels.py:fused_knn
 // (_knn_kernel): d = |x|^2 - 2 x.u + |u|^2 at full f32, then the r smallest
-// per row, nearest first, ties to the lowest anchor index.
+// per row, nearest first, ties to the lowest anchor index, for any
+// 1 <= r <= s, as that kernel takes (r <= 16 is only the reference's
+// dispatch, flgp_tpu/ops/knn.py).  The bodies here and in knn.cuh and
+// knn_tiled.cu hold r in registers, a template parameter up to 16; every
+// larger r takes the run-time-r body of knn_wide.cu (its own note).
 //
 // What bounds it on the H100: at the paths' shapes (d = 2 or 3, s from 1024
 // anchors to the 1e5 points of a self-kNN) each (row, anchor) pair costs d
@@ -29,7 +33,7 @@
 //    yardstick: flgp_knn's `legacy` forces it, for the tests and
 //    chip_smoke.py; the fits never take it.
 //  * Each thread keeps a sorted top-r list per row in registers (r is a
-//    template parameter, at most 16).  A thread scans its anchors in
+//    template parameter, 1 to 16).  A thread scans its anchors in
 //    increasing index order and a candidate displaces a list entry only if
 //    it is smaller in (d^2, index), so ties keep the lower index.  After the
 //    first anchors the insertion is rare; the common pair is FMAs, two adds,
@@ -162,23 +166,29 @@ int choose_split(int n, int s, int rows_a_thread) {
 }  // namespace
 }  // namespace flgp_k1
 
-// X (n, d) f32, U (s, d) f32 -> idx (n, r) i32, dist (n, r) f32; 1 <= r <= 16.
-// scratch: s * tiled_rec(max(d, 3)) floats for the packed anchors.  d = 2 and 3
-// take their template bodies, any other d the tiled body, or the old
-// run-time-d body when `legacy` is set.  split: for the template and old
-// bodies the lanes that share a row, 0 letting the entry point choose; for
-// the tiled body the blocks that divide a row block's anchors (0 means 1),
-// with `part` holding 2 * split * n * r words of their lists when split > 1.
-// The tests pass 1, 2, ..., 32 to force a path.
+// X (n, d) f32, U (s, d) f32 -> idx (n, r) i32, dist (n, r) f32; 1 <= r <= s.
+// scratch: s * tiled_rec(max(d, 3)) floats for the packed anchors.  r <= 16
+// takes a templated body unless `runtime_r` is set: d = 2 and 3 their
+// template bodies, any other d the tiled body, or the old run-time-d body
+// when `legacy` is set.  Every r > 16 (and any r with `runtime_r`) takes the
+// run-time-r body of knn_wide.cu, at every d; `lists` then holds
+// flgp_knn_wide_lists(n, r, split) words of its merge temps (none needed
+// where that is 0).  split: for the template and old bodies the lanes that
+// share a row, 0 letting the entry point choose; for the tiled and
+// run-time-r bodies the blocks that divide a row block's anchors (0 means
+// 1), with `part` holding 2 * split * n * r words of their lists when
+// split > 1.  The tests pass 1, 2, ..., 32 to force a path.
 extern "C" int flgp_knn(const void* X, const void* U, int n, int s, int d, int r, int split,
-                        int legacy, void* scratch, void* part, void* idx, void* dist,
-                        void* stream) {
+                        int legacy, int runtime_r, void* scratch, void* part, void* lists,
+                        void* idx, void* dist, void* stream) {
   using namespace flgp_k1;
   if (n <= 0) return static_cast<int>(cudaSuccess);
-  const bool fixed = d == 2 || d == 3;
-  const bool tiled = !fixed && !legacy;
-  if (s <= 0 || d <= 0 || r < 1 || r > 16 || split < 0 || split > 32 ||
-      (split & (split - 1)) != 0 || (tiled && split > 1 && part == nullptr)) {
+  const bool wide = r > kTemplatedMaxR || runtime_r != 0;
+  const bool fixed = !wide && (d == 2 || d == 3);
+  const bool old_body = !wide && !fixed && legacy;
+  const bool blocks = !fixed && !old_body;  // split counts blocks, not lanes
+  if (s <= 0 || d <= 0 || r < 1 || r > s || split < 0 || split > 32 ||
+      (split & (split - 1)) != 0 || (blocks && split > 1 && part == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int rows_a_thread = fixed ? rows_per_thread(r) : 1;
@@ -189,16 +199,20 @@ extern "C" int flgp_knn(const void* X, const void* U, int n, int s, int d, int r
   a.s = s;
   a.d = d;
   a.r = r;
-  a.split = split ? split : tiled ? 1 : choose_split(n, s, rows_a_thread);
+  a.split = split ? split : blocks ? 1 : choose_split(n, s, rows_a_thread);
   a.part = static_cast<float*>(part);
+  a.lists = static_cast<float*>(lists);
   a.idx = static_cast<int*>(idx);
   a.dist = static_cast<float*>(dist);
   a.stream = static_cast<cudaStream_t>(stream);
 
-  const int rec = fixed ? 4 : tiled ? tiled_rec(d) : d + 1;
+  // tiled_rec(2) = tiled_rec(3) = 4: the template bodies' float4 records
+  const int rec = old_body ? d + 1 : tiled_rec(d);
   knn_pack_kernel<<<(s + 255) / 256, 256, 0, a.stream>>>(static_cast<const float*>(U), s, d, rec,
                                                          static_cast<float*>(scratch));
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  return d == 2 ? launch_d2(a) : d == 3 ? launch_d3(a) : tiled ? launch_tiled(a) : launch_any(a);
+  if (wide) return launch_wide(a);
+  return fixed ? (d == 2 ? launch_d2(a) : launch_d3(a)) : old_body ? launch_any(a)
+                                                                   : launch_tiled(a);
 }

@@ -1,8 +1,9 @@
 // K1's kernels, shared by knn.cu (the pre-pass, the old run-time-d body and
 // the C entry point), knn_d2.cu / knn_d3.cu (the bodies with d a template
-// parameter) and knn_tiled.cu (the tiled body for every other d), one source
+// parameter), knn_tiled.cu (the tiled body for every other d) and
+// knn_wide.cu (the run-time-r body: every r above 16, any d), one source
 // each so that nvcc builds them side by side.  The design notes are at the
-// top of knn.cu and knn_tiled.cu.
+// top of knn.cu, knn_tiled.cu and knn_wide.cu.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -25,7 +26,10 @@ struct Args {
   int n, s, d, r;
   int split;        // lanes that share a row and divide the anchors: 1, 2, ..., 32
                     // (the tiled body: blocks that divide a row block's anchors)
-  float* part;      // the tiled body's split lists, 2 * split * n * r words (split > 1)
+  float* part;      // the tiled and run-time-r bodies' split lists, 2 * split * n * r words
+                    // (split > 1)
+  float* lists;     // the run-time-r body's merge temps where they leave shared memory
+                    // (flgp_knn_wide_lists words)
   int* idx;         // (n, r)
   float* dist;      // (n, r)
   cudaStream_t stream;
@@ -208,9 +212,10 @@ int launch_fixed(const Args& a) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// defined in knn_d2.cu, knn_d3.cu and knn_tiled.cu
+// defined in knn_d2.cu, knn_d3.cu, knn_tiled.cu and knn_wide.cu
 int launch_d2(const Args& a);
 int launch_d3(const Args& a);
 int launch_tiled(const Args& a);
+int launch_wide(const Args& a);
 
 }  // namespace flgp_k1

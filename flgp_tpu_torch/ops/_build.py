@@ -33,7 +33,8 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 # C entry points and their argument types (pointers and the stream as void*)
 _SIGNATURES = {
-    "flgp_knn": [_P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
+    "flgp_knn": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P],
+    "flgp_knn_wide_lists": [_I, _I, _I],
     "flgp_lae": [_P, _L, _L, _P, _P, _L, _L, _I, _I, _I, _I, _I, _P, _I, _P, _P],
     "flgp_lae_wide": [_P, _L, _L, _P, _P, _L, _L, _I, _I, _I, _I, _I, _P, _P, _P],
     "flgp_lae_div_check": [_I, _P, _P],
@@ -50,6 +51,9 @@ _SIGNATURES = {
     "flgp_ell_matmat": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P],
     "flgp_ell_sym_matmat": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
 }
+
+# entry points that return a count, not a cudaError
+_RESTYPES = {"flgp_knn_wide_lists": ctypes.c_longlong}
 
 _lib = None
 
@@ -129,6 +133,6 @@ def load() -> ctypes.CDLL:
         for name, argtypes in _SIGNATURES.items():
             fn = getattr(lib, name)
             fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
+            fn.restype = _RESTYPES.get(name, ctypes.c_int)
         _lib = lib
     return _lib

@@ -15,17 +15,17 @@ across blocks), so C, Ĝ and D are the same bits on every launch.
 and to its transpose in one launch: the product (Z + Zᵀ)·X of the sparse
 GLGP operator.
 
-Fan-in.  K1 takes 1 ≤ r ≤ 16 (``KERNEL_MAX_R``), as the reference's
-``fused_knn``; its wider r is the reference's XLA product, the plain version
-here (``ops.knn``).  K2–K8 take every r the TPU kernels take: K3 and K6 walk
-the flat entries at any r, K4/K7 and K5/K8 have templated bodies for
-r ≤ 16 and a run-time-r body for every larger r, and K2 has a run-time-r
-body for 17 ≤ r ≤ ``lae_max_r(iters)`` (its one limit, shared memory:
-r = 240 at 150 steps; above it the wrapper raises).  The private
-``runtime_r=True`` of ``_lae_weights``, ``_ell_norm_gram`` and
-``_ell_norm_matmat`` (and their ``_t`` twins) forces the run-time-r body
-at r ≤ 16, for the tests and chip_smoke.py: it gives the templated bodies'
-bits.
+Fan-in.  Every kernel takes every r its TPU kernel takes.  K1 takes any
+1 ≤ r ≤ s, as the reference's ``fused_knn`` does (its r ≤ 16 is only the
+reference's dispatch): templated bodies for r ≤ 16, the run-time-r body of
+csrc/knn_wide.cu above.  K3 and K6 walk the flat entries at any r, K4/K7
+and K5/K8 have templated bodies for r ≤ 16 and a run-time-r body for every
+larger r, and K2 has a run-time-r body for 17 ≤ r ≤ ``lae_max_r(iters)``
+(its one limit, shared memory: r = 240 at 150 steps; above it the wrapper
+raises).  The private ``runtime_r=True`` of ``_knn``, ``_lae_weights``,
+``_ell_norm_gram`` and ``_ell_norm_matmat`` (and their ``_t`` twins)
+forces the run-time-r body at r ≤ 16, for the tests and chip_smoke.py: it
+gives the templated bodies' bits.
 
 Each wrapper takes its plain PyTorch version for tensors on the CPU, and only
 then.  For CUDA tensors it checks device, dtype (float32 values, int32
@@ -45,7 +45,7 @@ import torch
 from ..config import EPS
 from ..types import EllMatrix
 from . import _build
-from .knn import KERNEL_MAX_R, KnnResult, knn_plain
+from .knn import KnnResult, knn_plain
 from .lae import fista_momentum, lae_weights_plain
 
 # Launches of each kernel since the last reset_launches().
@@ -57,6 +57,9 @@ LAUNCHES = {"knn": 0, "lae_weights": 0, "ell_colsum": 0, "ell_norm_gram": 0,
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+_TEMPLATED_MAX_R = 16         # the fan-ins of the templated bodies (csrc/common.cuh)
 
 
 def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple,
@@ -98,17 +101,18 @@ def knn(X: torch.Tensor, U: torch.Tensor, r: int) -> KnnResult:
     return _knn(X, U, r, split=0)
 
 
-# K1's tiled body (csrc/knn_tiled.cu): a block owns 64 rows and walks the
-# anchors in tiles of 128.  Where the row blocks cannot fill the card, blocks
-# divide a row block's anchor tiles and a second kernel merges their lists.
+# K1's tiled and run-time-r bodies (csrc/knn_tiled.cu, knn_wide.cu): a block
+# owns 64 rows and walks the anchors in tiles of 128.  Where the row blocks
+# cannot fill the card, blocks divide a row block's anchor tiles and a second
+# kernel merges their lists.
 _TILED_ROWS = 64
 _TILED_ANCHORS = 128
 _FILL_BLOCKS = 132            # a block on each of the H100's 132 SMs
 
 
 def knn_anchor_split(n: int, s: int) -> int:
-    """Blocks that divide each row block's anchor tiles in K1's tiled body
-    (a power of two up to 32): the most that keep the grid within
+    """Blocks that divide each row block's anchor tiles in K1's tiled and
+    run-time-r bodies (a power of two up to 32): the most that keep the grid within
     ``_FILL_BLOCKS`` blocks while each still scans a tile.  Beyond that the
     merge pass and the extra lists cost more than filling the card gains."""
     blocks = -(-n // _TILED_ROWS)
@@ -119,36 +123,42 @@ def knn_anchor_split(n: int, s: int) -> int:
     return split
 
 
-def _knn(X: torch.Tensor, U: torch.Tensor, r: int, split: int,
-         legacy: bool = False) -> KnnResult:
-    """K1 on CUDA tensors.  d = 2 and 3 take their template bodies, where
-    ``split`` lanes share a row and divide the anchors (a power of two up to
-    32; 0 lets the kernel's entry point choose from (n, s)).  Every other d
-    takes the tiled body, where ``split`` blocks divide a row block's anchors
-    (0: ``knn_anchor_split``), or with ``legacy`` the old run-time-d body
-    with the lanes' meaning of ``split``: the tiled body's bit oracle, for
-    the tests and chip_smoke.py only.  The result depends on neither."""
+def _knn(X: torch.Tensor, U: torch.Tensor, r: int, split: int, legacy: bool = False,
+         runtime_r: bool = False) -> KnnResult:
+    """K1 on CUDA tensors, any 1 ≤ r ≤ s.  Above r = 16, or at any r with
+    ``runtime_r``, the run-time-r body (csrc/knn_wide.cu), every d.  At
+    r ≤ 16, d = 2 and 3 take their template bodies, where ``split`` lanes
+    share a row and divide the anchors (a power of two up to 32; 0 lets the
+    kernel's entry point choose from (n, s)), and every other d the tiled
+    body, or with ``legacy`` the old run-time-d body with the lanes' meaning
+    of ``split``: the tiled body's bit oracle, for the tests and
+    chip_smoke.py only.  In the tiled and run-time-r bodies ``split`` blocks
+    divide a row block's anchors (0: ``knn_anchor_split``).  The result
+    depends on none of these."""
     n, d = X.shape
     s = U.shape[0]
-    _check_r("knn", r, KERNEL_MAX_R)
-    if r > s:
-        raise ValueError(f"knn needs r <= s, got r={r}, s={s}")
+    _check_r("knn", r, s)
     _check("X", X, torch.float32, (n, d), X.device)
     _check("U", U, torch.float32, (s, d), X.device)
-    tiled = d not in (2, 3) and not legacy
-    if tiled and split == 0:
+    wide = r > _TEMPLATED_MAX_R or runtime_r
+    blocks = wide or (d not in (2, 3) and not legacy)
+    if blocks and split == 0:
         split = knn_anchor_split(n, s)
+    lib = _build.load()
     idx = torch.empty((n, r), dtype=torch.int32, device=X.device)
     dist = torch.empty((n, r), dtype=torch.float32, device=X.device)
     # the anchors as the kernel's pre-pass packs them: (−2u, |u|²) records,
     # d + 1 floats rounded up to a multiple of 4 at most
     packed = torch.empty((s, (max(d, 3) + 4) // 4 * 4), dtype=torch.float32, device=X.device)
-    # the tiled body's lists of each block of a split: distances, then indices
-    part = torch.empty((2 * split * n * r if tiled and split > 1 else 0,), dtype=torch.float32,
+    # the lists of each block of a split: distances, then indices
+    part = torch.empty((2 * split * n * r if blocks and split > 1 else 0,), dtype=torch.float32,
                        device=X.device)
-    _launch("knn", X.device, _build.load().flgp_knn,
-            X.data_ptr(), U.data_ptr(), n, s, d, r, int(split), int(legacy), packed.data_ptr(),
-            part.data_ptr(), idx.data_ptr(), dist.data_ptr())
+    # the run-time-r body's merge temps, where its lists leave shared memory
+    lists = torch.empty((lib.flgp_knn_wide_lists(n, r, int(split)) if wide else 0,),
+                        dtype=torch.float32, device=X.device)
+    _launch("knn", X.device, lib.flgp_knn,
+            X.data_ptr(), U.data_ptr(), n, s, d, r, int(split), int(legacy), int(runtime_r),
+            packed.data_ptr(), part.data_ptr(), lists.data_ptr(), idx.data_ptr(), dist.data_ptr())
     return KnnResult(idx, dist)
 
 
@@ -159,7 +169,6 @@ def _knn(X: torch.Tensor, U: torch.Tensor, r: int, split: int,
 
 _MOMENTUM = {}   # (iters, device) -> the FISTA momentum table on that device
 _BLOCK_SMEM = 232448          # shared memory a block may take on the H100: 227 KB
-_TEMPLATED_MAX_R = 16         # the fan-ins of the templated bodies (csrc/common.cuh)
 
 
 def _lae_wide_floats(r: int, iters: int) -> int:

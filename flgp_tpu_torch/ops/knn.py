@@ -8,12 +8,6 @@ import torch
 
 from .distance import sqdist
 
-# Largest fan-in K1, the CUDA kNN kernel, is instantiated for (its top-r
-# list lives in registers), as the reference's ``fused_knn`` takes r <= 16;
-# wider requests take the plain version, as the reference's take its XLA
-# product.  K1's limit alone: K2–K8 take every r (ops/hopper_kernels.py).
-KERNEL_MAX_R = 16
-
 
 class KnnResult(NamedTuple):
     indices: torch.Tensor    # (n, r) int32 — columns of the r nearest anchors
@@ -24,12 +18,13 @@ def knn(X: torch.Tensor, U: torch.Tensor, r: int, block: int = 8192) -> KnnResul
     """r nearest anchors (by squared Euclidean distance) for each row of X,
     nearest first, ties to the lowest anchor index.
 
-    float32 with r ≤ 16 goes through the hand-written kernel's wrapper (which
-    itself runs the plain version for CPU tensors); float64 and wider r take
-    the plain version on any device, as the reference sends them to
+    float32 goes through the hand-written kernel's wrapper at every r (K1
+    takes any 1 ≤ r ≤ s, as the reference's ``fused_knn`` does; the wrapper
+    itself runs the plain version for CPU tensors).  float64 takes the plain
+    version on any device, as the reference's x64 gate sends it to
     ``knn_xla``.
     """
-    if X.dtype == torch.float32 and U.dtype == torch.float32 and r <= KERNEL_MAX_R:
+    if X.dtype == torch.float32 and U.dtype == torch.float32:
         from . import hopper_kernels
 
         return hopper_kernels.knn(X, U, r)

@@ -222,6 +222,28 @@ def test_spectrum_matches_reference(kernel, dtype, r, s):
     _up_to_sign(got.vectors.numpy(), np.asarray(ref.vectors), etol)
 
 
+def test_float32_spectrum_at_r_equal_s_is_each_package_s_float64_one():
+    """P2: at r = s = 24 every point's LAE problem spans all the anchors.
+    Each package's float32 chunked spectrum (the port's fused K6 → K7 →
+    eigh → K8 tail, plain versions here; the reference's float32
+    composition) against that package's float64 one: the eigenvalues
+    within 1e-5 each, the float32 tolerance of
+    ``test_spectrum_matches_reference``."""
+    X, U = _data(n=413, s=24, seed=5)
+    r, K = 24, 10
+    port = {dt: col.heat_kernel_spectrum_colmajor(T(X, dt).T, T(U, dt), r, K,
+                                                  LaplacianType.NORMALIZED, True, KernelType.LAE,
+                                                  chunk=128).values.double().numpy()
+            for dt in (torch.float32, torch.float64)}
+    ref = {npd: np.asarray(jcol.heat_kernel_spectrum_colmajor(
+        jnp.asarray(X.T, npd), jnp.asarray(U, npd), r, K, JLaplacian.NORMALIZED, True,
+        kernel=JKernel.LAE, chunk=128).values, dtype=np.float64)
+        for npd in (np.float32, np.float64)}
+    assert port[torch.float32].shape == ref[np.float32].shape == (K,)
+    np.testing.assert_allclose(port[torch.float32], port[torch.float64], rtol=0, atol=1e-5)
+    np.testing.assert_allclose(ref[np.float32], ref[np.float64], rtol=0, atol=1e-5)
+
+
 def test_spectrum_cluster_normalized_matches_reference_f64():
     X, U = _data(n=300, s=16, seed=7)
     counts = np.random.default_rng(8).integers(1, 40, size=(16,)).astype(np.float64)

@@ -166,6 +166,104 @@ def test_knn_kernel_self_neighbours(dev, gen, r):
     assert float(got.sqdists[:, 0].abs().max()) < 1e-4
 
 
+def _tied_anchors_in_order(idx):
+    """Anchors 4, 9 and 10 coincide: in every row 4 comes first, and 9 or 10
+    only after it."""
+    for row in idx[:3000].cpu().tolist():
+        where = [row.index(j) for j in (4, 9, 10) if j in row]
+        assert where == sorted(where)
+        assert 4 in row or not (9 in row or 10 in row)
+
+
+@pytest.mark.parametrize("r", [17, 24, 32, 33, 48, 100, 1000, "s"])
+@pytest.mark.parametrize("d", [2, 3, 5, 16, 784])
+def test_knn_runtime_r_body_matches_plain(dev, d, r):
+    """K1 above r = 16 (csrc/knn_wide.cu) against ``knn_plain``: rows
+    differing on near-ties only, d² within 1e-5, at a ragged shape (n =
+    3001, s = 1201: ten anchor tiles, the last partial) and at the
+    anchor-split shape (n = 3000, s = 700), where every split 1, 2, ..., 32
+    gives the same bits; r = "s" takes every anchor.  At d = 2 the d² are
+    the plain version's bits, so at most one row may differ; at other d a
+    list of hundreds of neighbours holds pairs whose d² the two roundings
+    order otherwise in many rows, each of them a near-tie.  Exact ties at
+    anchors 4, 9 and 10 keep 4 first; one launch counted a call; r > s
+    raises."""
+    from flgp_tpu_torch.ops import hopper_kernels as hk
+    from flgp_tpu_torch.ops.knn import knn_plain
+
+    g = torch.Generator(device=dev).manual_seed(1000 * d + (0 if r == "s" else r))
+    for n, s in ((3001, 1201), (3000, 700)):
+        rr = s if r == "s" else r
+        if rr > s:
+            continue
+        X = torch.randn((n, d), generator=g, device=dev)
+        U = torch.randn((s, d), generator=g, device=dev)
+        U[9] = U[4]
+        U[10] = U[4]
+        before = hk.LAUNCHES["knn"]
+        got = hk.knn(X, U, rr)
+        torch.cuda.synchronize()
+        assert hk.LAUNCHES["knn"] == before + 1
+        ref = knn_plain(X, U, rr)
+        _near_ties_only(got, ref, X, U, 0.0 if d == 2 else 1.0)
+        torch.testing.assert_close(got.sqdists, ref.sqdists, rtol=1e-5, atol=1e-5)
+        _tied_anchors_in_order(got.indices)
+        if s == 700:
+            for split in (1, 2, 4, 8, 16, 32):
+                forced = hk._knn(X, U, rr, split)
+                assert torch.equal(forced.indices, got.indices), split
+                assert torch.equal(forced.sqdists, got.sqdists), split
+        with pytest.raises(ValueError):
+            hk.knn(X, U, s + 1)
+
+
+@pytest.mark.parametrize("r", [1, 3, 16])
+@pytest.mark.parametrize("d", [2, 3, 5, 16])
+def test_knn_runtime_r_body_is_the_templated_body_bit_for_bit(dev, d, r):
+    """The run-time-r body forced at r ≤ 16 (``runtime_r``) against the
+    templated bodies (d = 2, 3: the template bodies; 5, 16: the tiled one):
+    the same indices and d² bit for bit, at ragged n and s, a shape whose
+    rows fill the card and the anchor-split shape, every split of the
+    run-time-r body forced there."""
+    from flgp_tpu_torch.ops import hopper_kernels as hk
+
+    g = torch.Generator(device=dev).manual_seed(10 * d + r)
+    for n, s in ((3001, 601), (70_001, 700), (3000, 700)):
+        X = torch.randn((n, d), generator=g, device=dev)
+        U = torch.randn((s, d), generator=g, device=dev)
+        U[9] = U[4]
+        U[10] = U[4]
+        got = hk.knn(X, U, r)
+        for split in ((0, 1, 2, 4, 8, 16, 32) if s == 700 and n == 3000 else (0,)):
+            forced = hk._knn(X, U, r, split, runtime_r=True)
+            assert torch.equal(forced.indices, got.indices), (n, s, split)
+            assert torch.equal(forced.sqdists, got.sqdists), (n, s, split)
+
+
+@pytest.mark.parametrize("r", [48, 100])
+def test_knn_runtime_r_self_neighbours(dev, gen, r):
+    """The GLGP self-kNN above r = 16 (s = n, the torus GLGP cell's r = 48):
+    each point first in its own list at d² ≈ 0, point 9 an exact twin of
+    point 4 (both lists start {4, 9}); rows differ from ``knn_plain`` on
+    near-ties only, d² within 1e-5."""
+    from flgp_tpu_torch.ops import hopper_kernels as hk
+    from flgp_tpu_torch.ops.knn import knn_plain
+
+    Xnp = gen.normal(size=(20000, 3))
+    Xnp[9] = Xnp[4]
+    X = _cuda(Xnp, dev)
+    got = hk.knn(X, X, r)
+    torch.cuda.synchronize()
+    ref = knn_plain(X, X, r)
+    _near_ties_only(got, ref, X, X, 1e-2)
+    torch.testing.assert_close(got.sqdists, ref.sqdists, rtol=1e-5, atol=1e-5)
+    me = torch.arange(20000, device=dev, dtype=got.indices.dtype)
+    not_self = (got.indices[:, 0] != me).nonzero()[:, 0].tolist()
+    assert set(not_self) <= {4, 9}
+    assert set(got.indices[9, :2].tolist()) == set(got.indices[4, :2].tolist()) == {4, 9}
+    assert float(got.sqdists[:, 0].abs().max()) < 1e-4
+
+
 @pytest.mark.parametrize("r", [2, 3, 6])
 @pytest.mark.parametrize("d", [2, 3])
 def test_lae_kernel_matches_plain(dev, gen, r, d):
@@ -375,7 +473,7 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev, gen):
     with pytest.raises(TypeError):
         hk.knn(X.double(), U.double(), 3)             # float64 never reaches a kernel
     with pytest.raises(ValueError):
-        hk.knn(X, U, 17)                              # r above the instantiated 16
+        hk.knn(X, U, 21)                              # r above s = 20
     with pytest.raises(ValueError):
         hk.knn(X.T.contiguous().T, U, 3)              # not contiguous
     with pytest.raises(ValueError):

@@ -97,9 +97,9 @@ def test_ell_matrix_ops_match_reference_f64(rng, op):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("r", [1, 3, 6])
+@pytest.mark.parametrize("r", [1, 3, 6, 24, 40])
 def test_knn_f64_matches_knn_xla(rng, r):
-    X, U = _points(rng, 200, 40, 3)
+    X, U = _points(rng, 200, 40, 3)               # r = 40 is r = s
     got = knn(T(X), T(U), r, block=64)            # f64: the plain version, blocked
     ref = knn_xla(jnp.asarray(X), jnp.asarray(U), r)
     np.testing.assert_array_equal(got.indices.numpy(), np.asarray(ref.indices))
@@ -112,8 +112,11 @@ def test_knn_f64_matches_knn_xla(rng, r):
             assert 3 in row and list(row).index(3) < list(row).index(7)
 
 
-@pytest.mark.parametrize("n,s,r", [(96, 40, 3), (50, 16, 2)])
+@pytest.mark.parametrize("n,s,r", [(96, 40, 3), (50, 16, 2), (96, 40, 24), (64, 64, 64)])
 def test_knn_f32_matches_pallas_interpret(rng, n, s, r):
+    """The port's float32 kNN against the TPU kernel in interpret mode, whose
+    r masked row-min passes take any r ≤ s (its r ≤ 16 is only the
+    reference's dispatch): r = 24 and r = s as well."""
     X, U = _points(rng, n, s, 5)
     got = knn(T(X, torch.float32), T(U, torch.float32), r)
     ref = pk.fused_knn(jnp.asarray(X, jnp.float32), jnp.asarray(U, jnp.float32), r, block=32,
@@ -122,14 +125,14 @@ def test_knn_f32_matches_pallas_interpret(rng, n, s, r):
     np.testing.assert_allclose(got.sqdists.numpy(), np.asarray(ref.sqdists), rtol=1e-4, atol=1e-4)
 
 
-@pytest.mark.parametrize("r", [1, 3, 16])
+@pytest.mark.parametrize("r", [1, 3, 16, 24])
 @pytest.mark.parametrize("d", [1, 2, 3, 5, 16, 17, 64, 256])
 def test_knn_matches_reference_over_widths(rng, d, r):
     """``knn`` and ``knn_plain`` against the reference's plain path on the
     CPU at the widths the kernel has a body for (2 and 3 as template
     parameters, every other through the tiled one: 16, 64 and 256 are one,
-    four and sixteen of its feature slabs) and at the ends of its fan-in
-    range.  float64: the same indices, d² to 1e-12.  float32 through
+    four and sixteen of its feature slabs), at the ends of the templated
+    bodies' fan-in range and above it (r = 24, the run-time-r body).  float64: the same indices, d² to 1e-12.  float32 through
     the wrapper (its plain version on the CPU): the same indices as the
     float32 reference, d² to 1e-4.  Anchors 3 and 7 coincide, and so do 11 and
     5: the lower index always comes first."""
@@ -370,25 +373,30 @@ def test_wrappers_take_plain_version_on_cpu_without_counting(rng):
                                 "ell_norm_matmat_t", "ell_matmat", "ell_sym_matmat"}
 
 
-# F9: the five call sites of K2–K8 route every float32 graph to the kernels'
-# wrappers at every r (here r = 24, above K1's 16); float64 reaches none of
-# them, and ops.knn.knn at r = 24 takes its plain version, as the reference
-# takes its XLA product.
+# F9: the call sites of K1–K8 route every float32 graph to the kernels'
+# wrappers at every r (here r = 24, above the templated bodies' 16); float64
+# reaches none of them and takes the plain kNN, as the reference's x64 gate
+# takes its XLA product.  The point-major, chunked, sharded and GLGP graphs
+# reach K1 (``hk.knn``) in float32 and ``knn_plain`` only in float64.
 ROUTES = {
     "lae_weights": {"lae_weights"},
     "lae_weights_t": {"lae_weights_t"},
     "spectrum_fused": {"ell_colsum", "ell_norm_gram", "ell_norm_matmat"},
-    "heat_kernel_spectrum_colmajor": {"lae_weights_t", "ell_colsum_t", "ell_norm_gram_t",
+    "build_spectrum": {"knn", "lae_weights", "ell_colsum", "ell_norm_gram", "ell_norm_matmat"},
+    "heat_kernel_spectrum_colmajor": {"knn", "lae_weights_t", "ell_colsum_t", "ell_norm_gram_t",
                                       "ell_norm_matmat_t"},
-    "sharded_spectrum": {"lae_weights", "ell_colsum_partial", "ell_norm_gram_partial",
+    "sharded_spectrum": {"knn", "lae_weights", "ell_colsum_partial", "ell_norm_gram_partial",
                          "ell_norm_matmat"},
+    "gl_setup": {"knn"},
 }
 
 
 @pytest.mark.parametrize("site", sorted(ROUTES))
 def test_float32_graphs_reach_the_kernels_at_every_r(rng, monkeypatch, site):
     from flgp_tpu_torch.config import GraphConfig, KernelType
+    from flgp_tpu_torch.fit.spectral import build_spectrum, gl_setup
     from flgp_tpu_torch.ops import colmajor as col
+    from flgp_tpu_torch.ops.kmeans import SubsampleResult
     from flgp_tpu_torch.ops import knn as knn_mod
     from flgp_tpu_torch.ops import lae as lae_mod
     from flgp_tpu_torch.parallel.mesh import Mesh
@@ -423,6 +431,11 @@ def test_float32_graphs_reach_the_kernels_at_every_r(rng, monkeypatch, site):
             out = lae_mod.lae_weights_t(Xp.T.contiguous(), Up, idx.T.contiguous()[None], 20)
         elif site == "spectrum_fused":
             out = spectrum_fused(w, idx, s, K, cn, True, cp).vectors
+        elif site == "build_spectrum":
+            g = GraphConfig(s=s, r=r, K=K, gl=cn, kernel=KernelType.LAE)
+            out = build_spectrum(torch.Generator(), Xp, g, anchors=SubsampleResult(Up, cp))[0].vectors
+        elif site == "gl_setup":
+            out = gl_setup(Xp, True, r / n).sq_dists          # the self-kNN at r = 24
         elif site == "heat_kernel_spectrum_colmajor":
             out = col.heat_kernel_spectrum_colmajor(Xp.T.contiguous(), Up, r, K, cn, True,
                                                     cluster_sizes=cp, lae_iters=20,
@@ -437,8 +450,9 @@ def test_float32_graphs_reach_the_kernels_at_every_r(rng, monkeypatch, site):
             assert kernels == ROUTES[site], calls
         else:
             assert kernels == set(), calls
-        if site in ("heat_kernel_spectrum_colmajor", "sharded_spectrum"):
-            assert "knn_plain" in calls                  # K1 stays r <= 16
+        if "knn" in ROUTES[site]:
+            # K1 above r = 16 in float32; the plain kNN only in float64
+            assert ("knn_plain" in calls) == (dtype == torch.float64), calls
 
 
 # ---------------------------------------------------------------------------
