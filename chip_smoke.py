@@ -151,7 +151,7 @@ Phases, each of which ends the script with a non-zero exit if it fails:
     which must be the same bits, then ``mult_t_quadrature`` (256 points,
     two passes); the SMC t-means within 1.0 quadrature sd on every class and
     0.5 on average, the coarse weight below 0.5, finite evidence; walls,
-    Newton solves and host syncs a target evaluation, peak memory; then
+    Newton rounds and host syncs, peak memory; then
     ``gpc_t_posterior`` (64 particles) on phase 4's torus spectrum, its
     t-mean within 1.5 in log of the ``gpc_nlp_objective`` grid optimum;
 14. SVI on phase 12's torus posterior: ``fit_svi`` (8000 steps) and
@@ -2102,28 +2102,28 @@ SMC_BUDGET = dict(n_particles=64, n_mutation_steps=5, newton_max_iter=25, stages
 
 
 def _counted_run(fn):
-    """``fn()`` with its wall, its Newton solves and host syncs (``gpc.STATS``)
-    and the peak device memory it reached."""
-    from flgp_tpu_torch.models import gpc as gpc_mod
+    """``fn()`` with its wall, its Newton rounds and host syncs (the
+    recorder's counters) and the peak device memory it reached."""
+    from flgp_tpu_torch.utils.metrics import COUNTS
 
-    gpc_mod.reset_stats()
+    before = dict(COUNTS)
     torch.cuda.reset_peak_memory_stats()
     t0 = _synced()
     out = fn()
     wall = _synced() - t0
-    return out, dict(wall=wall, solves=gpc_mod.STATS["solves"], syncs=gpc_mod.STATS["host_syncs"],
+    return out, dict(wall=wall, rounds=COUNTS["newton_rounds"] - before.get("newton_rounds", 0),
+                     syncs=COUNTS["host_syncs"] - before.get("host_syncs", 0),
                      peak=torch.cuda.max_memory_allocated())
 
 
 def _counts_line(c: dict) -> str:
-    return (f"{c['wall']:.3f} s, {c['solves']} Newton solves (target evaluations), "
-            f"{c['syncs'] / max(c['solves'], 1):.2f} Newton rounds (host syncs) each, peak memory "
-            f"{c['peak'] / 2**30:.3f} GiB")
+    return (f"{c['wall']:.3f} s, {c['rounds']} Newton rounds, {c['syncs']} host syncs, peak "
+            f"memory {c['peak'] / 2**30:.3f} GiB")
 
 
 def target_evaluation_profile(eig: EigenPair, aug, idx, K: int, sigma: float,
                               theta: torch.Tensor) -> tuple:
-    """(wall, device activity time, device activities, host syncs) of one
+    """(wall, device activity time, device activities, Newton rounds) of one
     target evaluation of ``mult_t_posterior`` at the particles ``theta``:
     the batched Newton solve over its particles × classes lanes, warm, then
     once under ``torch.profiler``."""
@@ -2131,6 +2131,7 @@ def target_evaluation_profile(eig: EigenPair, aug, idx, K: int, sigma: float,
 
     from flgp_tpu_torch.inference.hyperparam import _phi
     from flgp_tpu_torch.models import gpc as gpc_mod
+    from flgp_tpu_torch.utils.metrics import COUNTS
 
     V, lam = eig.vectors[idx, :K], eig.laplacian_eigenvalues(K)
     Yt, Nv = aug.T.contiguous(), torch.ones(aug.shape[0], dtype=aug.dtype, device=aug.device)
@@ -2140,16 +2141,16 @@ def target_evaluation_profile(eig: EigenPair, aug, idx, K: int, sigma: float,
             _phi(V, lam, torch.exp(theta)), Yt, Nv, sigma, 1e-5, SMC_BUDGET["newton_max_iter"])
 
     solve()
-    gpc_mod.reset_stats()
+    rounds = COUNTS["newton_rounds"]
     t0 = _synced()
     solve()
     wall = _synced() - t0
-    syncs = gpc_mod.STATS["host_syncs"]
+    rounds = COUNTS["newton_rounds"] - rounds
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         solve()
         torch.cuda.synchronize()
     acts = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    return wall, sum(e.time_range.elapsed_us() for e in acts) * 1e-6, len(acts), syncs
+    return wall, sum(e.time_range.elapsed_us() for e in acts) * 1e-6, len(acts), rounds
 
 
 def hyperposterior_phase(dev, mnist_eig: EigenPair, mnist_ds, mnist_launches: dict,
@@ -2191,12 +2192,12 @@ def hyperposterior_phase(dev, mnist_eig: EigenPair, mnist_ds, mnist_launches: di
           f"evidence {'the same bits' if same else 'DIFFER'}", flush=True)
     if not same:
         _fail("mult_t_posterior: the chunked and the whole ladder differ")
-    wall, busy, n_acts, syncs = target_evaluation_profile(mnist_eig, aug, idx, K, sigma,
-                                                          post.smc.particles)
+    wall, busy, n_acts, rounds = target_evaluation_profile(mnist_eig, aug, idx, K, sigma,
+                                                           post.smc.particles)
     print(f"  one target evaluation ({post.smc.particles.shape[0]} particles x {aug.shape[1]} "
-          f"classes as Newton lanes, {syncs} host syncs): {wall * 1e3:.3f} ms wall, "
+          f"classes as Newton lanes, {rounds} Newton rounds): {wall * 1e3:.3f} ms wall, "
           f"{busy * 1e3:.3f} ms of device activity, busy share {busy / wall:.4f}; "
-          f"{n_acts / max(syncs - 1, 1):.1f} device activities a Newton round [{card}]",
+          f"{n_acts / max(rounds, 1):.1f} device activities a Newton round [{card}]",
           flush=True)
     quad, cq = _counted_run(lambda: hyperparam.mult_t_quadrature(
         mnist_eig, aug, idx, K, sigma, newton_max_iter=SMC_BUDGET["newton_max_iter"],

@@ -43,6 +43,7 @@ from ..ops import linalg
 from ..ops.heat_kernel import heat_kernel, heat_kernel_diag
 from ..ops.kmeans import SubsampleResult
 from ..types import EigenPair
+from ..utils.metrics import fit_entry, span, spanned, to_device, to_host
 from . import spectral
 
 
@@ -72,8 +73,8 @@ def _start(generator: torch.Generator, device) -> torch.device:
 
 
 def _concat_all(X, X_new, dtype, device):
-    X = torch.as_tensor(X, dtype=dtype, device=device)
-    X_new = torch.as_tensor(X_new, dtype=dtype, device=device)
+    X = to_device(X, dtype, device)
+    X_new = to_device(X_new, dtype, device)
     return torch.cat([X, X_new], dim=0), X.shape[0], X.shape[0] + X_new.shape[0]
 
 
@@ -152,6 +153,7 @@ def _train_gpc(eigenpair: EigenPair, Y, N, idx, K: int, cfg: FitConfig) -> Scala
     )
 
 
+@spanned("predict")
 def _gpr_tail(eigenpair: EigenPair, Y, m: int, n: int, K: int, cfg: FitConfig, t, noise):
     """Prediction + posterior for regression."""
     idx0, idx1 = slice(0, m), slice(m, n)
@@ -167,6 +169,7 @@ def _gpr_tail(eigenpair: EigenPair, Y, m: int, n: int, K: int, cfg: FitConfig, t
     return out
 
 
+@spanned("predict")
 def _gpc_tail(generator, eigenpair: EigenPair, Y, N, m: int, n: int, K: int, cfg: FitConfig,
               t, max_count: int):
     """PG-Gibbs labels + Laplace posterior for binary GPC."""
@@ -188,7 +191,11 @@ def _gpc_tail(generator, eigenpair: EigenPair, Y, N, m: int, n: int, K: int, cfg
 
 
 def _np(x) -> np.ndarray:
-    return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+    return to_host(x, array=True) if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def _float(x) -> float:
+    return float(to_host(x)) if isinstance(x, torch.Tensor) else float(x)
 
 
 def _to_result(out, pars, obj, eigenpair=None, metrics=None) -> FitResult:
@@ -198,7 +205,7 @@ def _to_result(out, pars, obj, eigenpair=None, metrics=None) -> FitResult:
         posterior_mean=_np(out.get("mean", out["test"])),
         posterior_cov=_np(out["cov"]),
         pars={k: _np(v) for k, v in pars.items()},
-        obj=float(obj),
+        obj=_float(obj),
         C=_np(out["C"]) if "C" in out else None,
         eigenpair=eigenpair,
         metrics=metrics,
@@ -223,13 +230,13 @@ def _counts(N, m: int, dtype, device) -> Tuple[torch.Tensor, int]:
     """Binomial trial counts (default: ones) and their maximum."""
     if N is None:
         return torch.ones((m,), dtype=dtype, device=device), 1
-    return torch.as_tensor(N, dtype=dtype, device=device), int(np.max(_np(N)))
+    return to_device(N, dtype, device), int(np.max(_np(N)))
 
 
 def _first_min(objs) -> int:
     """Index of the smallest objective, the first on ties (NaN counts as the
     smallest, as it does for the reference's argmax of the negated values)."""
-    return int(torch.argmin(torch.stack([o.detach().reshape(()) for o in objs])))
+    return to_host(torch.argmin(torch.stack([o.detach().reshape(()) for o in objs])))
 
 
 # ---------------------------------------------------------------------------
@@ -251,7 +258,7 @@ def _orth_residual(eig: EigenPair) -> float:
     V = eig.vectors
     VtV = linalg.pdot(V.T, V) / V.shape[0]
     eye = torch.eye(VtV.shape[0], dtype=VtV.dtype, device=VtV.device)
-    return float(torch.linalg.norm(VtV - eye) / VtV.shape[0])
+    return _float(torch.linalg.norm(VtV - eye) / VtV.shape[0])
 
 
 def _lae_fit(generator, X_all, Y, N_arr, max_count: int, m: int, n: int, cfg: FitConfig,
@@ -267,19 +274,19 @@ def _lae_fit(generator, X_all, Y, N_arr, max_count: int, m: int, n: int, cfg: Fi
         metrics["spectrum_orth_residual"] = _orth_residual(eig)
     if task == "regression":
         scfg, seig, (Ys,) = _solve_cast(cfg, eig, Y)
-        with _stage(report, "train") as slot:
+        with _stage(report, "train") as slot, span("train"):
             res = _train_gpr(seig, Ys, slice(0, m), K, scfg)
             slot["_sync"] = res.t
         if report is not None:
             metrics.update(train_s=report.stages[-1].wall_s,
-                           adam_grad_norm=float(res.grad_norm), train_obj=float(res.obj))
+                           adam_grad_norm=_float(res.grad_norm), train_obj=_float(res.obj))
         with _stage(report, "predict") as slot:
             out = _gpr_tail(seig, Ys, m, n, K, scfg, res.t, res.noise)
             slot["_sync"] = out["test"]
         pars, obj = dict(t=res.t, noise=res.noise), -res.obj
     else:
         scfg, seig, (Ys, Ns) = _solve_cast(cfg, eig, Y, N_arr)
-        with _stage(report, "train") as slot:
+        with _stage(report, "train") as slot, span("train"):
             res = _train_gpc(seig, Ys, Ns, slice(0, m), K, scfg)
             slot["_sync"] = res.x
         if report is not None:
@@ -289,9 +296,9 @@ def _lae_fit(generator, X_all, Y, N_arr, max_count: int, m: int, n: int, cfg: Fi
                 seig, Ys, Ns, slice(0, m), K, res.x, scfg.sigma,
                 tol=scfg.train.newton_tol, max_iter=scfg.train.newton_max_iter)
             metrics.update(train_s=report.stages[-1].wall_s,
-                           opt_bracket_logwidth=float(res.bracket_logwidth),
+                           opt_bracket_logwidth=_float(res.bracket_logwidth),
                            opt_window_expansions=float(res.n_expansions),
-                           newton_iters=float(n_it), newton_final_delta=float(n_delta))
+                           newton_iters=_float(n_it), newton_final_delta=_float(n_delta))
         with _stage(report, "predict") as slot:
             out = _gpc_tail(generator, seig, Ys, Ns, m, n, K, scfg, res.x, max_count)
             slot["_sync"] = out["test"]
@@ -301,6 +308,7 @@ def _lae_fit(generator, X_all, Y, N_arr, max_count: int, m: int, n: int, cfg: Fi
     return _to_result(out, pars, obj, eig, metrics if report is not None else None)
 
 
+@fit_entry
 def fit_lae_regression_gp(generator: torch.Generator, X, Y, X_new,
                           cfg: FitConfig = FitConfig(sigma=1e-5), report=None, anchors=None,
                           device=None) -> FitResult:
@@ -316,12 +324,14 @@ def fit_lae_regression_gp(generator: torch.Generator, X, Y, X_new,
     stays on the device."""
     device = _start(generator, device)
     cfg = _resolve(cfg, "regression")
-    X_all, m, n = _concat_all(X, X_new, cfg.dtype, device)
-    Y = torch.as_tensor(Y, dtype=cfg.dtype, device=device)
+    with span("upload"):
+        X_all, m, n = _concat_all(X, X_new, cfg.dtype, device)
+        Y = to_device(Y, cfg.dtype, device)
     return _lae_fit(generator, X_all, Y, None, 1, m, n, cfg,
                     _as_anchors(anchors, cfg.dtype, device), "regression", report)
 
 
+@fit_entry
 def fit_lae_logit_gp(generator: torch.Generator, X, Y, X_new, N=None,
                      cfg: FitConfig = FitConfig(), report=None, anchors=None,
                      device=None) -> FitResult:
@@ -332,9 +342,10 @@ def fit_lae_logit_gp(generator: torch.Generator, X, Y, X_new, N=None,
     ``opt_window_expansions``, ``newton_iters``, ``newton_final_delta`` and
     ``predict_s``."""
     device = _start(generator, device)
-    X_all, m, n = _concat_all(X, X_new, cfg.dtype, device)
-    Y = torch.as_tensor(Y, dtype=cfg.dtype, device=device)
-    N_arr, max_count = _counts(N, m, cfg.dtype, device)
+    with span("upload"):
+        X_all, m, n = _concat_all(X, X_new, cfg.dtype, device)
+        Y = to_device(Y, cfg.dtype, device)
+        N_arr, max_count = _counts(N, m, cfg.dtype, device)
     return _lae_fit(generator, X_all, Y, N_arr, max_count, m, n, cfg,
                     _as_anchors(anchors, cfg.dtype, device), "logit", report)
 
@@ -398,6 +409,7 @@ def _se_family(generator, X_all, cfg: FitConfig, anchors, device):
             lambda pair, extra, a2: (pair, None))
 
 
+@fit_entry
 def fit_se_regression_gp(generator: torch.Generator, X, Y, X_new,
                          cfg: FitConfig = FitConfig(sigma=1e-5), anchors=None,
                          device=None) -> FitResult:
@@ -406,17 +418,18 @@ def fit_se_regression_gp(generator: torch.Generator, X, Y, X_new,
     device = _start(generator, device)
     cfg = _resolve(cfg, "regression")
     X_all, m, n = _concat_all(X, X_new, cfg.dtype, device)
-    Y = torch.as_tensor(Y, dtype=cfg.dtype, device=device)
+    Y = to_device(Y, cfg.dtype, device)
     K, spectrum_at, extend = _se_family(generator, X_all, cfg, anchors, device)
     return _grid_regression(Y, m, n, K, cfg, spectrum_at, extend)
 
 
+@fit_entry
 def fit_se_logit_gp(generator: torch.Generator, X, Y, X_new, N=None,
                     cfg: FitConfig = FitConfig(), anchors=None, device=None) -> FitResult:
     """Binary GPC with the SE kernel and a bandwidth grid."""
     device = _start(generator, device)
     X_all, m, n = _concat_all(X, X_new, cfg.dtype, device)
-    Y = torch.as_tensor(Y, dtype=cfg.dtype, device=device)
+    Y = to_device(Y, cfg.dtype, device)
     N_arr, max_count = _counts(N, m, cfg.dtype, device)
     K, spectrum_at, extend = _se_family(generator, X_all, cfg, anchors, device)
     return _grid_logit(generator, Y, N_arr, max_count, m, n, K, cfg, spectrum_at, extend)
@@ -444,23 +457,25 @@ def _nystrom_family(generator, X_all, m: int, cfg: FitConfig, basis=None):
     return K, spectrum_at, extend
 
 
+@fit_entry
 def fit_nystrom_regression_gp(generator: torch.Generator, X, Y, X_new,
                               cfg: FitConfig = FitConfig(sigma=1e-5), device=None) -> FitResult:
     """GPR via the Nyström extension of the anchor diffusion operator."""
     device = _start(generator, device)
     cfg = _resolve(cfg, "regression")
     X_all, m, n = _concat_all(X, X_new, cfg.dtype, device)
-    Y = torch.as_tensor(Y, dtype=cfg.dtype, device=device)
+    Y = to_device(Y, cfg.dtype, device)
     K, spectrum_at, extend = _nystrom_family(generator, X_all, m, cfg)
     return _grid_regression(Y, m, n, K, cfg, spectrum_at, extend)
 
 
+@fit_entry
 def fit_nystrom_logit_gp(generator: torch.Generator, X, Y, X_new, N=None,
                          cfg: FitConfig = FitConfig(), device=None) -> FitResult:
     """Binary GPC via the Nyström extension."""
     device = _start(generator, device)
     X_all, m, n = _concat_all(X, X_new, cfg.dtype, device)
-    Y = torch.as_tensor(Y, dtype=cfg.dtype, device=device)
+    Y = to_device(Y, cfg.dtype, device)
     N_arr, max_count = _counts(N, m, cfg.dtype, device)
     K, spectrum_at, extend = _nystrom_family(generator, X_all, m, cfg)
     return _grid_logit(generator, Y, N_arr, max_count, m, n, K, cfg, spectrum_at, extend)
@@ -486,11 +501,12 @@ def _gl_family(generator, X_all, cfg: FitConfig):
         return spectral.gl_spectrum_at(basis, a2, K), 0.0
 
     def extend(pair, resid, a2):
-        return pair, {"gl_eigensolve_max_residual": float(resid)}
+        return pair, {"gl_eigensolve_max_residual": _float(resid)}
 
     return K, spectrum_at, extend
 
 
+@fit_entry
 def fit_gl_regression_gp(generator: torch.Generator, X, Y, X_new,
                          cfg: FitConfig = FitConfig(sigma=1e-5), device=None) -> FitResult:
     """GPR on the exact graph Laplacian over all n points.
@@ -500,18 +516,19 @@ def fit_gl_regression_gp(generator: torch.Generator, X, Y, X_new,
     device = _start(generator, device)
     cfg = _resolve(cfg, "regression")
     X_all, m, n = _concat_all(X, X_new, cfg.dtype, device)
-    Y = torch.as_tensor(Y, dtype=cfg.dtype, device=device)
+    Y = to_device(Y, cfg.dtype, device)
     K, spectrum_at, extend = _gl_family(generator, X_all, cfg)
     return _grid_regression(Y, m, n, K, cfg, spectrum_at, extend)
 
 
+@fit_entry
 def fit_gl_logit_gp(generator: torch.Generator, X, Y, X_new, N=None,
                     cfg: FitConfig = FitConfig(), device=None) -> FitResult:
     """Binary GPC on the exact graph Laplacian; metrics as in
     :func:`fit_gl_regression_gp`."""
     device = _start(generator, device)
     X_all, m, n = _concat_all(X, X_new, cfg.dtype, device)
-    Y = torch.as_tensor(Y, dtype=cfg.dtype, device=device)
+    Y = to_device(Y, cfg.dtype, device)
     N_arr, max_count = _counts(N, m, cfg.dtype, device)
     K, spectrum_at, extend = _gl_family(generator, X_all, cfg)
     return _grid_logit(generator, Y, N_arr, max_count, m, n, K, cfg, spectrum_at, extend)

@@ -26,6 +26,7 @@ from ..inference.pg_gibbs import test_pgbinary
 from ..models import gpc as gpc_mod
 from ..ops.heat_kernel import heat_kernel
 from ..types import EigenPair
+from ..utils.metrics import fit_entry, span, spanned, to_device, to_host
 from . import spectral
 from .drivers import (
     FitResult,
@@ -50,10 +51,12 @@ def one_hot_labels(Y: torch.Tensor, J: int) -> torch.Tensor:
 
 def _train_mult(eigenpair: EigenPair, aug_y, m: int, K: int, cfg: FitConfig) -> Scalar1DResult:
     """The J binary t-optimizations over the shared spectrum, class after
-    class; every field of the result has a leading (J,) axis."""
-    N = torch.ones((m,), dtype=aug_y.dtype, device=aug_y.device)
-    results = [_train_gpc(eigenpair, aug_y[:, j], N, slice(0, m), K, cfg)
-               for j in range(aug_y.shape[1])]
+    class, in one span ``train``; every field of the result has a leading
+    (J,) axis."""
+    with span("train"):
+        N = torch.ones((m,), dtype=aug_y.dtype, device=aug_y.device)
+        results = [_train_gpc(eigenpair, aug_y[:, j], N, slice(0, m), K, cfg)
+                   for j in range(aug_y.shape[1])]
     return Scalar1DResult(
         torch.stack([r.x for r in results]), torch.stack([r.obj for r in results]),
         torch.stack([r.bracket_logwidth for r in results]),
@@ -81,6 +84,7 @@ def _posterior_mult(eigenpair: EigenPair, aug_y, ts, m: int, n: int, K: int, sig
     return mean.T, cov.T
 
 
+@spanned("predict")
 def _mult_tail(generator, eig: EigenPair, cfg: FitConfig, aug_y, res: Scalar1DResult, m: int,
                n: int, K: int, pars: dict, metrics=None) -> FitResult:
     """Labels and moments from the trained times ``res.x`` (J,) on the pair
@@ -94,12 +98,14 @@ def _mult_tail(generator, eig: EigenPair, cfg: FitConfig, aug_y, res: Scalar1DRe
 
 def _setup(generator, X, Y, X_new, cfg: FitConfig, device):
     device = _start(generator, device)
-    X_all, m, n = _concat_all(X, X_new, cfg.dtype, device)
-    Y = torch.as_tensor(Y, dtype=cfg.dtype, device=device)
-    J = int(torch.max(Y)) + 1
-    return device, X_all, m, n, one_hot_labels(Y, J)
+    with span("upload"):
+        X_all, m, n = _concat_all(X, X_new, cfg.dtype, device)
+        Y = to_device(Y, cfg.dtype, device)
+        J = int(to_host(torch.max(Y))) + 1
+        return device, X_all, m, n, one_hot_labels(Y, J)
 
 
+@fit_entry
 def fit_lae_logit_mult_gp(generator: torch.Generator, X, Y, X_new, cfg: FitConfig = FitConfig(),
                           device=None) -> FitResult:
     """Multinomial GPC with the LAE kernel.
@@ -135,6 +141,7 @@ def _grid_mult(generator, aug_y, m: int, n: int, K: int, cfg: FitConfig, spectru
     return _mult_tail(generator, eig, cfg, aug_y, res, m, n, K, dict(a2=a2), metrics)
 
 
+@fit_entry
 def fit_se_logit_mult_gp(generator: torch.Generator, X, Y, X_new, cfg: FitConfig = FitConfig(),
                          device=None) -> FitResult:
     """Multinomial GPC with the SE kernel and a bandwidth grid; arguments and
@@ -144,6 +151,7 @@ def fit_se_logit_mult_gp(generator: torch.Generator, X, Y, X_new, cfg: FitConfig
     return _grid_mult(generator, aug_y, m, n, K, cfg, spectrum_at, extend)
 
 
+@fit_entry
 def fit_nystrom_logit_mult_gp(generator: torch.Generator, X, Y, X_new,
                               cfg: FitConfig = FitConfig(), device=None) -> FitResult:
     """Multinomial GPC via the Nyström extension; as :func:`fit_se_logit_mult_gp`."""
@@ -152,6 +160,7 @@ def fit_nystrom_logit_mult_gp(generator: torch.Generator, X, Y, X_new,
     return _grid_mult(generator, aug_y, m, n, K, cfg, spectrum_at, extend)
 
 
+@fit_entry
 def fit_gl_logit_mult_gp(generator: torch.Generator, X, Y, X_new, cfg: FitConfig = FitConfig(),
                          device=None) -> FitResult:
     """Multinomial GPC on the exact graph Laplacian (dense ``eigh`` or sparse

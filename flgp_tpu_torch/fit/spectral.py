@@ -18,6 +18,7 @@ from ..ops.lobpcg import lobpcg_standard
 from ..ops.sparse_graph import SymStructure, glgp_operator, sym_structure, symmetrize_knn
 from ..ops.spectrum import _top_k_eigh, spectrum_from_Z, spectrum_fused
 from ..types import EigenPair, EllMatrix
+from ..utils.metrics import span
 
 
 def build_spectrum(
@@ -30,21 +31,28 @@ def build_spectrum(
 
     ``anchors`` overrides the subsampler with a precomputed (centers, counts)
     pair.  The raw ELL graph goes to the fused normalize+spectrum tail
-    (kernels K3–K5 in float32)."""
-    sub = anchors if anchors is not None else subsample(
-        generator, X_all, g.s, g.subsample, g.nstart, g.kmeans_iters
-    )
+    (kernels K3–K5 in float32).  The stages are the spans ``subsample``,
+    ``graph`` (``knn``, ``lae_weights``) and ``spectrum``."""
+    with span("subsample"):
+        sub = anchors if anchors is not None else subsample(
+            generator, X_all, g.s, g.subsample, g.nstart, g.kmeans_iters
+        )
     centers = sub.centers.contiguous()
-    if g.kernel == KernelType.LAE:
-        idx = knn(X_all, centers, g.r).indices
-        w = lae_weights(X_all, centers, idx)
-    elif g.kernel == KernelType.SE:
-        res = knn(X_all, centers, g.r)
-        idx = res.indices
-        w = torch.exp(-res.sqdists / (4.0 * g.epsilon * g.epsilon))
-    else:
-        raise ValueError(f"unsupported kernel: {g.kernel}")
-    return spectrum_fused(w, idx, g.s, g.resolved_K(), g.gl, g.root, sub.counts), sub
+    with span("graph"):
+        if g.kernel == KernelType.LAE:
+            with span("knn"):
+                idx = knn(X_all, centers, g.r).indices
+            with span("lae_weights"):
+                w = lae_weights(X_all, centers, idx)
+        elif g.kernel == KernelType.SE:
+            with span("knn"):
+                res = knn(X_all, centers, g.r)
+            idx = res.indices
+            w = torch.exp(-res.sqdists / (4.0 * g.epsilon * g.epsilon))
+        else:
+            raise ValueError(f"unsupported kernel: {g.kernel}")
+    with span("spectrum"):
+        return spectrum_fused(w, idx, g.s, g.resolved_K(), g.gl, g.root, sub.counts), sub
 
 
 class SeGridBasis(NamedTuple):

@@ -46,6 +46,7 @@ from ..ops.knn import knn
 from ..ops.lae import lae_weights
 from ..ops.spectrum import spectrum_fused
 from ..types import EigenPair, EllMatrix
+from ..utils.metrics import fit_entry, to_host
 from .drivers import _counts, _solve_cast, _start, _train_gpc, _train_gpr
 from .multiclass import _train_mult, one_hot_labels
 
@@ -339,6 +340,7 @@ def _train_rows(eig: EigenPair, idx) -> EigenPair:
     return EigenPair(eig.values, eig.vectors[idx])
 
 
+@fit_entry
 def fit_lae_logit_gp_streamed(
     generator: torch.Generator,
     mat: MatrixFile,
@@ -368,6 +370,7 @@ def fit_lae_logit_gp_streamed(
     return StreamedGpcResult(labels, probs, mean, var, dict(t=res.x, obj=res.obj))
 
 
+@fit_entry
 def fit_lae_logit_mult_gp_streamed(
     generator: torch.Generator,
     mat: MatrixFile,
@@ -386,12 +389,12 @@ def fit_lae_logit_mult_gp_streamed(
                                                 train_idx)
     m = idx.shape[0]
     Y = torch.as_tensor(np.asarray(Y_train), dtype=cfg.dtype, device=device)
-    aug_y = one_hot_labels(Y, int(torch.max(Y)) + 1)
+    aug_y = one_hot_labels(Y, int(to_host(torch.max(Y))) + 1)
     scfg, eig_m, (aug_s,) = _solve_cast(cfg, _train_rows(eig, idx), aug_y)
     res = _train_mult(eig_m, aug_s, m, K, scfg)
     N_arr = torch.ones((m,), dtype=scfg.dtype, device=device)
-    seeds = torch.randint(0, 2 ** 62, (aug_s.shape[1],), generator=generator,
-                          device=device).tolist()
+    seeds = to_host(torch.randint(0, 2 ** 62, (aug_s.shape[1],), generator=generator,
+                                  device=device)).tolist()
     tails = [_gpc_lowrank_tail(torch.Generator(device=device).manual_seed(seed), eig,
                                aug_s[:, j], N_arr, idx, K, scfg, res.x[j], 1, chunk_rows)
              for j, seed in enumerate(seeds)]
@@ -402,6 +405,7 @@ def fit_lae_logit_mult_gp_streamed(
     return StreamedGpcResult(labels, probs, mean, var, dict(t=res.x, obj=res.obj))
 
 
+@fit_entry
 def fit_lae_regression_gp_streamed(
     generator: torch.Generator,
     mat: MatrixFile,

@@ -18,11 +18,11 @@ its leapfrog count is its own steps, not the lockstep count.  The host asks
 from __future__ import annotations
 
 import time
-from collections import Counter
 from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
+from ..utils.metrics import CounterView, count, to_host
 from .hmc import (
     HmcState,
     _like,
@@ -35,17 +35,18 @@ from .hmc import (
 LogProbFn = Callable[[torch.Tensor], torch.Tensor]
 
 # host syncs (``any()`` reads), lockstep leaves (leapfrog steps of the whole
-# batch) and transitions since the last reset_stats()
-STATS: Counter = Counter()
+# batch) and transitions since the last reset_stats(): a view of the counters
+# ``nuts:<name>`` of the recorder's store
+STATS = CounterView("nuts:", ("host_syncs", "lockstep_leaves", "transitions"))
 
 
 def reset_stats() -> None:
-    STATS.clear()
+    STATS.reset()
 
 
 def _any(mask: torch.Tensor) -> bool:
-    STATS["host_syncs"] += 1
-    return bool(mask.any())
+    count("nuts:host_syncs")
+    return to_host(mask.any())
 
 
 class _Phase(NamedTuple):
@@ -124,7 +125,7 @@ def _build_subtree(vg, generator, frontier: _Phase, step, inv_mass, h0, n_leaves
     for i in range(n_leaves):
         if i > 0 and not _any(live):
             break
-        STATS["lockstep_leaves"] += 1
+        count("nuts:lockstep_leaves")
         ph = _leapfrog1(vg, frontier, step, inv_mass)
         log_w = h0 - _energy(ph, inv_mass)
         finite = torch.isfinite(log_w)
@@ -172,7 +173,7 @@ def _nuts_transition(vg, generator, state: HmcState, p0, step, inv_mass, max_dep
     x = state.x
     C, dim = x.shape
     dtype, dev = x.dtype, x.device
-    STATS["transitions"] += 1
+    count("nuts:transitions")
     start = _Phase(x, p0, state.logp, state.grad)
     h0 = _energy(start, inv_mass)
     left = right = start

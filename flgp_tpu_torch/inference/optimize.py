@@ -25,6 +25,7 @@ from typing import Callable, NamedTuple, Optional, Tuple
 import torch
 
 from ..config import resolve_device
+from ..utils.metrics import to_device, to_host
 
 
 class Scalar1DResult(NamedTuple):
@@ -70,15 +71,15 @@ def minimize_1d_log(
     objective always use the exact ``fn``.  Non-finite values count as +inf.
     """
     device = resolve_device(device, "minimize_1d_log")
-    lo_l = torch.log(torch.tensor(lo, dtype=dtype, device=device))
-    hi_l = torch.log(torch.tensor(hi, dtype=dtype, device=device))
+    lo_l = torch.log(to_device(lo, dtype, device))
+    hi_l = torch.log(to_device(hi, dtype, device))
     g = lambda u: _finite(fn(torch.exp(u)))  # noqa: E731
     g_coarse = g if coarse_fn is None else (lambda u: _finite(coarse_fn(torch.exp(u))))
 
     def scan_window(a_l, b_l):
         us = _linspace(a_l, b_l, n_grid)
         fs = g_coarse(us)
-        return us, fs, int(torch.argmin(fs))
+        return us, fs, to_host(torch.argmin(fs))
 
     us, fs, i = scan_window(lo_l, hi_l)
     span = hi_l - lo_l
@@ -89,7 +90,7 @@ def minimize_1d_log(
     if coarse_fn is not None:
         # the surrogate's 3 best cells (ties to the lower index), re-ranked exactly
         top3 = torch.sort(fs, stable=True).indices[:3]
-        i = int(top3[torch.argmin(g(us[top3]))])
+        i = to_host(top3[to_host(torch.argmin(g(us[top3])))])
     wa, wb = us[0], us[-1]
     a = us[max(i - 1, 0)]
     b = us[min(i + 1, n_grid - 1)]
@@ -97,11 +98,11 @@ def minimize_1d_log(
 
     # a surrogate's coarse values must not seed the best-so-far tracker
     best_u = us[i]
-    best_f = fs[i] if coarse_fn is None else torch.tensor(float("inf"), dtype=dtype, device=device)
+    best_f = fs[i] if coarse_fn is None else to_device(float("inf"), dtype, device)
     for _ in range(refine_rounds):
         uu = _linspace(a, b, w)
         ff = g(uu)
-        j = torch.argmin(ff)
+        j = to_host(torch.argmin(ff))
         improved = ff[j] < best_f
         best_u = torch.where(improved, uu[j], best_u)
         best_f = torch.where(improved, ff[j], best_f)

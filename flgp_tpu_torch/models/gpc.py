@@ -9,13 +9,12 @@ the 1-D optimizer evaluates a grid).  The batched Newton loop stops when no
 lane is still running and freezes each lane the moment its own condition
 (``it < max_iter and delta >= tol``) fails: the frozen lane's state, its
 iteration count included, is exactly what running it alone would give.
-Deciding whether to go on is one host sync a round: :data:`STATS` counts the
-solves and those syncs.
+Deciding whether to go on is one host sync a round (``utils.metrics.to_host``);
+each round of Newton steps counts one ``newton_rounds``.
 """
 
 from __future__ import annotations
 
-from collections import Counter
 from typing import Callable, NamedTuple, Tuple
 
 import torch
@@ -25,6 +24,7 @@ from ..config import EPS
 from ..ops import linalg
 from ..ops.heat_kernel import heat_kernel, heat_kernel_diag
 from ..types import EigenPair
+from ..utils.metrics import count, to_host
 
 
 class NewtonState(NamedTuple):
@@ -33,13 +33,6 @@ class NewtonState(NamedTuple):
     a: torch.Tensor             # (..., m) C⁻¹f
     logdet_half: torch.Tensor   # (...,) ½ log det B of the last factorization
     delta: torch.Tensor         # (...,) last Σ|Δf|
-
-
-STATS: Counter = Counter()
-
-
-def reset_stats() -> None:
-    STATS.clear()
 
 
 def _initial_state(batch: torch.Size, m: int, like: torch.Tensor) -> NewtonState:
@@ -55,12 +48,11 @@ def _iterate_lanes(body: Callable[[NewtonState], NewtonState], state: NewtonStat
     """Run ``body`` on every lane until none is active; a lane whose
     condition is false keeps its state (``torch.where`` on every field).
     One host sync per round decides whether to go on."""
-    STATS["solves"] += 1
     while True:
         active = (state.it < max_iter) & (state.delta >= tol)
-        STATS["host_syncs"] += 1
-        if not bool(torch.any(active)):
+        if not to_host(torch.any(active)):
             return state
+        count("newton_rounds")
         new = body(state)
         state = NewtonState(*(
             torch.where(active.reshape(active.shape + (1,) * (old.dim() - active.dim())), nw, old)

@@ -30,7 +30,8 @@ gives the templated bodies' bits.
 Each wrapper takes its plain PyTorch version for tensors on the CPU, and only
 then.  For CUDA tensors it checks device, dtype (float32 values, int32
 indices), shape and contiguity, raises on anything else, launches the kernel
-on the current stream and adds one to ``LAUNCHES[name]``.  A build or launch
+on the current stream and adds one to ``LAUNCHES[name]``
+(``utils.metrics.count``).  A build or launch
 error raises; nothing falls back.  The float64 path never reaches these
 wrappers: the callers (``ops.knn``, ``ops.lae``, ``ops.spectrum``,
 ``EllMatrix.matmat``, ``SymCoo.matvec``) dispatch on dtype.
@@ -44,19 +45,20 @@ import torch
 
 from ..config import EPS
 from ..types import EllMatrix
+from ..utils.metrics import CounterView, count
 from . import _build
 from .knn import KnnResult, knn_plain
 from .lae import fista_momentum, lae_weights_plain
 
-# Launches of each kernel since the last reset_launches().
-LAUNCHES = {"knn": 0, "lae_weights": 0, "ell_colsum": 0, "ell_norm_gram": 0,
-            "ell_norm_matmat": 0, "ell_colsum_t": 0, "ell_norm_gram_t": 0,
-            "ell_norm_matmat_t": 0, "ell_matmat": 0, "ell_sym_matmat": 0}
+# Launches of each kernel since the last reset_launches(): a view of the
+# counters ``kernel_launches:<kernel>`` of the recorder's store.
+LAUNCHES = CounterView("kernel_launches:", (
+    "knn", "lae_weights", "ell_colsum", "ell_norm_gram", "ell_norm_matmat", "ell_colsum_t",
+    "ell_norm_gram_t", "ell_norm_matmat_t", "ell_matmat", "ell_sym_matmat"))
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    LAUNCHES.reset()
 
 
 _TEMPLATED_MAX_R = 16         # the fan-ins of the templated bodies (csrc/common.cuh)
@@ -86,7 +88,7 @@ def _launch(name: str, device: torch.device, fn, *args) -> None:
         err = fn(*args, stream)
     if err != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError {err}")
-    LAUNCHES[name] += 1
+    count("kernel_launches:" + name)
 
 
 # ---------------------------------------------------------------------------

@@ -4,7 +4,8 @@ The returned cluster counts double as the "cluster sizes" the
 cluster-normalized graph Laplacian consumes.  Every random draw comes from
 the caller's ``torch.Generator``, which must live on the data's device.
 Data-dependent loops (Lloyd's early exit) check their condition on the host
-once per round.
+once per round (``utils.metrics.to_host``); each Lloyd round counts one
+``lloyd_rounds``.
 
 Every sum over a cluster's points adds in an order fixed by the data alone
 (``_segment_sums``), so one seed gives one set of anchors, bit for bit, on
@@ -19,6 +20,7 @@ import torch
 
 from ..config import Subsample
 from .distance import sqdist
+from ..utils.metrics import count, to_host
 from .knn import knn
 
 
@@ -65,6 +67,8 @@ def _segment_sums(values: torch.Tensor, assign: torch.Tensor, s: int) -> torch.T
     ``index_add_`` gives on the CPU, bit for bit."""
     order = torch.sort(assign, stable=True).indices
     lengths = torch.bincount(assign, minlength=s)
+    if assign.is_cuda:
+        count("host_syncs", 2)     # bincount reads assign's max and min on the host
     return torch.segment_reduce(values[order].to(torch.float64), "sum", lengths=lengths,
                                 axis=0, unsafe=True)
 
@@ -86,9 +90,10 @@ def lloyd(X: torch.Tensor, init: torch.Tensor, iters: int = 100
     centers = init
     assign = torch.full((X.shape[0],), -1, dtype=torch.int64, device=X.device)
     for _ in range(iters):
+        count("lloyd_rounds")
         new_assign, _ = _assign(X, centers)
         centers, _ = _update(X, new_assign, s, centers)
-        changed = bool(torch.any(new_assign != assign))
+        changed = to_host(torch.any(new_assign != assign))
         assign = new_assign
         if not changed:
             break
@@ -193,7 +198,8 @@ def kmeans(
     best = None
     for _ in range(nstart):
         centers, counts, wss = lloyd(X, seed_fn(generator, X, s), iters)
-        if best is None or float(wss) < float(best[2]):
+        wss = to_host(wss)
+        if best is None or wss < best[2]:
             best = (centers, counts, wss)
     return SubsampleResult(best[0], best[1])
 
@@ -229,8 +235,8 @@ def minibatch_kmeans(
             lr = torch.where(ncounts > 0, bc / torch.clamp(ncounts, min=1.0), 0.0)
             bmean = bsum / torch.clamp(bc, min=1.0)[:, None]
             centers = centers + lr[:, None] * (bmean - centers)
-        wss = torch.sum(_assign(X, centers)[1])
-        if best is None or float(wss) < float(best[1]):
+        wss = to_host(torch.sum(_assign(X, centers)[1]))
+        if best is None or wss < best[1]:
             best = (centers, wss)
     centers = best[0].contiguous()
     labels = knn(X, centers, 1).indices[:, 0].long()

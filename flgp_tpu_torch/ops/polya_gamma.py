@@ -5,7 +5,8 @@ over the whole batch with per-lane acceptance masks: PG(1, z) = J*(1, z/2)/4
 with J* drawn by a mixture proposal (truncated inverse-Gaussian below
 t = 0.64, truncated exponential above) and the alternating-series squeeze.
 Each rejection loop checks on the host once per round whether every lane is
-done, under the same round caps as the JAX sampler.  Every draw comes from
+done, under the same round caps as the JAX sampler; each round of the three
+loops counts one ``pg_rounds``.  Every draw comes from
 the caller's ``torch.Generator``, on the data's device.
 """
 
@@ -14,6 +15,8 @@ from __future__ import annotations
 import math
 
 import torch
+
+from ..utils.metrics import count, to_host
 
 _T = 0.64          # series/proposal cut point
 _MAX_ROUNDS = 64   # outer rejection rounds (P(accept) ≳ 0.57 per round)
@@ -74,6 +77,7 @@ def _sample_rtigauss(g: torch.Generator, z: torch.Tensor) -> torch.Tensor:
     done = torch.zeros(z.shape, dtype=torch.bool, device=z.device)
     x = torch.full_like(z, 0.5 * _T)
     for _ in range(_MAX_INNER):
+        count("pg_rounds")
         # branch A (μ > t): one-sided χ²-style proposal
         e1 = _exponential(g, z)
         e2 = _exponential(g, z)
@@ -85,7 +89,7 @@ def _sample_rtigauss(g: torch.Generator, z: torch.Tensor) -> torch.Tensor:
         acc = torch.where(big_mu, acc_a, xb <= _T)
         x = torch.where(~done & acc, torch.where(big_mu, xa, xb), x)
         done = done | acc
-        if bool(torch.all(done)):
+        if to_host(torch.all(done)):
             break
     return x
 
@@ -97,6 +101,7 @@ def _series_accept(g: torch.Generator, x: torch.Tensor) -> torch.Tensor:
     decided = torch.zeros(x.shape, dtype=torch.bool, device=x.device)
     accept = torch.zeros(x.shape, dtype=torch.bool, device=x.device)
     for n in range(1, _MAX_TERMS + 1):
+        count("pg_rounds")
         a = _a_n(float(n), x)
         odd = n % 2 == 1
         s = s - a if odd else s + a
@@ -104,7 +109,7 @@ def _series_accept(g: torch.Generator, x: torch.Tensor) -> torch.Tensor:
         if odd:
             accept = accept | newly
         decided = decided | newly
-        if bool(torch.all(decided)):
+        if to_host(torch.all(decided)):
             break
     # undecided after _MAX_TERMS (prob ~0): accept, the partial sums have converged
     return accept | ~decided
@@ -118,6 +123,7 @@ def _sample_jstar(g: torch.Generator, z: torch.Tensor) -> torch.Tensor:
     ratio = p / (p + q)
     Kz = math.pi**2 / 8.0 + z**2 / 2.0
     for _ in range(_MAX_ROUNDS):
+        count("pg_rounds")
         use_tail = _uniform(g, z) < ratio
         x_tail = _T + _exponential(g, z) / Kz
         x_ig = _sample_rtigauss(g, z)
@@ -125,7 +131,7 @@ def _sample_jstar(g: torch.Generator, z: torch.Tensor) -> torch.Tensor:
         acc = _series_accept(g, prop)
         x = torch.where(~done & acc, prop, x)
         done = done | acc
-        if bool(torch.all(done)):
+        if to_host(torch.all(done)):
             break
     return x
 

@@ -13,6 +13,7 @@ import torch
 
 from ..config import EPS, LaplacianType
 from ..types import EigenPair, EllMatrix
+from ..utils.metrics import count
 from . import hopper_kernels as hk
 from .knn import knn
 from .lae import lae_weights
@@ -45,6 +46,8 @@ def cross_similarity_se(X: torch.Tensor, anchors: torch.Tensor, r: int, gl: Lapl
 def _top_k_eigh(G: torch.Tensor, K: int):
     """Eigenpairs of the symmetric G, largest K first."""
     w, V = torch.linalg.eigh(G)                    # ascending
+    if G.is_cuda:
+        count("host_syncs")                        # eigh reads its status on the host
     return torch.flip(w, dims=[0])[:K], torch.flip(V, dims=[1])[:, :K]
 
 

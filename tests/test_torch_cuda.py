@@ -499,6 +499,45 @@ def test_fit_launches_every_kernel(dev):
     assert np.all(np.isfinite(res.posterior_mean))
 
 
+@pytest.mark.parametrize("driver", ["fit_lae_logit_gp", "fit_lae_logit_mult_gp"])
+def test_host_syncs_count_every_synchronizing_call_of_a_fit(dev, driver):
+    """Every call of the two LAE drivers' fit path that makes the host wait
+    for the card, as ``torch.cuda.set_sync_debug_mode("warn")`` reports
+    them (reads, uploads, and the library calls that read on the host), is
+    counted in ``host_syncs``."""
+    import warnings
+
+    import flgp_tpu_torch as ft
+    from flgp_tpu_torch.datasets import mnist_like, torus_rings
+    from flgp_tpu_torch.utils import metrics
+
+    if driver == "fit_lae_logit_gp":
+        ds = torus_rings(n=2400, m_train=100, seed=1234)
+        graph = ft.GraphConfig(s=240, r=3, K=60)
+    else:
+        ds = mnist_like(n=3000, n_classes=4, d=16, m_train=200, seed=4)
+        graph = ft.GraphConfig(s=150, r=3, K=40)
+    cfg = ft.FitConfig(graph=graph, n_gibbs=10, gibbs_avg_sweeps=5, dtype=torch.float32,
+                       solve_dtype=torch.float64)
+
+    def fit():
+        return getattr(ft, driver)(torch.Generator(device=dev).manual_seed(0), ds.x_train,
+                                   ds.y_train, ds.x_test, cfg=cfg)
+
+    fit()                                   # the kernels' first launches
+    torch.cuda.synchronize()
+    before = metrics.COUNTS["host_syncs"]
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fit()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    syncs = sum("called a synchronizing CUDA operation" in str(w.message) for w in seen)
+    assert metrics.COUNTS["host_syncs"] - before == syncs > 0
+
+
 # ---------------------------------------------------------------------------
 # K2–K8 above r = 16: the run-time-r bodies
 # ---------------------------------------------------------------------------

@@ -591,7 +591,8 @@ def test_build_key_follows_the_sources(monkeypatch, tmp_path):
 
 def test_port_imports_neither_jax_nor_flgp_tpu():
     offenders = []
-    for path in sorted((REPO / "flgp_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]:
+    paths = sorted((REPO / "flgp_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    for path in paths + sorted((REPO / "benchmark").rglob("*.py")):
         for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
             if isinstance(node, ast.Import):
                 names = [a.name for a in node.names]

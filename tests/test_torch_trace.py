@@ -1,0 +1,278 @@
+"""The recorder of flgp_tpu_torch (``utils/metrics.py``): spans, counters and
+``to_host`` on the two LAE drivers, float64 on the CPU.
+
+A fit with the recorder on gives the same bits as one with it off; the spans
+form one tree under ``fit`` with each layer once, every child inside its
+parent; ``host_syncs`` counts every blocking read the fit makes (each read
+that a patch of the tensor's read methods sees); ``lloyd_rounds`` and
+``newton_rounds`` count the rounds run; under the profiler every span is a
+``flgp:`` range of the trace.
+"""
+
+import json
+from collections import Counter
+
+import numpy as np
+import pytest
+import torch
+
+import flgp_tpu_torch as ft
+from flgp_tpu_torch.datasets import mnist_like, torus_rings
+from flgp_tpu_torch.inference import nuts
+from flgp_tpu_torch.models import gpc
+from flgp_tpu_torch.ops import hopper_kernels as hk
+from flgp_tpu_torch.ops import kmeans
+from flgp_tpu_torch.utils import metrics
+from flgp_tpu_torch.utils.metrics import MetricsReport, count, recording, span, to_host
+
+torch.set_num_threads(1)
+
+F64 = torch.float64
+CFG = ft.FitConfig(graph=ft.GraphConfig(s=48, r=3, K=16), dtype=F64, n_gibbs=12,
+                   gibbs_avg_sweeps=6, train=ft.TrainConfig(grid_size=8))
+# each layer's span and its parent, as the two LAE drivers open them
+TREE = {"fit": None, "upload": "fit", "subsample": "fit", "graph": "fit", "knn": "graph",
+        "lae_weights": "graph", "spectrum": "fit", "train": "fit", "predict": "fit"}
+DRIVERS = ["fit_lae_logit_gp", "fit_lae_logit_mult_gp"]
+
+
+def _data(driver):
+    if driver == "fit_lae_logit_gp":
+        return torus_rings(n=900, m_train=80, seed=3)
+    return mnist_like(n=900, n_classes=4, d=8, m_train=80, seed=4)
+
+
+def _fit(driver, ds, report=None):
+    kw = {} if report is None else dict(report=report)
+    return getattr(ft, driver)(torch.Generator().manual_seed(5), ds.x_train, ds.y_train,
+                               ds.x_test, cfg=CFG, device="cpu", **kw)
+
+
+def _same_bits(a, b):
+    for name in ("y_train", "y_test", "posterior_mean", "posterior_cov"):
+        assert np.array_equal(getattr(a, name), getattr(b, name)), name
+    assert a.pars.keys() == b.pars.keys()
+    for k in a.pars:
+        assert np.array_equal(a.pars[k], b.pars[k]), k
+    assert a.obj == b.obj
+    assert torch.equal(a.eigenpair.vectors, b.eigenpair.vectors)
+
+
+@pytest.mark.parametrize("driver", DRIVERS)
+def test_recording_changes_no_output_bit_and_off_records_nothing(driver):
+    ds = _data(driver)
+    with recording() as idle:
+        pass
+    off = _fit(driver, ds)
+    with recording() as rec:
+        on = _fit(driver, ds)
+    after = _fit(driver, ds)
+    _same_bits(off, on)
+    _same_bits(off, after)
+    assert idle.spans == [] and idle.counts == {}
+    assert rec.fits() == [1] and len(rec.spans) == len(TREE)
+    assert metrics._ON is False and metrics._OPEN == []
+    # off, every span is the one shared no-op context
+    assert span("fit") is span("predict")
+
+
+@pytest.mark.parametrize("driver", DRIVERS)
+def test_spans_form_one_tree_under_fit(driver):
+    with recording() as rec:
+        _fit(driver, _data(driver))
+    names = Counter(s.name for s in rec.spans)
+    assert names == Counter(TREE.keys()), names
+    by_id = {s.id: s for s in rec.spans}
+    by_name = {s.name: s for s in rec.spans}
+    for s in rec.spans:
+        assert s.fit == 1
+        assert s.t0 <= s.t1
+        if TREE[s.name] is None:
+            assert s.parent is None
+            continue
+        parent = by_id[s.parent]
+        assert parent.name == TREE[s.name], (s.name, parent.name)
+        assert parent.t0 <= s.t0 and s.t1 <= parent.t1, s.name
+    # siblings in the order the fit runs them, none overlapping
+    order = ["upload", "subsample", "graph", "spectrum", "train", "predict"]
+    for a, b in zip(order, order[1:]):
+        assert by_name[a].t1 <= by_name[b].t0, (a, b)
+
+
+_READS = ("__bool__", "__int__", "__float__", "__index__", "item", "numpy", "tolist", "cpu")
+
+
+@pytest.mark.parametrize("driver", DRIVERS)
+def test_host_syncs_count_every_blocking_read(driver, monkeypatch):
+    """Every read of a tensor's value by the host, seen by patching the
+    tensor's read methods (``cpu()`` reads only off a CPU tensor), goes
+    through ``to_host``: the counter and the patch agree."""
+    ds = _data(driver)
+    seen = Counter()
+
+    def patched(name):
+        orig = getattr(torch.Tensor, name)
+
+        def read(self, *args, **kwargs):
+            if name != "cpu" or self.device.type != "cpu":
+                seen[name] += 1
+            return orig(self, *args, **kwargs)
+        return read
+
+    for name in _READS:
+        monkeypatch.setattr(torch.Tensor, name, patched(name))
+    before = metrics.COUNTS["host_syncs"]
+    with recording() as rec:
+        _fit(driver, ds)
+    syncs = metrics.COUNTS["host_syncs"] - before
+    monkeypatch.undo()
+    assert syncs == sum(seen.values()) > 0, (syncs, seen)
+    assert rec.fit_counts(1)["host_syncs"] == syncs
+
+
+@pytest.mark.parametrize("driver", DRIVERS)
+def test_each_fit_keeps_its_own_counts(driver):
+    """A fit appends one entry to ``FIT_COUNTS``: what the store gained in
+    it, which is what the record attributes to that fit, and its call."""
+    ds = _data(driver)
+    before = Counter(metrics.COUNTS)
+    n = len(metrics.FIT_COUNTS)
+    with recording() as rec:
+        _fit(driver, ds)
+    assert len(metrics.FIT_COUNTS) == min(n + 1, metrics.FIT_COUNTS.maxlen)
+    last = metrics.FIT_COUNTS[-1]
+    assert last == Counter(metrics.COUNTS) - before
+    assert last - Counter(fits=1) == rec.fit_counts(1) and last["fits"] == 1
+    assert last["host_syncs"] > 0
+
+
+@pytest.mark.parametrize("iters,rounds", [(100, 3), (2, 2), (1, 1)])
+def test_lloyd_rounds_count_the_iterations_run(iters, rounds):
+    """Points 0, 1, 10, 11 from centers 0 and 1: the assignment changes in
+    rounds 1 and 2 and holds in round 3, where Lloyd stops."""
+    X = torch.tensor([[0.0], [1.0], [10.0], [11.0]], dtype=F64)
+    before = metrics.COUNTS["lloyd_rounds"]
+    centers, counts, _ = kmeans.lloyd(X, X[:2].clone(), iters)
+    assert metrics.COUNTS["lloyd_rounds"] - before == rounds
+    if iters == 100:
+        assert centers[:, 0].tolist() == [0.5, 10.5] and counts.tolist() == [2.0, 2.0]
+
+
+def test_newton_rounds_count_the_rounds_run():
+    """One lane: as many rounds as its iterations; lanes in one solve: as
+    many as the slowest lane's."""
+    g = torch.Generator().manual_seed(0)
+    A = torch.randn((3, 20, 20), generator=g, dtype=F64)
+    C = A @ A.mT / 20 + 1e-3 * torch.eye(20, dtype=F64)
+    Y = (torch.rand((3, 20), generator=g, dtype=F64) > 0.5).to(F64)
+    N = torch.ones(20, dtype=F64)
+    before = metrics.COUNTS["newton_rounds"]
+    _, it, _ = gpc.gpc_marginal_log_likelihood_status(C[0], Y[0], N)
+    assert metrics.COUNTS["newton_rounds"] - before == int(it) > 1
+    before = metrics.COUNTS["newton_rounds"]
+    _, its, _ = gpc.gpc_marginal_log_likelihood_status(C, Y, N)
+    assert metrics.COUNTS["newton_rounds"] - before == int(its.max())
+
+
+@pytest.mark.parametrize("driver", DRIVERS)
+def test_counts_land_in_their_layers(driver):
+    with recording() as rec:
+        _fit(driver, _data(driver))
+    name_of = {s.id: s.name for s in rec.spans}
+    # a fit is counted as it is called, before its span opens
+    assert rec.counts.pop((None, None)) == Counter(fits=1)
+    where = {}
+    for (fit, sid), c in rec.counts.items():
+        assert fit == 1
+        for k in c:
+            where.setdefault(k, set()).add(name_of[sid])
+    assert where["lloyd_rounds"] == {"subsample"}
+    assert where["pg_rounds"] == {"predict"}
+    assert where["newton_rounds"] == {"train", "predict"}
+    assert {"subsample", "train", "predict"} <= where["host_syncs"]
+
+
+@pytest.mark.parametrize("driver", DRIVERS)
+def test_every_span_is_a_profiler_range(driver, tmp_path):
+    ds = _data(driver)
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    with recording() as rec, torch.profiler.profile(activities=acts) as prof:
+        _fit(driver, ds)
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    events = json.loads(path.read_text())["traceEvents"]
+    ranges = Counter(e["name"][5:] for e in events
+                     if e.get("ph") == "X" and e.get("cat") == "user_annotation"
+                     and e["name"].startswith("flgp:"))
+    assert ranges == Counter(s.name for s in rec.spans) == Counter(TREE.keys())
+
+
+def test_report_stages_are_spans_while_recording():
+    ds = _data("fit_lae_logit_gp")
+    report = MetricsReport()
+    with recording() as rec:
+        _fit("fit_lae_logit_gp", ds, report=report)
+    assert [st.name for st in report.stages] == ["spectrum", "train", "predict"]
+    by_id = {s.id: s for s in rec.spans}
+    stage = {s.name: s for s in rec.spans if s.name.startswith("report:")}
+    assert set(stage) == {"report:spectrum", "report:train", "report:predict"}
+    for inner, outer in (("subsample", "report:spectrum"), ("spectrum", "report:spectrum"),
+                         ("train", "report:train"), ("predict", "report:predict")):
+        (s,) = [s for s in rec.spans if s.name == inner]
+        assert by_id[s.parent].name == outer
+    for st in report.stages:
+        s = stage["report:" + st.name]
+        assert abs(st.wall_s - (s.t1 - s.t0) * 1e-9) < 1e-3 and st.wall_s > 0
+
+
+def test_to_host_reads_as_the_builtins_do():
+    before = metrics.COUNTS["host_syncs"]
+    assert to_host(torch.tensor(True)) is True
+    i = to_host(torch.argmin(torch.tensor([3.0, 1.0])))
+    assert i == 1 and type(i) is int
+    f = torch.tensor(0.1, dtype=torch.float32)
+    assert to_host(f) == float(f) and type(to_host(f)) is float
+    a = to_host(f, array=True)
+    assert isinstance(a, np.ndarray) and a.shape == () and a.dtype == np.float32
+    assert to_host(torch.arange(3)).tolist() == [0, 1, 2]
+    assert metrics.COUNTS["host_syncs"] - before == 6
+
+
+def test_the_counter_views_read_the_one_store():
+    hk.reset_launches()
+    nuts.reset_stats()
+    count("kernel_launches:knn", 2)
+    count("nuts:transitions")
+    assert hk.LAUNCHES["knn"] == 2 and metrics.COUNTS["kernel_launches:knn"] == 2
+    assert nuts.STATS["transitions"] == 1 and nuts.STATS["host_syncs"] == 0
+    assert {k: v for k, v in hk.LAUNCHES.items() if v} == {"knn": 2}
+    before = dict(hk.LAUNCHES)
+    assert hk.LAUNCHES == before
+    with pytest.raises(KeyError):
+        hk.LAUNCHES["no_such_kernel"]
+    syncs = metrics.COUNTS["host_syncs"]
+    hk.reset_launches()
+    nuts.reset_stats()
+    assert all(v == 0 for v in hk.LAUNCHES.values()) and nuts.STATS["transitions"] == 0
+    assert metrics.COUNTS["host_syncs"] == syncs           # the other counters run on
+    assert not hasattr(gpc, "STATS") and not hasattr(gpc, "reset_stats")
+
+
+def test_recorder_is_not_reentrant_and_closes_cleanly():
+    with recording() as rec:
+        with pytest.raises(RuntimeError):
+            with recording():
+                pass
+        with span("fit"):
+            with span("train"):
+                count("newton_rounds", 3)
+            with span("fit"):                   # a fit inside a fit is one of its spans
+                pass
+        with span("fit"):
+            pass
+        count("pg_rounds")
+    assert rec.fits() == [1, 2]
+    assert [s.name for s in rec.spans] == ["train", "fit", "fit", "fit"]
+    assert rec.fit_counts(1) == Counter(newton_rounds=3)
+    assert rec.fit_counts(None) == Counter(pg_rounds=1)
+    assert rec.seconds("fit", fit=1) > 0 and metrics._OPEN == []
