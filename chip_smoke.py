@@ -9,6 +9,7 @@
     python3 chip_smoke.py --extension
     python3 chip_smoke.py --wide
     python3 chip_smoke.py --knn-times
+    python3 chip_smoke.py --assign-times
 
 (the second only counts K2's instructions in a library already built; the
 third only times the n=1e6 subsample stage, four calls from one seed, with
@@ -22,7 +23,10 @@ sixth builds and holds K5 and K8 to their first, warp-a-row body at the
 four shapes the fits launch them at, timed in turns, as phases 3, 6 and 11
 do in passing; the seventh builds and runs phase 18 alone; the eighth
 builds and times K1 at r = 3 at the n=1e6 shape, the n=1e7 chunk and the
-multiclass shape, and at r = 1 at the chunk).
+multiclass shape, and at r = 1 at the chunk; the ninth builds and times a
+whole pass of Lloyd's assignment on K1 at r = 1 against the blocked distance
+matrix at three (n, s), each pass held to the other, the measurement behind
+``ops/kmeans.py:_KERNEL_ASSIGN_MAX_D``).
 Phases, each of which ends the script with a non-zero exit if it fails:
 
 1. the card: name and power limit from nvidia-smi; a CUDA device is required
@@ -572,8 +576,8 @@ def check_knn(label: str, X, U, r: int, max_share: float = 1e-4):
     u2max = float(torch.max(torch.sum(U * U, dim=1)))
     gap = torch.abs(got.sqdists[differ] - ref.sqdists[differ])
     n_far = int(torch.sum(torch.any(gap > 1e-5 * (x2[differ][:, None] + u2max), dim=1)))
-    print(f"  {label:5s} knn r={r}: {n_differ} of {n} rows differ, {n_far} of them "
-          f"not near-ties", flush=True)
+    print(f"  {label:5s} knn r={r} s={U.shape[0]}: {n_differ} of {n} rows differ, {n_far} of "
+          f"them not near-ties", flush=True)
     if X.shape[1] == 2 and n_differ:
         _fail(f"knn r={r} {label}: indices differ on {n_differ} of {n} rows at d = 2")
     if n_differ > max_share * n:
@@ -747,19 +751,22 @@ def check_kernels(label: str, X, cfg: dict, dev, results: dict, max_share: float
         rows.append(f"  {label:5s} {name:16s} kernel {ms:9.4f} ms  plain {plain_ms:9.4f} ms  "
                     f"bound {b_ms:.4f} ms ({b_by}){lib}  max_abs_err {err:.3e}")
 
-    # K1 at the graph's r and at k-means‖'s r = 1 over the candidate set
-    for rr, UU in ((r, U), (1, Uc)):
+    # K1 at the graph's r, at Lloyd's r = 1 over the s anchors (each round's
+    # assignment pass, ops/kmeans.py:_assign) and at k-means‖'s r = 1 over
+    # the candidate set
+    for rr, UU, over in ((r, U, None), (1, U, f"the {s} anchors (a Lloyd pass)"),
+                         (1, Uc, f"{C} candidates")):
         got, ref = check_knn(label, X, UU, rr, max_share)
-        if rr == r:
+        if over is None:
             record("knn", _maxabs(got.sqdists, ref.sqdists),
                    cuda_ms(lambda: hk.knn(X, U, r), reps_k),
                    cuda_ms(lambda: knn_plain(X, U, r), reps_p))
             rows.append(f"  {label:5s} knn two-call library yardstick (addmm + topk, not in the "
                         f"kernels line): {cuda_ms(lambda: knn_library(X, U, r), reps_k):9.4f} ms")
         else:
-            rows.append(f"  {label:5s} knn r=1 over {C} candidates: kernel "
-                        f"{cuda_ms(lambda: hk.knn(X, Uc, 1), reps_k):9.4f} ms  plain "
-                        f"{cuda_ms(lambda: knn_plain(X, Uc, 1), reps_p):9.4f} ms")
+            rows.append(f"  {label:5s} knn r=1 over {over}: kernel "
+                        f"{cuda_ms(lambda: hk.knn(X, UU, 1), reps_k):9.4f} ms  plain "
+                        f"{cuda_ms(lambda: knn_plain(X, UU, 1), reps_p):9.4f} ms")
     idx = knn_plain(X, U, r).indices
 
     # K2
@@ -3433,6 +3440,72 @@ def knn_times(dev) -> None:
     print(f"K1 ms a call ({ROOT.name}): " + ", ".join(rows), flush=True)
 
 
+def assign_times(dev, reps: int = 20, margin: float = 1.25) -> None:
+    """``--assign-times``: the card, the build, then one whole pass of Lloyd's
+    assignment (``ops/kmeans.py:_assign``) both ways, in turns (plain, K1, K1,
+    plain): K1 at r = 1 and the blocked distance matrix
+    (``kmeans._assign_plain``), with K1's bound, at three (n, s): 7e4 × 600
+    (the ten-class cell's), 10,240 × 1,024 (``minibatch_kmeans``' batch of
+    10·s rows) and 1e6 × 1,024 (the torus cell's: its own cloud at d = 2),
+    standard normal points at every other d.  Each pass is held to the other:
+    a row whose centers differ must be a near-tie (the two distances within
+    1e-5·(|x|² + max |u|²), as in ``check_knn``): every row's two distances
+    lie within that.  A line's verdict is ``K1`` where
+    K1's slowest turn beats the matrix path's fastest by ``margin``; the
+    crossover ``kmeans._KERNEL_ASSIGN_MAX_D`` is the widest d at which K1 wins
+    so at every (n, s)."""
+    from flgp_tpu_torch.ops import kmeans
+
+    card = card_line()
+    print(f"card: {card}", flush=True)
+    _build.build()
+    _build.load()
+    g = torch.Generator(device=dev).manual_seed(7)
+    big = SHAPES["large"]
+    shapes = ([(70_000, 600, d) for d in (2, 3, 16, 64, 128, 256, 784)]
+              + [(10_240, 1024, d) for d in (2, 16, 64, 128, 256)]
+              + [(big["n"], big["s"], d) for d in (2, 16, 64, 128, 256)])
+    wins = {}
+    for n, s, d in shapes:
+        if n == big["n"] and d == 2:
+            X = cloud(torus_rings(n=n, m_train=big["m"], seed=big["seed"]), dev)
+        else:
+            X = torch.randn((n, d), generator=g, device=dev)
+        U = X[torch.randperm(n, generator=g, device=dev)[:s]].contiguous()
+        a, m = kmeans._assign(X, U, True)
+        ap, mp = kmeans._assign_plain(X, U)
+        tol = 1e-5 * (torch.sum(X * X, dim=1) + float(torch.max(torch.sum(U * U, dim=1))))
+        differ = a.long() != ap
+        n_differ = int(differ.sum())
+        n_far = int(torch.sum(torch.abs(m - mp) > tol))
+        if n_far:
+            _fail(f"assign n={n} s={s} d={d}: K1 and the plain pass differ on {n_differ} rows, "
+                  f"{n_far} rows' distances beyond near-ties")
+        times = {"plain": [], "K1": []}
+        for path in ("plain", "K1", "K1", "plain"):
+            fn = (lambda: kmeans._assign_plain(X, U)) if path == "plain" else (
+                lambda: kmeans._assign(X, U, True))
+            times[path].append(cuda_ms(fn, reps))
+        b_ms, b_by = bound(work("knn", n=n, r=1, s=s, d=d))
+        ratio = min(times["plain"]) / max(times["K1"])
+        wins.setdefault(d, []).append(ratio >= margin)
+        verdict = ("K1" if ratio >= margin else "plain" if max(times["plain"]) < min(times["K1"])
+                   else "neither by the margin")
+        print(f"assign n={n} s={s} d={d}: plain " + ", ".join(f"{t:.4f}" for t in times["plain"])
+              + " ms; K1 r=1 " + ", ".join(f"{t:.4f}" for t in times["K1"])
+              + f" ms; bound {b_ms:.4f} ms ({b_by}); plain/K1 {ratio:.2f}: {verdict}; "
+              f"{n_differ} rows differ, all near-ties [{card}]", flush=True)
+        del X, U, a, m, ap, mp, tol, differ
+        torch.cuda.empty_cache()
+    widest = 0
+    for d in sorted(wins):
+        if not all(wins[d]):
+            break
+        widest = d
+    print(f"assign crossover: K1 by {margin}x at every (n, s) up to d={widest}; "
+          f"kmeans._KERNEL_ASSIGN_MAX_D = {kmeans._KERNEL_ASSIGN_MAX_D}", flush=True)
+
+
 def subsample_stage_times(dev, calls: int = 4) -> None:
     """The n=1e6 subsample stage alone, ``calls`` times from one seed: the
     times, and whether every call gave the first one's anchors."""
@@ -3627,7 +3700,7 @@ if __name__ == "__main__":
     if len(sys.argv) == 3 and sys.argv[1] == "--sass":
         print_sass(Path(sys.argv[2]))      # K2's step count of any build of the library
     elif sys.argv[1:] in (["--subsample-times"], ["--sampling"], ["--streaming"],
-                          ["--extension"], ["--wide"], ["--knn-times"]):
+                          ["--extension"], ["--wide"], ["--knn-times"], ["--assign-times"]):
         if not torch.cuda.is_available():
             _fail("torch.cuda.is_available() is false: this smoke test needs an NVIDIA GPU")
         pin_full_precision()
@@ -3641,6 +3714,8 @@ if __name__ == "__main__":
             wide_only(torch.device("cuda", 0))
         elif sys.argv[1] == "--knn-times":
             knn_times(torch.device("cuda", 0))
+        elif sys.argv[1] == "--assign-times":
+            assign_times(torch.device("cuda", 0))
         else:
             print(f"card: {card_line()}", flush=True)
             subsample_stage_times(torch.device("cuda", 0))

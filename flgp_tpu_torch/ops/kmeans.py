@@ -5,7 +5,8 @@ cluster-normalized graph Laplacian consumes.  Every random draw comes from
 the caller's ``torch.Generator``, which must live on the data's device.
 Data-dependent loops (Lloyd's early exit) check their condition on the host
 once per round (``utils.metrics.to_host``); each Lloyd round counts one
-``lloyd_rounds``.
+``lloyd_rounds``, and each of its assignment passes that runs on K1 one
+``lloyd_kernel_rounds``.
 
 Every sum over a cluster's points adds in an order fixed by the data alone
 (``_segment_sums``), so one seed gives one set of anchors, bit for bit, on
@@ -19,6 +20,7 @@ from typing import NamedTuple, Tuple
 import torch
 
 from ..config import Subsample
+from . import hopper_kernels as hk
 from .distance import sqdist
 from ..utils.metrics import count, to_host
 from .knn import knn
@@ -36,8 +38,36 @@ def _gumbel(generator: torch.Generator, n: int, like: torch.Tensor) -> torch.Ten
     return -torch.log(-torch.log(u))
 
 
-def _assign(X: torch.Tensor, centers: torch.Tensor, block: int = 1 << 16
+# The widest data at which K1 at r = 1 was measured to find the nearest
+# center faster than the blocked distance matrix by 1.25x or more, one whole
+# pass against the other on the H100, at each of 7e4 × 600, 10,240 × 1,024
+# and 1e6 × 1,024 points × centers (PERF.md §6; at d = 128 and 10,240 × 1,024
+# K1 leads by 1.13x only, at d = 256 the matrix path wins there): K1 keeps
+# each distance in registers, the matrix path writes the (n, s) matrix and
+# reads it back, which only wide data's float32 GEMM outweighs.
+_KERNEL_ASSIGN_MAX_D = 64
+
+
+def assign_on_kernel(device_type: str, dtype: torch.dtype, d: int) -> bool:
+    """Whether Lloyd's assignment takes K1 at r = 1 for data of this device type,
+    dtype and width: float32 on the card up to ``_KERNEL_ASSIGN_MAX_D``.  The
+    CPU, float64 and wider data keep the blocked distance matrix."""
+    return device_type == "cuda" and dtype == torch.float32 and d <= _KERNEL_ASSIGN_MAX_D
+
+
+def _assign(X: torch.Tensor, centers: torch.Tensor, kernel: bool
             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Nearest center (first on ties) and its squared distance: with
+    ``kernel`` (the caller's ``assign_on_kernel``) K1 at r = 1 (int32
+    indices), else the plain pass."""
+    if kernel:
+        nearest = hk.knn(X.contiguous(), centers.contiguous(), 1)
+        return nearest.indices[:, 0], nearest.sqdists[:, 0]
+    return _assign_plain(X, centers)
+
+
+def _assign_plain(X: torch.Tensor, centers: torch.Tensor, block: int = 1 << 16
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Nearest center (first on ties) and its squared distance, by row blocks
     so the (n, s) distance matrix never exists whole."""
     n = X.shape[0]
@@ -88,16 +118,21 @@ def lloyd(X: torch.Tensor, init: torch.Tensor, iters: int = 100
     """
     s = init.shape[0]
     centers = init
+    kernel = assign_on_kernel(X.device.type, X.dtype, X.shape[1])
     assign = torch.full((X.shape[0],), -1, dtype=torch.int64, device=X.device)
     for _ in range(iters):
         count("lloyd_rounds")
-        new_assign, _ = _assign(X, centers)
+        new_assign, _ = _assign(X, centers, kernel)
+        if kernel:
+            count("lloyd_kernel_rounds")
         centers, _ = _update(X, new_assign, s, centers)
         changed = to_host(torch.any(new_assign != assign))
         assign = new_assign
         if not changed:
             break
-    assign, mind = _assign(X, centers)
+    assign, mind = _assign(X, centers, kernel)
+    if kernel:
+        count("lloyd_kernel_rounds")
     return centers, _counts(assign, s, X.dtype), torch.sum(mind)
 
 
@@ -221,6 +256,7 @@ def minibatch_kmeans(
         batch_size = min(10 * s, n)
     batch_size = min(batch_size, n)
 
+    kernel = assign_on_kernel(X.device.type, X.dtype, X.shape[1])
     best = None
     for _ in range(nstart):
         centers = _random_rows(generator, X, s)
@@ -228,14 +264,14 @@ def minibatch_kmeans(
         bidxs = torch.randint(0, n, (iters, batch_size), generator=generator, device=X.device)
         for bidx in bidxs:
             Xb = X[bidx]
-            assign, _ = _assign(Xb, centers)
+            assign, _ = _assign(Xb, centers, kernel)
             bc = _counts(assign, s, X.dtype)
             bsum = _segment_sums(Xb, assign, s).to(X.dtype)
             ncounts = ncounts + bc
             lr = torch.where(ncounts > 0, bc / torch.clamp(ncounts, min=1.0), 0.0)
             bmean = bsum / torch.clamp(bc, min=1.0)[:, None]
             centers = centers + lr[:, None] * (bmean - centers)
-        wss = to_host(torch.sum(_assign(X, centers)[1]))
+        wss = to_host(torch.sum(_assign(X, centers, kernel)[1]))
         if best is None or wss < best[1]:
             best = (centers, wss)
     centers = best[0].contiguous()

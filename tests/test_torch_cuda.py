@@ -1152,6 +1152,87 @@ def test_subsample_twice_from_one_seed_is_the_same_bits(dev, method):
     assert float(subs[0].counts.sum()) == 200_000
 
 
+def _lloyd_cloud(dev, d, n=1_000_000):
+    """The torus cell's points at d = 2, standard normal points otherwise."""
+    from flgp_tpu_torch.datasets import torus_rings
+
+    if d == 2:
+        ds = torus_rings(n=n, m_train=1000, seed=0)
+        return _cuda(np.concatenate([ds.x_train, ds.x_test]), dev)
+    return _cuda(np.random.default_rng(d).normal(size=(n, d)), dev)
+
+
+def _nearest_f64(X, U, block=1 << 16):
+    """Each row's two nearest float64 squared distances, and its nearest
+    anchor (first on ties)."""
+    X64, U64 = X.double(), U.double()
+    two, first = [], []
+    for i in range(0, X.shape[0], block):
+        dist = torch.cdist(X64[i:i + block], U64) ** 2
+        two.append(torch.topk(dist, 2, dim=1, largest=False).values)
+        first.append(torch.argmin(dist, dim=1))
+    return torch.cat(two), torch.cat(first)
+
+
+@pytest.mark.parametrize("d", [2, 3, 16])
+def test_lloyd_assign_on_k1_is_the_plain_pass_but_near_ties(dev, d):
+    """At the torus cell's n and s: K1 at r = 1 and the blocked distance
+    matrix pick the same center on every row but those whose float64 first
+    and second nearest lie within a few float32 ulps of the row's scale
+    (|x|² + max |u|², what the expansion rounds), and give its distance to
+    float32 rounding."""
+    from flgp_tpu_torch.ops import hopper_kernels as hk
+    from flgp_tpu_torch.ops import kmeans
+
+    X = _lloyd_cloud(dev, d)
+    g = torch.Generator(device=dev).manual_seed(1)
+    U = X[torch.randperm(X.shape[0], generator=g, device=dev)[:1024]].contiguous()
+    assert kmeans.assign_on_kernel("cuda", torch.float32, d)
+    before = hk.LAUNCHES["knn"]
+    a, m = kmeans._assign(X, U, True)
+    assert hk.LAUNCHES["knn"] == before + 1
+    ap, mp = kmeans._assign_plain(X, U)
+    assert a.dtype == torch.int32 and ap.dtype == torch.int64
+    two, _ = _nearest_f64(X, U)
+    ulp = (torch.sum(X.double() ** 2, dim=1) + torch.max(torch.sum(U.double() ** 2, dim=1))) * 2.0 ** -23
+    differ = a.long() != ap
+    near_tie = two[:, 1] - two[:, 0] <= 8 * ulp
+    assert not bool(torch.any(differ & ~near_tie)), int(torch.sum(differ & ~near_tie))
+    assert bool(torch.all(torch.abs(m.double() - mp.double()) <= 8 * ulp))
+
+
+def test_lloyd_on_k1_counts_its_passes_and_its_counts_hold(dev, monkeypatch):
+    """A 20-round Lloyd from one init at the torus cell's shape, on K1 and on
+    the plain pass: ``lloyd_kernel_rounds`` counts each of K1's passes (the
+    rounds and the last one) and none of the plain pass's, and the share of
+    points whose float64 nearest center is not the one counted stays under
+    the cell's limit of 3e-4 (the benchmark's ``count_gap``)."""
+    from collections import Counter
+
+    from flgp_tpu_torch.ops import kmeans
+    from flgp_tpu_torch.utils import metrics
+
+    X = _lloyd_cloud(dev, 2)
+    n, s = X.shape[0], 1024
+    g = torch.Generator(device=dev).manual_seed(2)
+    init = X[torch.randperm(n, generator=g, device=dev)[:s]].contiguous()
+    out = {}
+    for path in ("kernel", "plain"):
+        if path == "plain":
+            monkeypatch.setattr(kmeans, "_KERNEL_ASSIGN_MAX_D", 0)
+        before = Counter(metrics.COUNTS)
+        centers, counts, wss = kmeans.lloyd(X, init, 20)
+        rounds = metrics.COUNTS["lloyd_rounds"] - before["lloyd_rounds"]
+        passes = metrics.COUNTS["lloyd_kernel_rounds"] - before["lloyd_kernel_rounds"]
+        assert passes == (rounds + 1 if path == "kernel" else 0), (path, rounds, passes)
+        _, nearest = _nearest_f64(X, centers)
+        counts64 = torch.bincount(nearest, minlength=s).double()
+        gap = float(torch.abs(counts64 - counts.double()).sum()) / (2 * n)
+        assert gap <= 3e-4, (path, gap)
+        out[path] = float(wss)
+    assert abs(out["kernel"] - out["plain"]) <= 1e-2 * out["plain"], out
+
+
 @pytest.mark.parametrize("name,graph", [
     ("fit_lae_logit_mult_gp", dict(s=30, r=3, K=15)), ("fit_se_logit_mult_gp", dict(s=30, r=3, K=15)),
     ("fit_nystrom_logit_mult_gp", dict(s=30, r=3, K=15)), ("fit_gl_logit_mult_gp", dict(K=20))])

@@ -5,7 +5,8 @@ A fit with the recorder on gives the same bits as one with it off; the spans
 form one tree under ``fit`` with each layer once, every child inside its
 parent; ``host_syncs`` counts every blocking read the fit makes (each read
 that a patch of the tensor's read methods sees); ``lloyd_rounds`` and
-``newton_rounds`` count the rounds run; under the profiler every span is a
+``newton_rounds`` count the rounds run, and ``lloyd_kernel_rounds`` the Lloyd
+passes sent to K1, none on the CPU; under the profiler every span is a
 ``flgp:`` range of the trace.
 """
 
@@ -156,6 +157,53 @@ def test_lloyd_rounds_count_the_iterations_run(iters, rounds):
     assert metrics.COUNTS["lloyd_rounds"] - before == rounds
     if iters == 100:
         assert centers[:, 0].tolist() == [0.5, 10.5] and counts.tolist() == [2.0, 2.0]
+
+
+# Lloyd's assignment: K1 at r = 1 for float32 on the card up to the crossover
+# in d, the blocked distance matrix everywhere else
+_CROSSOVER = kmeans._KERNEL_ASSIGN_MAX_D
+_KERNEL = [("cuda", torch.float32, d) for d in sorted({1, 2, 3, 16, 64, _CROSSOVER})]
+_PLAIN = [("cpu", torch.float32, 2), ("cpu", torch.float32, 3), ("cpu", F64, 2),
+          ("cuda", F64, 2), ("cuda", F64, 3), ("cuda", torch.float32, _CROSSOVER + 1),
+          ("cuda", torch.float32, 128), ("cuda", torch.float32, 256), ("cuda", torch.float32, 784)]
+
+
+@pytest.mark.parametrize("device_type,dtype,d,kernel",
+                         [(*c, True) for c in _KERNEL] + [(*c, False) for c in _PLAIN])
+def test_assign_takes_k1_for_float32_on_the_card_up_to_the_crossover(device_type, dtype, d,
+                                                                      kernel):
+    assert kmeans.assign_on_kernel(device_type, dtype, d) is kernel
+
+
+def test_assign_takes_k1_at_every_d_up_to_the_crossover():
+    assert 64 <= _CROSSOVER < 128
+    assert all(kmeans.assign_on_kernel("cuda", torch.float32, d) for d in range(1, _CROSSOVER + 1))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, F64])
+@pytest.mark.parametrize("iters,rounds", [(100, 3), (2, 2)])
+def test_lloyd_on_the_cpu_counts_no_kernel_round(dtype, iters, rounds):
+    X = torch.tensor([[0.0], [1.0], [10.0], [11.0]], dtype=dtype)
+    before = Counter(metrics.COUNTS)
+    kmeans.lloyd(X, X[:2].clone(), iters)
+    assert metrics.COUNTS["lloyd_rounds"] - before["lloyd_rounds"] == rounds
+    assert metrics.COUNTS["lloyd_kernel_rounds"] == before["lloyd_kernel_rounds"]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, F64])
+def test_update_takes_k1_s_int32_assignments_bit_for_bit(dtype):
+    """K1 gives int32 indices where the plain pass gives int64: the centers,
+    the counts and the early exit's comparison read them alike."""
+    g = torch.Generator().manual_seed(3)
+    X = torch.randn((500, 3), generator=g, dtype=dtype)
+    old = X[:40].clone()
+    assign, _ = kmeans._assign_plain(X, old)
+    assign[assign == 7] = 8                     # an empty cluster keeps its old center
+    c64, n64 = kmeans._update(X, assign, 40, old)
+    c32, n32 = kmeans._update(X, assign.to(torch.int32), 40, old)
+    assert torch.equal(c64, c32) and torch.equal(n64, n32) and n32[7] == 0
+    assert torch.equal(c32[7], old[7])
+    assert not bool(torch.any(assign.to(torch.int32) != assign))
 
 
 def test_newton_rounds_count_the_rounds_run():
