@@ -43,7 +43,7 @@ from ..ops import linalg
 from ..ops.heat_kernel import heat_kernel, heat_kernel_diag
 from ..ops.kmeans import SubsampleResult
 from ..types import EigenPair
-from ..utils.metrics import fit_entry, span, spanned, to_device, to_host
+from ..utils.metrics import count, fit_entry, span, spanned, to_device, to_host
 from . import spectral
 
 
@@ -220,10 +220,10 @@ def _resolve(cfg: FitConfig, task: str) -> FitConfig:
     return cfg
 
 
-def _a2_grid(cfg: FitConfig) -> torch.Tensor:
-    """The bandwidth grid as a float64 tensor on the host; each point enters
-    the device arithmetic as a scalar."""
-    return torch.as_tensor(default_a2s() if cfg.a2s is None else np.asarray(cfg.a2s, np.float64))
+def _a2_grid(cfg: FitConfig) -> list:
+    """The bandwidth grid as Python floats (float64) on the host; each point
+    enters the device arithmetic as a scalar."""
+    return (default_a2s() if cfg.a2s is None else np.asarray(cfg.a2s, np.float64)).tolist()
 
 
 def _counts(N, m: int, dtype, device) -> Tuple[torch.Tensor, int]:
@@ -366,13 +366,21 @@ def fit_lae_logit_gp(generator: torch.Generator, X, Y, X_new, N=None,
 # Either way only one (n, n) GLGP graph is alive at a time.
 
 
+def _grid_point(spectrum_at, a2):
+    """One bandwidth's spectrum, in the span ``grid``; counts ``grid_spectra``."""
+    with span("grid"):
+        count("grid_spectra")
+        return spectrum_at(a2)
+
+
 def _grid_regression(Y, m: int, n: int, K: int, cfg: FitConfig, spectrum_at, extend):
-    a2s = _a2_grid(cfg).tolist()
-    grid = [spectrum_at(a2) for a2 in a2s]
+    a2s = _a2_grid(cfg)
+    grid = [_grid_point(spectrum_at, a2) for a2 in a2s]
     lanes = EigenPair(torch.stack([pair.values for pair, _ in grid]),
                       torch.stack([pair.vectors[:m] for pair, _ in grid]))
     scfg, slanes, (Ys,) = _solve_cast(cfg, lanes, Y)
-    res = _train_gpr(slanes, Ys, slice(0, m), K, scfg)
+    with span("train"):
+        res = _train_gpr(slanes, Ys, slice(0, m), K, scfg)
     best = _first_min(res.obj)
     t, noise, obj, a2 = res.t[best], res.noise[best], res.obj[best], a2s[best]
     eig, metrics = extend(*grid[best], a2)
@@ -384,10 +392,11 @@ def _grid_regression(Y, m: int, n: int, K: int, cfg: FitConfig, spectrum_at, ext
 def _grid_logit(generator, Y, N_arr, max_count: int, m: int, n: int, K: int,
                 cfg: FitConfig, spectrum_at, extend):
     objs, best = [], None
-    for a2 in _a2_grid(cfg).tolist():
-        pair, extra = spectrum_at(a2)
+    for a2 in _a2_grid(cfg):
+        pair, extra = _grid_point(spectrum_at, a2)
         scfg, seig, (Ys, Ns) = _solve_cast(cfg, pair, Y, N_arr)
-        res = _train_gpc(seig, Ys, Ns, slice(0, m), K, scfg)
+        with span("train"):
+            res = _train_gpc(seig, Ys, Ns, slice(0, m), K, scfg)
         objs.append(res.obj)
         if _first_min(objs) == len(objs) - 1:
             best = (pair, extra, a2, res)
@@ -417,8 +426,9 @@ def fit_se_regression_gp(generator: torch.Generator, X, Y, X_new,
     :func:`fit_lae_regression_gp`; ``pars["a2"]`` is the selected bandwidth."""
     device = _start(generator, device)
     cfg = _resolve(cfg, "regression")
-    X_all, m, n = _concat_all(X, X_new, cfg.dtype, device)
-    Y = to_device(Y, cfg.dtype, device)
+    with span("upload"):
+        X_all, m, n = _concat_all(X, X_new, cfg.dtype, device)
+        Y = to_device(Y, cfg.dtype, device)
     K, spectrum_at, extend = _se_family(generator, X_all, cfg, anchors, device)
     return _grid_regression(Y, m, n, K, cfg, spectrum_at, extend)
 

@@ -34,6 +34,7 @@ from .drivers import (
     _concat_all,
     _first_min,
     _gl_family,
+    _grid_point,
     _nystrom_family,
     _se_family,
     _solve_cast,
@@ -129,8 +130,8 @@ def _grid_mult(generator, aug_y, m: int, n: int, K: int, cfg: FitConfig, spectru
     """Train every class at each bandwidth (``spectrum_at``/``extend`` as in
     ``drivers._grid_logit``); the grid objective is the sum over classes."""
     objs, best = [], None
-    for a2 in _a2_grid(cfg).tolist():
-        pair, extra = spectrum_at(a2)
+    for a2 in _a2_grid(cfg):
+        pair, extra = _grid_point(spectrum_at, a2)
         scfg, seig, (aug_s,) = _solve_cast(cfg, pair, aug_y)
         res = _train_mult(seig, aug_s, m, K, scfg)
         objs.append(torch.sum(res.obj))

@@ -43,7 +43,7 @@ def fit_se_regression_gp_resumable(generator: torch.Generator, X, Y, X_new, ckpt
     Y = torch.as_tensor(Y, dtype=cfg.dtype, device=device)
     g = cfg.graph
     K = min(g.resolved_K(), g.s, n)
-    a2s = _a2_grid(cfg).tolist()
+    a2s = _a2_grid(cfg)
     basis = spectral.se_grid_setup(generator, X_all, g)
 
     results = []

@@ -68,13 +68,16 @@ def se_grid_setup(
     anchors: Optional[SubsampleResult] = None,
 ) -> SeGridBasis:
     """One-time kNN for the SE bandwidth grid.  ``anchors`` as in
-    build_spectrum."""
-    sub = anchors if anchors is not None else subsample(
-        generator, X_all, g.s, g.subsample, g.nstart, g.kmeans_iters
-    )
-    res = knn(X_all, sub.centers.contiguous(), g.r)
-    n, r = res.indices.shape
-    return SeGridBasis(res, torch.sum(res.sqdists) / (n * r), sub)
+    build_spectrum; the spans ``subsample`` and ``graph`` (``knn``) as there."""
+    with span("subsample"):
+        sub = anchors if anchors is not None else subsample(
+            generator, X_all, g.s, g.subsample, g.nstart, g.kmeans_iters
+        )
+    with span("graph"):
+        with span("knn"):
+            res = knn(X_all, sub.centers.contiguous(), g.r)
+        n, r = res.indices.shape
+        return SeGridBasis(res, torch.sum(res.sqdists) / (n * r), sub)
 
 
 def se_spectrum_at(basis: SeGridBasis, a2, g: GraphConfig) -> EigenPair:

@@ -25,7 +25,7 @@ from typing import Callable, NamedTuple, Optional, Tuple
 import torch
 
 from ..config import resolve_device
-from ..utils.metrics import to_device, to_host
+from ..utils.metrics import count, to_device, to_host
 
 
 class Scalar1DResult(NamedTuple):
@@ -124,6 +124,69 @@ def _value_and_grad(fn, x: torch.Tensor):
     return f.detach(), g
 
 
+def _adam_step(fn, x, m, v, best_x, best_f, unbias1, unbias2, lr, b1, b2, eps):
+    """One Adam step from ``x``: the next (x, m, v, best_x, best_f).
+
+    ``unbias1`` and ``unbias2`` are the step's 1 − b1^(i+1) and 1 − b2^(i+1),
+    which undo the moments' bias: host floats on the CPU, 0-d tensors on the
+    card, where a CUDA graph of the step reads them anew at each replay."""
+    f, g = _value_and_grad(fn, x)
+    g = torch.where(torch.isfinite(g), g, torch.zeros_like(g))
+    m = b1 * m + (1 - b1) * g
+    v = b2 * v + (1 - b2) * g * g
+    mhat = m / unbias1
+    vhat = v / unbias2
+    improved = torch.isfinite(f) & (f < best_f)
+    best_x = torch.where(improved[..., None], x, best_x)
+    best_f = torch.where(improved, f, best_f)
+    return x - lr * mhat / (torch.sqrt(vhat) + eps), m, v, best_x, best_f
+
+
+# eager steps before a CUDA graph is captured: they initialise the solver and
+# BLAS handles and autograd's state on the capturing stream
+_GRAPH_WARMUP = 3
+
+
+class _Capture:
+    """A card's means of the graphed loop: the stream it runs on, the memory
+    pool its graphs share, and the last graph, kept until the next one is
+    captured so that the pool outlives it (a pool that no graph holds cannot
+    be captured into again); no graph is replayed after its own loop."""
+
+    def __init__(self, device: torch.device):
+        self.stream = torch.cuda.Stream(device)
+        self.pool = torch.cuda.graph_pool_handle()
+        self.graph = None
+
+
+_CAPTURE: dict = {}     # device index -> _Capture
+
+
+def _graphed_steps(fn, state: tuple, unbias, first: int, steps: int, lr, b1, b2, eps,
+                   capture: _Capture) -> tuple:
+    """Adam steps ``first``..``steps``−1 on the card as replays of one CUDA
+    graph of a step, captured on the current stream: the loop's host work is
+    two fills and a replay a step, where an eager step launches every
+    operation of the objective and its gradient.  ``state`` is (x, m, v,
+    best_x, best_f) before step ``first``; ``unbias`` the step's two 0-d
+    tensors."""
+    static = [t.clone() for t in state]
+    graph = torch.cuda.CUDAGraph()
+    graph.capture_begin(pool=capture.pool)
+    try:
+        for dst, src in zip(static, _adam_step(fn, *static, *unbias, lr, b1, b2, eps)):
+            dst.copy_(src)
+    finally:
+        graph.capture_end()
+    capture.graph = graph
+    for i in range(first, steps):
+        count("adam_steps")
+        unbias[0].fill_(1 - b1 ** (i + 1.0))
+        unbias[1].fill_(1 - b2 ** (i + 1.0))
+        graph.replay()
+    return tuple(static)
+
+
 def adam_minimize(
     fn: Callable[[torch.Tensor], torch.Tensor],
     x0: torch.Tensor,
@@ -138,23 +201,51 @@ def adam_minimize(
     ``fn`` maps (..., P) to (...): leading axes of ``x0`` are independent
     lanes (the gradient of the lanes' sum holds each lane's own gradient).
     Non-finite gradient entries count as 0; nothing in the loop reads a
-    value back to the host."""
+    value back to the host.  Each step counts one ``adam_steps``, whatever
+    the number of lanes.  On the card, in float32 or float64, the steps after
+    the first few replay one CUDA graph of a step (the same operations as an
+    eager step, so the same bits), so ``fn`` must launch no host sync there."""
     x = x0.detach()
     m = torch.zeros_like(x)
     v = torch.zeros_like(x)
     best_x = x
     best_f = torch.full(x.shape[:-1], float("inf"), dtype=x.dtype, device=x.device)
-    for i in range(steps):
-        f, g = _value_and_grad(fn, x)
-        g = torch.where(torch.isfinite(g), g, torch.zeros_like(g))
-        m = b1 * m + (1 - b1) * g
-        v = b2 * v + (1 - b2) * g * g
-        mhat = m / (1 - b1 ** (i + 1.0))
-        vhat = v / (1 - b2 ** (i + 1.0))
-        improved = torch.isfinite(f) & (f < best_f)
-        best_x = torch.where(improved[..., None], x, best_x)
-        best_f = torch.where(improved, f, best_f)
-        x = x - lr * mhat / (torch.sqrt(vhat) + eps)
+    state = (x, m, v, best_x, best_f)
+    on_card = x.device.type == "cuda"
+    unbias = ([torch.empty((), dtype=x.dtype, device=x.device) for _ in range(2)]
+              if on_card else None)
+
+    def eager_step(i, state):
+        count("adam_steps")
+        c1, c2 = 1 - b1 ** (i + 1.0), 1 - b2 ** (i + 1.0)
+        if on_card:
+            unbias[0].fill_(c1)
+            unbias[1].fill_(c2)
+            c1, c2 = unbias
+        return _adam_step(fn, *state, c1, c2, lr, b1, b2, eps)
+
+    graphed = (on_card and x.dtype in (torch.float32, torch.float64)
+               and steps > _GRAPH_WARMUP + 1)
+    if not graphed:
+        for i in range(steps):
+            state = eager_step(i, state)
+    else:
+        if x.device.index not in _CAPTURE:
+            _CAPTURE[x.device.index] = _Capture(x.device)
+        capture = _CAPTURE[x.device.index]
+        side, main = capture.stream, torch.cuda.current_stream(x.device)
+        side.wait_stream(main)
+        with torch.cuda.stream(side):
+            for i in range(_GRAPH_WARMUP):
+                state = eager_step(i, state)
+            state = _graphed_steps(fn, state, unbias, _GRAPH_WARMUP, steps, lr, b1, b2, eps,
+                                   capture)
+        main.wait_stream(side)
+        # the side stream's cuBLAS workspaces would stay allocated beside the main
+        # stream's for the rest of the fit: release them all (a stream's is made
+        # again at its next product)
+        torch._C._cuda_clearCublasWorkspaces()
+    x, _, _, best_x, best_f = state
     with torch.no_grad():
         f_final = fn(x)
     take_final = torch.isfinite(f_final) & (f_final < best_f)

@@ -1518,6 +1518,66 @@ def test_se_spectrum_is_the_same_bits_every_run_on_the_card(dev):
     torch.testing.assert_close(got.cpu(), ref, rtol=2.0**-23, atol=0)
 
 
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_graphed_adam_is_the_eager_adam_s_bits_on_the_card(dev, dtype, monkeypatch):
+    """The GPR grid's training (ten lanes, m = 1000, K = 128, the float64
+    Woodbury objective) with its steps replayed from one CUDA graph against
+    the same steps launched one by one: the same iterate, value and gradient
+    norm, bit for bit, and one ``adam_steps`` a step either way."""
+    from flgp_tpu_torch.inference import optimize as opt
+    from flgp_tpu_torch.models import gpr
+    from flgp_tpu_torch.types import EigenPair
+    from flgp_tpu_torch.utils import metrics
+
+    rng = np.random.default_rng(4)
+    lanes, m, K = 10, 1000, 128
+    vals = np.sort(rng.uniform(0.0, 1.0, size=(lanes, K)), axis=1)[:, ::-1].copy()
+    pair = EigenPair(_cuda(vals, dev, torch.float64)[:, None],
+                     _cuda(rng.normal(size=(lanes, m, K)), dev, torch.float64)[:, None])
+    Y = _cuda(rng.normal(size=m), dev, torch.float64)
+
+    def fn(x):
+        t, noise = 1e-3 + torch.exp(x[:, :1]), 1e-4 + torch.exp(x[:, 1:])
+        return gpr.gpr_nmll_posterior(pair, Y, slice(0, m), K, t.double(), noise.double(),
+                                      1e-5)[:, 0]
+
+    x0 = _cuda(np.stack([np.log(rng.uniform(1, 100, lanes)), np.zeros(lanes)], 1), dev, dtype)
+    before = metrics.COUNTS["adam_steps"]
+    graphed = opt.adam_minimize(fn, x0, steps=200)
+    assert metrics.COUNTS["adam_steps"] - before == 200
+    monkeypatch.setattr(opt, "_GRAPH_WARMUP", 200)
+    before = metrics.COUNTS["adam_steps"]
+    eager = opt.adam_minimize(fn, x0, steps=200)
+    assert metrics.COUNTS["adam_steps"] - before == 200
+    for a, b in zip(graphed, eager):
+        assert torch.equal(a, b), (a, b)
+
+
+def test_se_regression_fit_with_graphed_adam_is_the_eager_fit_s_bits_on_the_card(dev,
+                                                                                  monkeypatch):
+    """``fit_se_regression_gp`` on the card, its training's steps from one CUDA
+    graph or launched one by one: the same (a², t, noise) and predictive
+    moments, bit for bit."""
+    import flgp_tpu_torch as ft
+    from flgp_tpu_torch.datasets import spiral
+    from flgp_tpu_torch.inference import optimize as opt
+
+    ds = spiral(n=4000, m_train=200, seed=7)
+    cfg = ft.FitConfig(graph=ft.GraphConfig(s=256, r=3, K=64, kernel="se"), sigma=1e-5)
+
+    def fit():
+        return ft.fit_se_regression_gp(torch.Generator(device=dev).manual_seed(3), ds.x_train,
+                                       ds.y_train, ds.x_test, cfg=cfg)
+
+    graphed = fit()
+    monkeypatch.setattr(opt, "_GRAPH_WARMUP", 10**6)
+    eager = fit()
+    assert all(np.array_equal(graphed.pars[k], eager.pars[k]) for k in ("a2", "t", "noise"))
+    assert np.array_equal(graphed.posterior_mean, eager.posterior_mean)
+    assert np.array_equal(graphed.posterior_cov, eager.posterior_cov)
+
+
 # ---------------------------------------------------------------------------
 # the out-of-core fits and the multi-device layer
 # ---------------------------------------------------------------------------

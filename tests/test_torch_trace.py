@@ -7,7 +7,9 @@ parent; ``host_syncs`` counts every blocking read the fit makes (each read
 that a patch of the tensor's read methods sees); ``lloyd_rounds`` and
 ``newton_rounds`` count the rounds run, and ``lloyd_kernel_rounds`` the Lloyd
 passes sent to K1, none on the CPU; under the profiler every span is a
-``flgp:`` range of the trace.
+``flgp:`` range of the trace.  The SE regression with its bandwidth grid
+opens a ``grid`` span for each bandwidth and counts ``grid_spectra`` there,
+and ``adam_steps`` in its ``train`` span.
 """
 
 import json
@@ -18,7 +20,7 @@ import pytest
 import torch
 
 import flgp_tpu_torch as ft
-from flgp_tpu_torch.datasets import mnist_like, torus_rings
+from flgp_tpu_torch.datasets import mnist_like, spiral, torus_rings
 from flgp_tpu_torch.inference import nuts
 from flgp_tpu_torch.models import gpc
 from flgp_tpu_torch.ops import hopper_kernels as hk
@@ -35,18 +37,27 @@ CFG = ft.FitConfig(graph=ft.GraphConfig(s=48, r=3, K=16), dtype=F64, n_gibbs=12,
 TREE = {"fit": None, "upload": "fit", "subsample": "fit", "graph": "fit", "knn": "graph",
         "lae_weights": "graph", "spectrum": "fit", "train": "fit", "predict": "fit"}
 DRIVERS = ["fit_lae_logit_gp", "fit_lae_logit_mult_gp"]
+# the SE regression at the default bandwidth grid and Adam schedule
+SE = "fit_se_regression_gp"
+SE_CFG = ft.FitConfig(graph=ft.GraphConfig(s=48, r=3, K=16, kernel="se"), sigma=1e-5, dtype=F64)
+SE_TREE = {"fit": None, "upload": "fit", "subsample": "fit", "graph": "fit", "knn": "graph",
+           "grid": "fit", "train": "fit", "predict": "fit"}
+N_GRID = len(ft.config.default_a2s())
 
 
 def _data(driver):
     if driver == "fit_lae_logit_gp":
         return torus_rings(n=900, m_train=80, seed=3)
+    if driver == SE:
+        return spiral(n=900, m_train=60, seed=6)
     return mnist_like(n=900, n_classes=4, d=8, m_train=80, seed=4)
 
 
 def _fit(driver, ds, report=None):
     kw = {} if report is None else dict(report=report)
     return getattr(ft, driver)(torch.Generator().manual_seed(5), ds.x_train, ds.y_train,
-                               ds.x_test, cfg=CFG, device="cpu", **kw)
+                               ds.x_test, cfg=SE_CFG if driver == SE else CFG, device="cpu",
+                               **kw)
 
 
 def _same_bits(a, b):
@@ -103,7 +114,7 @@ def test_spans_form_one_tree_under_fit(driver):
 _READS = ("__bool__", "__int__", "__float__", "__index__", "item", "numpy", "tolist", "cpu")
 
 
-@pytest.mark.parametrize("driver", DRIVERS)
+@pytest.mark.parametrize("driver", DRIVERS + [SE])
 def test_host_syncs_count_every_blocking_read(driver, monkeypatch):
     """Every read of a tensor's value by the host, seen by patching the
     tensor's read methods (``cpu()`` reads only off a CPU tensor), goes
@@ -131,7 +142,7 @@ def test_host_syncs_count_every_blocking_read(driver, monkeypatch):
     assert rec.fit_counts(1)["host_syncs"] == syncs
 
 
-@pytest.mark.parametrize("driver", DRIVERS)
+@pytest.mark.parametrize("driver", DRIVERS + [SE])
 def test_each_fit_keeps_its_own_counts(driver):
     """A fit appends one entry to ``FIT_COUNTS``: what the store gained in
     it, which is what the record attributes to that fit, and its call."""
@@ -145,6 +156,52 @@ def test_each_fit_keeps_its_own_counts(driver):
     assert last == Counter(metrics.COUNTS) - before
     assert last - Counter(fits=1) == rec.fit_counts(1) and last["fits"] == 1
     assert last["host_syncs"] > 0
+
+
+def test_se_regression_changes_no_output_bit_when_recording():
+    ds = _data(SE)
+    off = _fit(SE, ds)
+    with recording() as rec:
+        on = _fit(SE, ds)
+    _same_bits(off, on)
+    _same_bits(off, _fit(SE, ds))
+    assert rec.fits() == [1] and len(rec.spans) == len(SE_TREE) + N_GRID - 1
+
+
+def test_se_regression_spans_form_one_tree_under_fit():
+    with recording() as rec:
+        _fit(SE, _data(SE))
+    names = Counter(s.name for s in rec.spans)
+    assert names == Counter(dict(dict.fromkeys(SE_TREE, 1), grid=N_GRID)), names
+    by_id = {s.id: s for s in rec.spans}
+    for s in rec.spans:
+        if SE_TREE[s.name] is None:
+            assert s.parent is None
+            continue
+        parent = by_id[s.parent]
+        assert parent.name == SE_TREE[s.name], (s.name, parent.name)
+        assert parent.t0 <= s.t0 and s.t1 <= parent.t1, s.name
+    # the layers in the order the fit runs them, none overlapping
+    order = sorted((s for s in rec.spans if s.parent == 1), key=lambda s: s.t0)
+    assert [s.name for s in order] == (["upload", "subsample", "graph"] + ["grid"] * N_GRID
+                                       + ["train", "predict"])
+    assert all(a.t1 <= b.t0 for a, b in zip(order, order[1:]))
+
+
+def test_se_regression_counts_its_adam_steps_and_grid_spectra_in_their_layers():
+    with recording() as rec:
+        _fit(SE, _data(SE))
+    name_of = {s.id: s.name for s in rec.spans}
+    counts = rec.fit_counts(1)
+    assert counts["adam_steps"] == ft.TrainConfig().adam_steps == SE_CFG.train.adam_steps
+    assert counts["grid_spectra"] == N_GRID
+    where = {}
+    for (_, sid), c in rec.counts.items():
+        for k in c:
+            where.setdefault(k, set()).add(name_of.get(sid))
+    assert where["adam_steps"] == {"train"}
+    assert where["grid_spectra"] == {"grid"}
+    assert where["lloyd_rounds"] == {"subsample"}
 
 
 @pytest.mark.parametrize("iters,rounds", [(100, 3), (2, 2), (1, 1)])
