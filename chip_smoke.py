@@ -10,6 +10,7 @@
     python3 chip_smoke.py --wide
     python3 chip_smoke.py --knn-times
     python3 chip_smoke.py --assign-times
+    python3 chip_smoke.py --pg-times
 
 (the second only counts K2's instructions in a library already built; the
 third only times the n=1e6 subsample stage, four calls from one seed, with
@@ -26,13 +27,17 @@ builds and times K1 at r = 3 at the n=1e6 shape, the n=1e7 chunk and the
 multiclass shape, and at r = 1 at the chunk; the ninth builds and times a
 whole pass of Lloyd's assignment on K1 at r = 1 against the blocked distance
 matrix at three (n, s), each pass held to the other, the measurement behind
-``ops/kmeans.py:_KERNEL_ASSIGN_MAX_D``).
+``ops/kmeans.py:_KERNEL_ASSIGN_MAX_D``; the tenth builds and times the
+Pólya-Gamma draw on its kernel against the plain loop at 1,000 and 5,000
+lanes, holds the kernel's moments to the closed form, and times a 50-sweep
+PG chain both ways).
 Phases, each of which ends the script with a non-zero exit if it fails:
 
 1. the card: name and power limit from nvidia-smi; a CUDA device is required
    (there is no CPU path) and TF32 is switched off;
-2. build: nvcc compiles the kernels K1–K9 and ``ell_sym_matmat`` from
-   flgp_tpu_torch/csrc for sm_90a (one nvcc process per source, all at once);
+2. build: nvcc compiles the kernels K1–K9, ``ell_sym_matmat`` and
+   ``polya_gamma`` from flgp_tpu_torch/csrc for sm_90a (one nvcc process per
+   source, all at once);
    the instructions one FISTA step of K2 issues at r=3 are counted from the
    library's SASS (``cuobjdump``), for both arithmetic variants;
 3. kernels vs their plain PyTorch versions, on the card, at the shapes the
@@ -52,9 +57,15 @@ Phases, each of which ends the script with a non-zero exit if it fails:
    yardstick, ``torch.sparse.mm`` of the normalized graph's CSR transpose
    and CSR; K5 also against its first, warp-a-row body (``legacy``), the same
    bits, both timed in turns; K1 at the chunk shape beside the two-call
-   yardstick too;
+   yardstick too; the Pólya-Gamma kernel ``polya_gamma`` against its plain
+   version, the loop ``ops.polya_gamma._sample_jstar`` on the card, at 1,000
+   and 5,000 float64 lanes (the two GPC cells' sweeps): a two-sample KS test
+   of the kernel's 2e5 draws against the loop's 4e4–5e4 on the same c, each
+   draw standardized by PG(1, c)'s closed-form moments, and the kernel's
+   mean and variance held to the closed form, with both times;
 4. the torus fit through ``fit_lae_logit_gp`` (error ≤ 0.03; all five
-   kernels must be launched by it), then a second, warm fit for its time;
+   kernels and ``polya_gamma`` must be launched by it), then a second, warm
+   fit for its time;
 5. the n=1e6 fit (error ≤ 0.03), its wall time, build_spectrum's time alone
    and the peak device memory; then the port's subsampler twice from one
    seed, timed, which must return the same anchors bit for bit, two fits on
@@ -121,8 +132,9 @@ Phases, each of which ends the script with a non-zero exit if it fails:
     fit through ``fit_lae_logit_mult_gp`` (f32 graph, f64 tail, sigma 1e-3,
     50 sweeps, ten classes) cold and warm from one generator seed, which
     must give the same t, labels and posterior means bit for bit, must
-    launch K1–K5 and must reach the same fit's error in float64 on the card
-    (plain versions only) + 0.01; the fit stage by stage, its peak memory,
+    launch K1–K5 and ``polya_gamma`` and must reach the same fit's error in
+    float64 on the card (plain versions only) + 0.01; the fit stage by
+    stage, its peak memory,
     and its device activities (``torch.profiler``) beside the binary torus
     fit's; ``fit_se_logit_mult_gp`` (K9 must be launched),
     ``fit_nystrom_logit_mult_gp`` and ``fit_gl_logit_mult_gp`` (sparse
@@ -164,8 +176,9 @@ Phases, each of which ends the script with a non-zero exit if it fails:
     and its median sd ratio in (0.6, 1.6), both families finite; the
     low-rank family's numbers, the ELBOs and the low-rank gain reported (F5);
 15. the README goldens on the reference's own data: ``torus_rings_r``
-    through ``fit_lae_logit_gp`` (err ≤ 0.015, K1–K5 launched) and
-    ``fit_se_logit_gp`` (err ≤ 0.005, K1 and K9), float32 graph and
+    through ``fit_lae_logit_gp`` (err ≤ 0.015, K1–K5 and ``polya_gamma``
+    launched) and ``fit_se_logit_gp`` (err ≤ 0.005, K1, K9 and
+    ``polya_gamma``), float32 graph and
     float64 tail; ``spiral_r`` on ``spiral_r_anchors`` through the LAE and SE
     regression drivers in float64 with the plain versions (|rmse − 0.4582| <
     8e-3, |rmse − 0.5032| < 1.5e-3) and with the float32 graph and the
@@ -224,7 +237,8 @@ PyTorch call computes the same function, that call's time (``index_add_``,
 on a fit's path.
 
 The line before the last is one JSON object with the kernels' launches,
-errors, times and bounds; the last line is ``{"ok": true, "device": {...}}``.
+errors, times and bounds (``polya_gamma``: its KS p-value against the loop
+at 1,000 lanes, where a sampler has no error); the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -297,9 +311,14 @@ KERNELS = {
     # K9's gather over a graph and its transpose: the operator product the
     # reference sums over its edge list in plain XLA
     "ell_sym_matmat": ("flgp_tpu_torch/csrc/ell_matmat.cu", "flgp_tpu/ops/sparse_graph.py:27"),
+    # the Pólya-Gamma sampler, which the reference runs as lax.while_loops
+    # (its outer rejection loop)
+    "polya_gamma": ("flgp_tpu_torch/csrc/polya_gamma.cu", "flgp_tpu/ops/polya_gamma.py:158"),
 }
-# the kernels each path must launch
+# the kernels each path must launch; an LAE logit fit also draws its PG chain
+# on the card
 MAIN_PATH = ("knn", "lae_weights", "ell_colsum", "ell_norm_gram", "ell_norm_matmat")
+LOGIT_PATH = MAIN_PATH + ("polya_gamma",)
 HUGE_PATH = ("knn", "lae_weights", "ell_colsum_t", "ell_norm_gram_t", "ell_norm_matmat_t")
 SHAPES = {  # the configurations of the main path and of the huge-n path
     "torus": dict(n=4800, m=100, seed=1234, s=600, r=3, K=100),
@@ -327,7 +346,10 @@ def work(name: str, n: int, r: int, s: int, K: int = 0, d: int = 0, distinct=Non
     K9 reads only the ``distinct`` rows of W that the graph names; the
     symmetric product reads the graph as ELL and the ``distinct`` entries of
     its transpose that the CSR holds (a value and a source each, n + 1 row
-    starts) and names every row of X."""
+    starts) and names every row of X.  The Pólya-Gamma draw (n float64
+    lanes) counts its compulsory bytes alone, z, the draws and the 16-byte
+    key: its operations vary lane by lane with the rejections, and a launch
+    of a few thousand lanes is latency-bound far above either term."""
     graph = 8 * n * r                                   # f32 values + i32 indices
     if name == "knn":           # d²: 2d for the dot product, 2 to add the norms
         return dict(bytes=4 * (n * d + s * d) + 8 * n * r, flops=n * s * (2 * d + 2))
@@ -355,6 +377,8 @@ def work(name: str, n: int, r: int, s: int, K: int = 0, d: int = 0, distinct=Non
     if name == "ell_sym_matmat":
         return dict(bytes=graph + 8 * distinct + 4 * (n + 1) + 4 * n * K + 4 * n * K,
                     flops=2 * (n * r + distinct) * K)
+    if name == "polya_gamma":
+        return dict(bytes=16 * n + 16, flops=0)
     raise KeyError(name)
 
 
@@ -629,6 +653,65 @@ KNN_WIDTHS = (
     ("d=256", 70_000, 600, 256, 3),
     ("d=784 (MNIST's width)", 70_000, 600, 784, 3),
 )
+
+
+def check_polya_gamma(dev, results: dict, alpha: float = 1e-4) -> None:
+    """The Pólya-Gamma kernel against its plain version, the loop
+    ``ops.polya_gamma._sample_jstar`` on the card, at the fits' lane counts:
+    1,000 (the torus cell's m) and 5,000 (the ten-class cell's ten lanes of
+    500), float64, c ~ N(0, 3²) fixed.  The kernel draws J*(1, |c|/2) 200,000
+    times a lane count (one launch a key), the loop 40,000 (5,000 lanes:
+    50,000); each draw is standardized by PG(1, c)'s closed-form mean and
+    sd, and the pooled kernel draws are held to the pooled loop draws by a
+    two-sample KS test (p > alpha) and to the closed form by their mean
+    (within 4 standard errors of 0) and variance (of 1).  Times: the kernel
+    by CUDA events, the loop by the wall around a synchronized call (it is
+    host-paced)."""
+    from scipy.stats import ks_2samp
+
+    from flgp_tpu_torch.ops import polya_gamma as pg
+
+    ent = results.setdefault("polya_gamma", dict(max_abs_err=None))
+    g = torch.Generator(device=dev).manual_seed(21)
+    rows = ["polya_gamma vs the loop, float64, c ~ N(0, 3^2):"]
+    for lanes, loop_calls in ((1000, 40), (5000, 10)):
+        c = 3.0 * torch.randn((lanes,), generator=g, dtype=torch.float64, device=dev)
+        z = (torch.abs(c) / 2.0).contiguous()
+        mean, var = _pg1_moments(np.abs(c.cpu().numpy()))
+        mean, sd = 4 * mean, 4 * np.sqrt(var)              # J*(1, |c|/2) = 4 PG(1, c)
+
+        def keys(k):
+            return torch.randint(2**62, (k, 2), generator=g, dtype=torch.int64, device=dev)
+
+        kernel_calls = 200_000 // lanes
+        got = torch.stack([hk.polya_gamma(z, key) for key in keys(kernel_calls)])
+        walls = []
+        loop = []
+        for _ in range(loop_calls):
+            t0 = _synced()
+            loop.append(pg._sample_jstar(g, z))
+            walls.append(_synced() - t0)
+        u_got = ((got.cpu().numpy() - mean) / sd).ravel()
+        u_loop = ((torch.stack(loop).cpu().numpy() - mean) / sd).ravel()
+        ks = ks_2samp(u_got, u_loop)
+        z_mean = u_got.mean() * np.sqrt(u_got.size)
+        z_var = (u_got.var() - 1.0) / (np.std(u_got**2) / np.sqrt(u_got.size))
+        key = keys(1)[0]
+        ms = cuda_ms(lambda: hk.polya_gamma(z, key), 20)
+        plain_ms = 1e3 * float(np.mean(walls))
+        w = work("polya_gamma", n=lanes, r=0, s=0)
+        label = f"pg{lanes}"
+        ent.update({f"ms_{label}": ms, f"plain_ms_{label}": plain_ms, f"work_{label}": w,
+                    f"library_ms_{label}": None, f"ks_pvalue_{label}": float(ks.pvalue)})
+        rows.append(f"  {lanes:5d} lanes  kernel {ms:9.4f} ms  loop {plain_ms:9.4f} ms (wall)  "
+                    f"bound {bound(w)[0]:.6f} ms ({bound(w)[1]})  KS against the loop D "
+                    f"{ks.statistic:.5f} p {ks.pvalue:.3g} ({u_got.size} kernel, {u_loop.size} "
+                    f"loop draws)  closed form: mean z {z_mean:.2f}, variance z {z_var:.2f}")
+        if not (ks.pvalue > alpha and abs(z_mean) <= 4 and abs(z_var) <= 4):
+            print("\n".join(rows), flush=True)
+            _fail(f"polya_gamma at {lanes} lanes: KS p {ks.pvalue:.3g} against the loop, "
+                  f"mean z {z_mean:.2f}, variance z {z_var:.2f}")
+    print("\n".join(rows), flush=True)
 
 
 def knn_library(X, U, r: int):
@@ -1745,7 +1828,7 @@ def multiclass_phase(dev, results: dict) -> dict:
           f"(cold and warm fit and the float64 one)", flush=True)
     if not same:
         _fail("fit_lae_logit_mult_gp: two fits from one seed differ (t or labels)")
-    missing = [k for k in MAIN_PATH if lae["launches"].get(k, 0) == 0]
+    missing = [k for k in LOGIT_PATH if lae["launches"].get(k, 0) == 0]
     if missing:
         _fail(f"fit_lae_logit_mult_gp launched no {missing} kernel")
     if lae["res"].eigenpair.vectors.device.type != "cuda":
@@ -2333,7 +2416,8 @@ def golden_phase(dev, phase4, card: str) -> None:
     for name, gate in GOLDEN_TORUS.items():
         f = entry_fit(name, tds, torus_fit_cfg(), dev, seed=0, cold_and_warm=False)
         _report_fit(name, "torus_rings_r, f32 graph, f64 tail", f)
-        _launched(name, f["launches"], MAIN_PATH if "_lae_" in name else ("knn", "ell_matmat"))
+        _launched(name, f["launches"],
+                  LOGIT_PATH if "_lae_" in name else ("knn", "ell_matmat", "polya_gamma"))
         print(f"  golden gate: err {f['score']:.6f} <= {gate}", flush=True)
         if f["score"] > gate:
             _fail(f"{name} on torus_rings_r: err {f['score']} > {gate}")
@@ -2394,7 +2478,7 @@ def golden_phase(dev, phase4, card: str) -> None:
           f"{launches}; {len(traces)} trace file(s)", flush=True)
     print("  stages (s): " + "  ".join(f"{s.name} {s.wall_s:.4f}" for s in report.stages)
           + f"; metrics {res.metrics} [{card}]", flush=True)
-    _launched("the instrumented fit", launches, MAIN_PATH)
+    _launched("the instrumented fit", launches, LOGIT_PATH)
     if not same:
         _fail("fit_lae_logit_gp(report=...) differs from the plain fit of phase 4")
     if not traces:
@@ -3506,6 +3590,99 @@ def assign_times(dev, reps: int = 20, margin: float = 1.25) -> None:
           f"kmeans._KERNEL_ASSIGN_MAX_D = {kmeans._KERNEL_ASSIGN_MAX_D}", flush=True)
 
 
+def _pg1_moments(c: np.ndarray) -> tuple:
+    """Closed-form mean and variance of PG(1, c)."""
+    cs = np.where(c == 0, 1.0, c)
+    mean = np.where(c == 0, 0.25, np.tanh(cs / 2) / (2 * cs))
+    var = np.where(c == 0, 1 / 24, (np.sinh(cs) - cs) / (4 * cs**3 * np.cosh(cs / 2) ** 2))
+    return mean, var
+
+
+def pg_times(dev, reps: int = 20, loop_reps: int = 5) -> None:
+    """``--pg-times``: the card, the build, then one sweep's Pólya-Gamma draw
+    in float64 at 1,000 lanes (the torus cell's m) and 5,000 (the ten-class
+    cell's ten lanes of 500), c ~ N(0, 3²): the kernel alone
+    (``hopper_kernels.polya_gamma``) and the whole draw through
+    ``ops.polya_gamma.polya_gamma`` by CUDA events (``cuda_ms``), the plain
+    loop (``_sample_jstar`` on the card, host-paced) by the wall around a
+    synchronized call, with its host rounds; then the kernel's mean and
+    variance at 2e5 draws for each of c = 0, 1, 10, 40, held within 4 Monte
+    Carlo standard errors of the closed form (float64 and float32); then one
+    ``test_pgbinary`` chain of 50 sweeps (25 averaged) at m = 1,000 and 10,000
+    test rows, in turns (loop, kernel, kernel, loop): its wall, draws,
+    launches, host syncs and host rounds."""
+    from flgp_tpu_torch.inference import pg_gibbs
+    from flgp_tpu_torch.ops import polya_gamma as pg
+    from flgp_tpu_torch.utils.metrics import COUNTS
+
+    card = card_line()
+    print(f"card: {card}", flush=True)
+    _build.build()
+    _build.load()
+    g = torch.Generator(device=dev).manual_seed(7)
+    for lanes in (1000, 5000):
+        c = 3.0 * torch.randn((lanes,), generator=g, dtype=torch.float64, device=dev)
+        z = (torch.abs(c) / 2.0).contiguous()
+        key = torch.randint(2**62, (2,), generator=g, dtype=torch.int64, device=dev)
+        kernel_ms = cuda_ms(lambda: hk.polya_gamma(z, key), reps)
+        draw_ms = cuda_ms(lambda: pg.polya_gamma(g, c), reps)
+        walls = []
+        rounds0 = COUNTS["pg_rounds"]
+        for _ in range(loop_reps):
+            t0 = _synced()
+            pg._sample_jstar(g, z)
+            walls.append(_synced() - t0)
+        rounds = (COUNTS["pg_rounds"] - rounds0) / loop_reps
+        loop_ms = 1e3 * sum(walls) / loop_reps
+        print(f"PG draw, {lanes} lanes, float64: kernel {kernel_ms * 1e3:.1f} us a draw "
+              f"({kernel_ms * 1e6 / lanes:.2f} ns a lane); the whole draw through "
+              f"ops.polya_gamma {draw_ms * 1e3:.1f} us; the loop {loop_ms:.3f} ms "
+              f"(wall, {rounds:.1f} host rounds a draw); loop over kernel "
+              f"{loop_ms / kernel_ms:.0f}x [{card}]", flush=True)
+    cs = np.array([0.0, 1.0, 10.0, 40.0])
+    S = 200_000
+    for dtype in (torch.float64, torch.float32):
+        c = torch.as_tensor(np.repeat(cs[:, None], S, axis=1), dtype=dtype, device=dev)
+        x = pg.polya_gamma(torch.Generator(device=dev).manual_seed(1), c).double().cpu().numpy()
+        mean, var = _pg1_moments(cs)
+        m = x.mean(1)
+        dev2 = (x - m[:, None]) ** 2
+        z_mean = (m - mean) / np.sqrt(var / S)
+        z_var = (dev2.mean(1) * S / (S - 1) - var) / (dev2.std(1) / np.sqrt(S))
+        print(f"PG kernel moments, {dtype}, 2e5 draws at c = {cs.tolist()}: mean "
+              f"{np.round(m, 6).tolist()} (closed form {np.round(mean, 6).tolist()}, "
+              f"z {np.round(z_mean, 2).tolist()}); variance z {np.round(z_var, 2).tolist()}",
+              flush=True)
+        if not (np.all(np.abs(z_mean) <= 4) and np.all(np.abs(z_var) <= 4)):
+            _fail(f"PG kernel moments ({dtype}) beyond 4 Monte Carlo standard errors")
+    rng = np.random.default_rng(5)
+    m_train, n_test = 1000, 10_000
+    x, xt = np.sort(rng.uniform(-3, 3, m_train)), rng.uniform(-3, 3, n_test)
+
+    def k(a, b):
+        return torch.as_tensor(4.0 * np.exp(-0.5 * (a[:, None] - b[None, :]) ** 2),
+                               dtype=torch.float64, device=dev)
+
+    C = k(x, x) + 1e-6 * torch.eye(m_train, dtype=torch.float64, device=dev)
+    Cnv = k(xt, x)
+    Y = torch.as_tensor((np.sin(2 * x) > 0).astype(np.float64), device=dev)
+    on_kernel = pg.pg_on_kernel
+    names = ("pg_draws", "kernel_launches:polya_gamma", "host_syncs", "pg_rounds")
+    for path in ("loop", "kernel", "kernel", "loop"):
+        pg.pg_on_kernel = on_kernel if path == "kernel" else (lambda device_type, dtype: False)
+        try:
+            before = {n: COUNTS[n] for n in names}
+            t0 = _synced()
+            pg_gibbs.test_pgbinary(torch.Generator(device=dev).manual_seed(3), C, Y, Cnv,
+                                   n_sweeps=50, avg_sweeps=25)
+            wall = _synced() - t0
+        finally:
+            pg.pg_on_kernel = on_kernel
+        counted = ", ".join(f"{n} {COUNTS[n] - before[n]}" for n in names)
+        print(f"PG chain, 50 sweeps, m = {m_train}, {n_test} test rows, {path}: {wall:.4f} s; "
+              f"{counted} [{card}]", flush=True)
+
+
 def subsample_stage_times(dev, calls: int = 4) -> None:
     """The n=1e6 subsample stage alone, ``calls`` times from one seed: the
     times, and whether every call gave the first one's anchors."""
@@ -3597,6 +3774,7 @@ def main() -> None:
         check_kernels(label, X, cfg, dev, results)
         del X
     check_knn_chunk(dev, results)
+    check_polya_gamma(dev, results)
 
     # 4. torus fit: the main path, through the entry point a user calls
     tor = SHAPES["torus"]
@@ -3604,12 +3782,12 @@ def main() -> None:
     hk.reset_launches()
     res, err, wall, _ = fit(tor, tor_cfg, dev, seed=0)
     launches = dict(hk.LAUNCHES)
-    phase4, torus_launches = res, {k: launches[k] for k in MAIN_PATH}
+    phase4, torus_launches = res, {k: launches[k] for k in LOGIT_PATH}
     print(f"torus fit (cold): err {err:.6f}  t {float(res.pars['t']):.6g}  wall {wall:.3f} s  "
           f"launches {launches}", flush=True)
     if err > ERR_GATE:
         _fail(f"torus test error {err} > {ERR_GATE}")
-    missing = [k for k in MAIN_PATH if launches[k] == 0]
+    missing = [k for k in LOGIT_PATH if launches[k] == 0]
     if missing:
         _fail(f"the torus fit launched no {missing} kernel")
     res, err2, wall2, _ = fit(tor, tor_cfg, dev, seed=0)
@@ -3673,19 +3851,24 @@ def main() -> None:
     # launches of the first n=1e7 fit, times at the n=1e7 shape; K9: launches
     # of the SE torus fit, times at the shape that fit launches it at;
     # ell_sym_matmat: launches of the sparse-LOBPCG GLGP fit, times at the
-    # LOBPCG block's shape
+    # LOBPCG block's shape; polya_gamma: launches of the torus fit (one a
+    # sweep), times at 1,000 lanes (the torus cell's m), its KS p-value
+    # against the loop in place of an error
     kernels = []
     for name, (src, replaces) in KERNELS.items():
         r = results[name]
         shape = ("huge" if name.endswith("_t") else
                  "se-torus" if name == "ell_matmat" else
-                 "lobpcg" if name == "ell_sym_matmat" else "large")
+                 "lobpcg" if name == "ell_sym_matmat" else
+                 "pg1000" if name == "polya_gamma" else "large")
         bound_ms, bound_by = bound(r[f"work_{shape}"])
         kernels.append(dict(name=name, route="cuda", source=src, replaces=replaces,
                             launches=launches[name], max_abs_err=r["max_abs_err"],
                             ms=r[f"ms_{shape}"], plain_ms=r[f"plain_ms_{shape}"],
                             bound_ms=bound_ms, bound_by=bound_by,
                             library_ms=r[f"library_ms_{shape}"]))
+        if name == "polya_gamma":
+            kernels[-1]["ks_pvalue"] = r[f"ks_pvalue_{shape}"]
     ratios = sorted(((k["ms"] / k["bound_ms"], k["name"]) for k in kernels), reverse=True)
     print("kernel ms over bound ms: " + ", ".join(f"{nm} {x:.1f}x" for x, nm in ratios),
           flush=True)
@@ -3700,7 +3883,8 @@ if __name__ == "__main__":
     if len(sys.argv) == 3 and sys.argv[1] == "--sass":
         print_sass(Path(sys.argv[2]))      # K2's step count of any build of the library
     elif sys.argv[1:] in (["--subsample-times"], ["--sampling"], ["--streaming"],
-                          ["--extension"], ["--wide"], ["--knn-times"], ["--assign-times"]):
+                          ["--extension"], ["--wide"], ["--knn-times"], ["--assign-times"],
+                          ["--pg-times"]):
         if not torch.cuda.is_available():
             _fail("torch.cuda.is_available() is false: this smoke test needs an NVIDIA GPU")
         pin_full_precision()
@@ -3716,6 +3900,8 @@ if __name__ == "__main__":
             knn_times(torch.device("cuda", 0))
         elif sys.argv[1] == "--assign-times":
             assign_times(torch.device("cuda", 0))
+        elif sys.argv[1] == "--pg-times":
+            pg_times(torch.device("cuda", 0))
         else:
             print(f"card: {card_line()}", flush=True)
             subsample_stage_times(torch.device("cuda", 0))

@@ -50,6 +50,7 @@ _SIGNATURES = {
     "flgp_ell_norm_matmat_wide": [_P, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_float, _I, _P, _P],
     "flgp_ell_matmat": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P],
     "flgp_ell_sym_matmat": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
+    "flgp_polya_gamma": [_P, _P, _L, _I, _P, _P],
 }
 
 # entry points that return a count, not a cudaError

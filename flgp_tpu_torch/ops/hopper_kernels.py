@@ -13,7 +13,10 @@ c = 1; K3's and K4's sums are exact (fixed point in shared memory, float64
 across blocks), so C, Ĝ and D are the same bits on every launch.
 ``ell_sym_matmat`` (csrc/ell_matmat.cu) is K9's gather applied to a graph
 and to its transpose in one launch: the product (Z + Zᵀ)·X of the sparse
-GLGP operator.
+GLGP operator.  ``polya_gamma`` (csrc/polya_gamma.cu) replaces no TPU
+kernel: it is the Pólya-Gamma sampler of ``ops/polya_gamma.py`` with every
+lane finished in one launch, where the plain version's rejection loops read
+on the host once a round.
 
 Fan-in.  Every kernel takes every r its TPU kernel takes.  K1 takes any
 1 ≤ r ≤ s, as the reference's ``fused_knn`` does (its r ≤ 16 is only the
@@ -27,14 +30,16 @@ raises).  The private ``runtime_r=True`` of ``_knn``, ``_lae_weights``,
 forces the run-time-r body at r ≤ 16, for the tests and chip_smoke.py: it
 gives the templated bodies' bits.
 
-Each wrapper takes its plain PyTorch version for tensors on the CPU, and only
-then.  For CUDA tensors it checks device, dtype (float32 values, int32
-indices), shape and contiguity, raises on anything else, launches the kernel
-on the current stream and adds one to ``LAUNCHES[name]``
-(``utils.metrics.count``).  A build or launch
-error raises; nothing falls back.  The float64 path never reaches these
-wrappers: the callers (``ops.knn``, ``ops.lae``, ``ops.spectrum``,
-``EllMatrix.matmat``, ``SymCoo.matvec``) dispatch on dtype.
+Each wrapper but ``polya_gamma`` takes its plain PyTorch version for tensors
+on the CPU, and only then (``polya_gamma`` draws from a key on the card,
+where the plain version draws from a generator: its caller dispatches).
+For CUDA tensors it checks device, dtype (float32 values, int32 indices),
+shape and contiguity, raises on anything else, launches the kernel on the
+current stream and adds one to ``LAUNCHES[name]`` (``utils.metrics.count``).
+A build or launch error raises; nothing falls back.  The float64 path never reaches these
+wrappers but ``polya_gamma``'s, which takes float32 and float64: the callers
+(``ops.knn``, ``ops.lae``, ``ops.spectrum``, ``EllMatrix.matmat``,
+``SymCoo.matvec``) dispatch on dtype.
 """
 
 from __future__ import annotations
@@ -54,7 +59,7 @@ from .lae import fista_momentum, lae_weights_plain
 # counters ``kernel_launches:<kernel>`` of the recorder's store.
 LAUNCHES = CounterView("kernel_launches:", (
     "knn", "lae_weights", "ell_colsum", "ell_norm_gram", "ell_norm_matmat", "ell_colsum_t",
-    "ell_norm_gram_t", "ell_norm_matmat_t", "ell_matmat", "ell_sym_matmat"))
+    "ell_norm_gram_t", "ell_norm_matmat_t", "ell_matmat", "ell_sym_matmat", "polya_gamma"))
 
 
 def reset_launches() -> None:
@@ -665,4 +670,30 @@ def _ell_sym_matmat(values: torch.Tensor, indices: torch.Tensor, ptr: torch.Tens
     _launch("ell_sym_matmat", values.device, _build.load().flgp_ell_sym_matmat,
             values.data_ptr(), indices.data_ptr(), ptr.data_ptr(), src.data_ptr(), vt.data_ptr(),
             X.data_ptr(), n, r, K, int(slab_cols), out.data_ptr())
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The Pólya-Gamma sampler
+# ---------------------------------------------------------------------------
+
+
+def polya_gamma(z: torch.Tensor, key: torch.Tensor) -> torch.Tensor:
+    """J*(1, z) for each element of z ≥ 0, float32 or float64, in one launch
+    (csrc/polya_gamma.cu): ``ops.polya_gamma._sample_jstar``'s sampler, its
+    plain version, one thread a lane, with its caps and fallbacks.  ``key``
+    is an int64 (2,) tensor on z's device, the Philox seed and offset, read
+    by the kernel from device memory: the same key gives the same bits.
+    CUDA tensors of float32 or float64 only; anything else raises."""
+    if z.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"z must be float32 or float64, got {z.dtype}")
+    if z.device.type != "cuda":
+        raise ValueError(f"the CUDA kernel polya_gamma takes CUDA tensors, got one on {z.device}")
+    _check("z", z, z.dtype, tuple(z.shape), z.device)
+    _check("key", key, torch.int64, (2,), z.device)
+    out = torch.empty(z.shape, dtype=z.dtype, device=z.device)
+    if z.numel() == 0:
+        return out                # nothing to launch, and no launch counted
+    _launch("polya_gamma", z.device, _build.load().flgp_polya_gamma, z.data_ptr(), key.data_ptr(),
+            z.numel(), int(z.dtype == torch.float64), out.data_ptr())
     return out

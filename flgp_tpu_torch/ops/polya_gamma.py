@@ -1,13 +1,21 @@
-"""Vectorized Pólya-Gamma sampling.
+"""Pólya-Gamma sampling.
 
-The Devroye alternating-series sampler (Polson–Scott–Windle), vectorized
-over the whole batch with per-lane acceptance masks: PG(1, z) = J*(1, z/2)/4
-with J* drawn by a mixture proposal (truncated inverse-Gaussian below
-t = 0.64, truncated exponential above) and the alternating-series squeeze.
-Each rejection loop checks on the host once per round whether every lane is
-done, under the same round caps as the JAX sampler; each round of the three
-loops counts one ``pg_rounds``.  Every draw comes from
-the caller's ``torch.Generator``, on the data's device.
+The Devroye alternating-series sampler (Polson–Scott–Windle): PG(1, c) =
+J*(1, |c|/2)/4 with J* drawn by a mixture proposal (truncated
+inverse-Gaussian below t = 0.64, truncated exponential above) and the
+alternating-series squeeze.  Two paths, chosen by ``pg_on_kernel``:
+
+* on the card: one launch of the CUDA kernel
+  ``hopper_kernels.polya_gamma`` finishes every lane on the device, from a
+  Philox key drawn from the caller's generator on the device; no host read;
+* elsewhere (the CPU): the plain version, vectorized over the whole batch
+  with per-lane acceptance masks, whose rejection loops check on the host
+  once per round whether every lane is done; each round of its three loops
+  counts one ``pg_rounds``.
+
+Both keep the JAX sampler's round caps and fallbacks.  Each call of
+``polya_gamma`` counts one ``pg_draws``.  Every draw comes from the caller's
+``torch.Generator``, on the data's device.
 """
 
 from __future__ import annotations
@@ -17,6 +25,7 @@ import math
 import torch
 
 from ..utils.metrics import count, to_host
+from . import hopper_kernels as hk
 
 _T = 0.64          # series/proposal cut point
 _MAX_ROUNDS = 64   # outer rejection rounds (P(accept) ≳ 0.57 per round)
@@ -136,9 +145,21 @@ def _sample_jstar(g: torch.Generator, z: torch.Tensor) -> torch.Tensor:
     return x
 
 
+def pg_on_kernel(device_type: str, dtype: torch.dtype) -> bool:
+    """Whether a draw of this device type and dtype takes the CUDA kernel:
+    every draw on the card, whose kernel raises on a dtype other than float32
+    and float64; the CPU keeps the loop."""
+    return device_type == "cuda"
+
+
 def polya_gamma(g: torch.Generator, c: torch.Tensor) -> torch.Tensor:
     """One PG(1, c) draw per element of c."""
-    return _sample_jstar(g, torch.abs(c) / 2.0) / 4.0
+    count("pg_draws")
+    z = torch.abs(c) / 2.0
+    if pg_on_kernel(c.device.type, c.dtype):
+        key = torch.randint(2**62, (2,), generator=g, dtype=torch.int64, device=c.device)
+        return hk.polya_gamma(z.contiguous(), key) / 4.0
+    return _sample_jstar(g, z) / 4.0
 
 
 def polya_gamma_int(g: torch.Generator, b: int, c: torch.Tensor) -> torch.Tensor:

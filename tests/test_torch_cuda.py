@@ -1752,3 +1752,229 @@ def test_streamed_fit_runs_on_the_card_by_default(dev, tmp_path):
                                                   chunk_rows=1000)
     assert res.labels.device.type == "cuda" and res.pars["t"].dtype == torch.float64
     assert float(torch.mean((res.labels[100:].cpu() != torch.as_tensor(ds.y_test)).double())) <= 0.03
+
+
+# ---------------------------------------------------------------------------
+# The Pólya-Gamma sampler (csrc/polya_gamma.cu)
+# ---------------------------------------------------------------------------
+
+PG_CS = (0.0, 0.1, 1.0, 2.5, 10.0, 40.0)
+
+
+def _pg_draws(dev, cs, S, dtype=torch.float64, seed=0):
+    """S draws of PG(1, c) for each c of cs, through ``ops.polya_gamma``, (len(cs), S)."""
+    from flgp_tpu_torch.ops.polya_gamma import polya_gamma
+
+    c = _cuda(np.repeat(np.asarray(cs, np.float64)[:, None], S, axis=1), dev, dtype)
+    return polya_gamma(torch.Generator(device=dev).manual_seed(seed), c)
+
+
+def _pg_moments(c):
+    """Closed-form mean and variance of PG(1, c)."""
+    c = np.asarray(c, dtype=np.float64)
+    mean = np.where(c == 0, 0.25, np.tanh(c / 2) / (2 * np.where(c == 0, 1, c)))
+    cs = np.where(c == 0, 1.0, c)
+    var = np.where(c == 0, 1 / 24, (np.sinh(cs) - cs) / (4 * cs**3 * np.cosh(cs / 2) ** 2))
+    return mean, var
+
+
+def _pg_within_mc_error(x, cs, k=4.0):
+    """Whether each row of draws x (len(cs), S) has PG(1, c)'s mean and variance
+    within k Monte Carlo standard errors (the variance's from the draws'
+    own squared deviations)."""
+    mean, var = _pg_moments(cs)
+    S = x.shape[1]
+    m = x.mean(1)
+    dev2 = (x - m[:, None]) ** 2
+    ok_mean = np.abs(m - mean) <= k * np.sqrt(var / S)
+    ok_var = np.abs(dev2.mean(1) * S / (S - 1) - var) <= k * dev2.std(1) / np.sqrt(S)
+    return ok_mean, ok_var
+
+
+def _pg_problem(dev, m=300, n=2000):
+    """A binary GP problem: (C (m, m), Cnv (n, m), Y (m,)) in float64 on the card."""
+    rng = np.random.default_rng(5)
+    x, xt = np.sort(rng.uniform(-3, 3, m)), rng.uniform(-3, 3, n)
+
+    def k(a, b):
+        return 4.0 * np.exp(-0.5 * (a[:, None] - b[None, :]) ** 2)
+
+    C = k(x, x) + 1e-6 * np.eye(m)
+    Y = (np.sin(2 * x) > 0).astype(np.float64)
+    return _cuda(C, dev, torch.float64), _cuda(k(xt, x), dev, torch.float64), _cuda(
+        Y, dev, torch.float64)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_polya_gamma_kernel_moments_match_the_closed_form(dev, dtype):
+    """2e5 kernel draws at each c, one launch: PG(1, c)'s mean and variance
+    within 4 Monte Carlo standard errors, in both types."""
+    from flgp_tpu_torch.ops import hopper_kernels as hk
+
+    S = 200_000
+    before = hk.LAUNCHES["polya_gamma"]
+    x = _pg_draws(dev, PG_CS, S, dtype)
+    torch.cuda.synchronize()
+    assert hk.LAUNCHES["polya_gamma"] == before + 1 and x.dtype == dtype
+    x = x.double().cpu().numpy()
+    assert np.all(np.isfinite(x)) and np.all(x > 0)
+    ok_mean, ok_var = _pg_within_mc_error(x, PG_CS)
+    assert ok_mean.all() and ok_var.all(), (x.mean(1), x.var(1))
+
+
+@pytest.mark.parametrize("c", [0.5, 3.0, 12.0])
+def test_polya_gamma_kernel_against_the_native_oracle(dev, c):
+    """Two-sample Kolmogorov-Smirnov against the host sampler
+    (``native.polya_gamma``, the CPU statistical oracle), 1e5 draws each."""
+    from scipy.stats import ks_2samp
+
+    from flgp_tpu_torch import native
+
+    S = 100_000
+    got = _pg_draws(dev, [c], S, seed=3)[0].cpu().numpy()
+    ref = native.polya_gamma(2024, np.ones(S, np.int32), np.full(S, c), n_threads=4)
+    assert ks_2samp(got, ref).pvalue > 1e-4
+
+
+@pytest.mark.parametrize("row", [0, 1, 2])
+def test_polya_gamma_kernel_against_the_reference_sampler(dev, row):
+    """Two-sample Kolmogorov-Smirnov against the reference package's sampler
+    (``flgp_tpu.ops.polya_gamma``) at c = 0.5, 3 and 12: its 10,000 draws at
+    each c are kept in tests/data/pg_jax_draws.npz, which
+    ``tests/test_torch_models.py`` holds to the reference's output; 1e5
+    kernel draws at the same c."""
+    from pathlib import Path
+
+    from scipy.stats import ks_2samp
+
+    saved = np.load(Path(__file__).parent / "data" / "pg_jax_draws.npz")
+    c, ref = float(saved["c"][row]), saved["draws"][row]
+    got = _pg_draws(dev, [c], 100_000, seed=5 + row)[0].cpu().numpy()
+    assert ks_2samp(got, ref).pvalue > 1e-4
+
+
+def test_polya_gamma_kernel_one_seed_gives_one_set_of_bits(dev):
+    """One generator seed gives the same bits twice, for a draw and for a
+    whole ``test_pgbinary``; another seed gives other draws."""
+    from flgp_tpu_torch.inference import pg_gibbs
+    from flgp_tpu_torch.ops.polya_gamma import polya_gamma
+
+    c = _cuda(np.random.default_rng(1).normal(scale=3.0, size=5000), dev, torch.float64)
+
+    def draw(seed):
+        return polya_gamma(torch.Generator(device=dev).manual_seed(seed), c)
+
+    assert torch.equal(draw(9), draw(9)) and not torch.equal(draw(9), draw(10))
+    C, Cnv, Y = _pg_problem(dev)
+
+    def chain():
+        return pg_gibbs.test_pgbinary(torch.Generator(device=dev).manual_seed(3), C, Y, Cnv,
+                                      n_sweeps=20, avg_sweeps=10)
+
+    (l1, p1), (l2, p2) = chain(), chain()
+    assert torch.equal(l1, l2) and torch.equal(p1, p2)
+
+
+def test_polya_gamma_kernel_nan_lane_ends_at_the_caps(dev):
+    """A NaN lane returns the loop's fallback (t/2 from the inner loops,
+    accepted, or t, over 4), as the CPU loop's NaN lane does; the lanes
+    beside it keep PG(1, 1)'s law."""
+    from flgp_tpu_torch.ops import polya_gamma as pg
+
+    S = 200_000
+    c = np.ones(2 * S)
+    c[::2] = np.nan
+    x = pg.polya_gamma(torch.Generator(device=dev).manual_seed(4), _cuda(c, dev, torch.float64))
+    x = x.cpu().numpy()
+    fallbacks = np.array([pg._T / 8, pg._T / 4])
+    assert np.all(np.isin(x[::2], fallbacks))
+    loop = pg.polya_gamma(torch.Generator().manual_seed(4), torch.full((64,), float("nan"),
+                                                                       dtype=torch.float64))
+    assert np.all(np.isin(loop.numpy(), fallbacks))
+    ok_mean, ok_var = _pg_within_mc_error(x[1::2][None], [1.0])
+    assert ok_mean.all() and ok_var.all()
+
+
+def test_polya_gamma_counts_and_int_on_the_card_scale_the_mean(dev):
+    """PG(N, c) from ``polya_gamma_counts`` and PG(b, c) from
+    ``polya_gamma_int`` on the card: the mean N (b) times PG(1, c)'s."""
+    from flgp_tpu_torch.ops.polya_gamma import polya_gamma_counts, polya_gamma_int
+
+    c = np.repeat([1.0, 3.0], 100_000)
+    N = np.tile([1, 3], 100_000)
+    draws = polya_gamma_counts(torch.Generator(device=dev).manual_seed(1),
+                               _cuda(N, dev, torch.int64), _cuda(c, dev, torch.float64),
+                               3).cpu().numpy()
+    mean, var = _pg_moments(np.array([1.0, 3.0]))
+    for i, cv in enumerate((1.0, 3.0)):
+        for nv in (1, 3):
+            sel = (c == cv) & (N == nv)
+            assert abs(draws[sel].mean() - nv * mean[i]) < 4 * np.sqrt(nv * var[i] / sel.sum())
+    b, S = 4, 50_000
+    cs = np.array([0.0, 1.5, 6.0])
+    x = polya_gamma_int(torch.Generator(device=dev).manual_seed(2), b,
+                        _cuda(np.repeat(cs[:, None], S, axis=1), dev, torch.float64))
+    mean, var = _pg_moments(cs)
+    assert np.all(np.abs(x.cpu().numpy().mean(1) - b * mean) < 4 * np.sqrt(b * var / S))
+
+
+def test_test_pgbinary_makes_no_host_read_on_the_card(dev):
+    """A whole PG chain on the card draws on the kernel alone: no host sync
+    (``host_syncs`` unchanged, and none that the sync debug mode reports),
+    no host round of the loop, one draw and one launch a sweep."""
+    import warnings
+
+    from flgp_tpu_torch.inference import pg_gibbs
+    from flgp_tpu_torch.utils import metrics
+
+    C, Cnv, Y = _pg_problem(dev)
+    pg_gibbs.test_pgbinary(torch.Generator(device=dev).manual_seed(0), C, Y, Cnv, n_sweeps=3,
+                           avg_sweeps=2)             # the build and the first launches
+    torch.cuda.synchronize()
+    names = ("host_syncs", "pg_rounds", "pg_draws", "kernel_launches:polya_gamma")
+    before = {k: metrics.COUNTS[k] for k in names}
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            labels, pi = pg_gibbs.test_pgbinary(torch.Generator(device=dev).manual_seed(1), C, Y,
+                                                Cnv, n_sweeps=20, avg_sweeps=10)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    syncs = sum("called a synchronizing CUDA operation" in str(w.message) for w in seen)
+    counted = {k: metrics.COUNTS[k] - before[k] for k in names}
+    assert syncs == 0
+    assert counted == {"host_syncs": 0, "pg_rounds": 0, "pg_draws": 20,
+                       "kernel_launches:polya_gamma": 20}
+    assert bool(torch.all(torch.isfinite(pi))) and labels.shape == (Cnv.shape[0],)
+
+
+def test_polya_gamma_kernel_refuses_what_it_does_not_take(dev):
+    """No fallback: the wrong dtype, layout, device or key raises, and so does
+    a half-precision draw on the card; the same key gives the same bits,
+    another offset other draws; no lanes, no launch."""
+    from flgp_tpu_torch.ops import hopper_kernels as hk
+    from flgp_tpu_torch.ops import polya_gamma as pg
+
+    z = torch.full((1000,), 0.5, dtype=torch.float64, device=dev)
+    key = torch.tensor([12345, 678], dtype=torch.int64, device=dev)
+    with pytest.raises(TypeError):
+        hk.polya_gamma(z.half(), key)
+    with pytest.raises(TypeError):
+        hk.polya_gamma(z, key.int())
+    with pytest.raises(ValueError):
+        hk.polya_gamma(z, key[:1])
+    with pytest.raises(ValueError):
+        hk.polya_gamma(z, key.cpu())
+    with pytest.raises(ValueError):
+        hk.polya_gamma(z[::2], key)
+    with pytest.raises(ValueError):
+        hk.polya_gamma(z.cpu(), key.cpu())
+    with pytest.raises(TypeError, match="float32 or float64"):   # a draw on the card: no loop
+        pg.polya_gamma(torch.Generator(device=dev).manual_seed(0), z.half())
+    a = hk.polya_gamma(z, key)
+    assert torch.equal(a, hk.polya_gamma(z, key))
+    assert not torch.equal(a, hk.polya_gamma(z, key + torch.tensor([0, 1], device=dev)))
+    before = hk.LAUNCHES["polya_gamma"]
+    assert hk.polya_gamma(z[:0], key).shape == (0,)
+    assert hk.LAUNCHES["polya_gamma"] == before            # nothing launched, nothing counted

@@ -8,6 +8,7 @@ within Monte-Carlo error.
 """
 
 import dataclasses
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -26,7 +27,10 @@ from flgp_tpu_torch.convert import eigenpair_from_numpy, fit_config_from_jax
 from flgp_tpu_torch.fit import drivers
 from flgp_tpu_torch.inference import pg_gibbs as tpg
 from flgp_tpu_torch.models import gpc
+from flgp_tpu_torch.ops import hopper_kernels as hk
+from flgp_tpu_torch.ops import polya_gamma as pg
 from flgp_tpu_torch.ops.polya_gamma import polya_gamma, polya_gamma_counts, polya_gamma_int
+from flgp_tpu_torch.utils import metrics
 
 torch.set_num_threads(1)
 
@@ -237,6 +241,100 @@ def test_polya_gamma_int_mean(b):
     assert draws.shape == c.shape and np.all(draws > 0)
     np.testing.assert_array_less(np.abs(draws.mean(1) - b * mean), 5 * np.sqrt(b * var / S))
     np.testing.assert_allclose(draws.var(1), b * var, rtol=0.15)
+
+
+@pytest.mark.parametrize("device_type,dtype,kernel", [
+    ("cuda", torch.float32, True), ("cuda", torch.float64, True),
+    ("cpu", torch.float32, False), ("cpu", torch.float64, False),
+    ("cuda", torch.float16, True), ("cuda", torch.bfloat16, True)])
+def test_pg_on_kernel_at_its_cases(device_type, dtype, kernel):
+    """The one predicate of the draw's path is the device: every draw on the
+    card takes the kernel, whose wrapper raises on a dtype other than
+    float32 and float64, so a half-precision draw on the card raises where
+    it would otherwise fall back to the loop."""
+    assert pg.pg_on_kernel(device_type, dtype) is kernel
+    if dtype in (torch.float16, torch.bfloat16):
+        with pytest.raises(TypeError, match="float32 or float64"):
+            hk.polya_gamma(torch.ones(8, dtype=dtype), torch.zeros(2, dtype=torch.int64))
+
+
+# 10,000 draws of the reference sampler at each of three c, kept as a file so
+# that the card tests, which run without JAX, hold the kernel to its law
+# (tests/test_torch_cuda.py); ``reference_pg_draws`` writes it.
+REFERENCE_PG_DRAWS = Path(__file__).parent / "data" / "pg_jax_draws.npz"
+REFERENCE_PG_CS = (0.5, 3.0, 12.0)
+
+
+def reference_pg_draws(path=None) -> np.ndarray:
+    """``flgp_tpu.ops.polya_gamma.polya_gamma`` at REFERENCE_PG_CS, 10,000
+    lanes each from PRNGKey(2024), as float32 (3, 10000); saved with the c
+    values to ``path`` if given."""
+    cs = np.asarray(REFERENCE_PG_CS)
+    c = jnp.repeat(jnp.asarray(cs)[:, None], 10_000, axis=1)
+    draws = np.asarray(jpolya_gamma(jax.random.PRNGKey(2024), c), np.float32)
+    if path is not None:
+        np.savez(path, c=cs, draws=draws)
+    return draws
+
+
+def test_reference_pg_draws_file_holds_the_reference_sampler_s_draws():
+    """The file the card tests read is the reference sampler's output from
+    its key.  A lane whose accept/reject test sits within an ulp of its cut
+    may decide otherwise on another CPU's transcendental functions, so at
+    most one lane in a thousand may differ; every other lane is the same
+    float32."""
+    saved = np.load(REFERENCE_PG_DRAWS)
+    assert np.array_equal(saved["c"], np.asarray(REFERENCE_PG_CS))
+    fresh = reference_pg_draws()
+    assert saved["draws"].shape == fresh.shape == (3, 10_000)
+    assert np.mean(saved["draws"] != fresh) <= 1e-3
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_cpu_draw_is_the_loop_s_bits_and_counts_its_rounds(dtype):
+    """On the CPU a draw is the plain loop's, J*(1, |c|/2)/4 from the
+    caller's generator, bit for bit (no key drawn): it counts one
+    ``pg_draws`` a call, its host rounds in ``pg_rounds``, and no launch."""
+    c = T(np.random.default_rng(3).normal(scale=3.0, size=(4, 500)), dtype)
+    c[1, 7] = float("nan")
+    before = dict(metrics.COUNTS)
+    got = polya_gamma(torch.Generator().manual_seed(11), c)
+    counted = {k: metrics.COUNTS[k] - before.get(k, 0) for k in ("pg_draws", "pg_rounds")}
+    want = pg._sample_jstar(torch.Generator().manual_seed(11), torch.abs(c) / 2.0) / 4.0
+    assert torch.equal(got, want) and got.dtype == dtype
+    assert counted["pg_draws"] == 1 and counted["pg_rounds"] > 0
+    assert metrics.COUNTS["kernel_launches:polya_gamma"] == before.get(
+        "kernel_launches:polya_gamma", 0)
+    # the NaN lane ends at the caps: t/2 from the inner loops, accepted, or t
+    assert any(torch.equal(got[1, 7], T(v, dtype)) for v in (pg._T / 8, pg._T / 4))
+    before = metrics.COUNTS["pg_draws"]
+    polya_gamma_int(torch.Generator().manual_seed(1), 3, c[0])
+    polya_gamma_counts(torch.Generator().manual_seed(1), T([1, 2], torch.int64).repeat(250),
+                       c[0], 2)
+    assert metrics.COUNTS["pg_draws"] - before == 2
+
+
+def test_the_kernel_s_wrapper_takes_no_cpu_tensor():
+    """``hopper_kernels.polya_gamma`` has no fallback: a CPU tensor raises."""
+    with pytest.raises(ValueError, match="CUDA"):
+        hk.polya_gamma(torch.ones(8, dtype=torch.float64), torch.zeros(2, dtype=torch.int64))
+
+
+def test_the_kernel_keeps_the_loop_s_constants():
+    """csrc/polya_gamma.cu runs the loop's sampler: the cut point, the round
+    caps and the fallbacks' values are ``ops/polya_gamma.py``'s."""
+    import re
+
+    src = (Path(pg.__file__).resolve().parent.parent / "csrc" / "polya_gamma.cu").read_text()
+
+    def constant(name):
+        return float(re.search(rf"constexpr \w+ {name} = ([0-9.]+);", src).group(1))
+
+    assert constant("kT") == pg._T
+    assert constant("kMaxRounds") == pg._MAX_ROUNDS
+    assert constant("kMaxInner") == pg._MAX_INNER
+    assert constant("kMaxTerms") == pg._MAX_TERMS
+    assert "return T(0.5 * kT);" in src and "return T(kT);" in src
 
 
 def test_test_pgbinary_rao_blackwellized_shapes(rng):

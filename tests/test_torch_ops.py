@@ -370,7 +370,7 @@ def test_wrappers_take_plain_version_on_cpu_without_counting(rng):
     assert all(v == 0 for v in hk.LAUNCHES.values())
     assert set(hk.LAUNCHES) == {"knn", "lae_weights", "ell_colsum", "ell_norm_gram",
                                 "ell_norm_matmat", "ell_colsum_t", "ell_norm_gram_t",
-                                "ell_norm_matmat_t", "ell_matmat", "ell_sym_matmat"}
+                                "ell_norm_matmat_t", "ell_matmat", "ell_sym_matmat", "polya_gamma"}
 
 
 # F9: the call sites of K1–K8 route every float32 graph to the kernels'
