@@ -20,9 +20,9 @@ rows; the fourth builds, fits the torus and
 the multiclass LAE model of phase 11, then runs phases 12–15 alone; the
 fifth builds, fits the torus, draws the n=1e7 path's anchors once and runs
 a reference HMC on the torus posterior, then phases 16–17 alone; the
-sixth builds and holds K5 and K8 to their first, warp-a-row body at the
-four shapes the fits launch them at, timed in turns, as phases 3, 6 and 11
-do in passing; the seventh builds and runs phase 18 alone; the eighth
+sixth builds and holds K5 and K8 to their plain versions at the four
+shapes the fits launch them at, timed beside the plain version, the
+library and the card's write rate; the seventh builds and runs phase 18 alone; the eighth
 builds and times K1 at r = 3 at the n=1e6 shape, the n=1e7 chunk and the
 multiclass shape, and at r = 1 at the chunk; the ninth builds and times a
 whole pass of Lloyd's assignment on K1 at r = 1 against the blocked distance
@@ -39,15 +39,13 @@ Phases, each of which ends the script with a non-zero exit if it fails:
    ``polya_gamma`` from flgp_tpu_torch/csrc for sm_90a (one nvcc process per
    source, all at once);
    the instructions one FISTA step of K2 issues at r=3 are counted from the
-   library's SASS (``cuobjdump``), for both arithmetic variants;
+   library's SASS (``cuobjdump``);
 3. kernels vs their plain PyTorch versions, on the card, at the shapes the
    main path gives them: the torus config (n=4800, d=2, s=600, r=3, K=100)
    and the large config (n=1e6, d=2, s=1024, r=3, K=128), with both times
    (K1 also beside its two-call library yardstick, ``knn_library``);
-   K2 in the exact variant the fits launch (held to the plain version at
-   2e-4; it is equal bit for bit) and, reported only, in its fused
-   multiply-add variant with the differences of its weights and of the
-   reconstructions zᵀU from the plain version's;
+   K2 held to the plain version at 2e-4 (it is equal bit for bit), with the
+   differences of its weights and of the reconstructions zᵀU;
    K1 and K2 also at the n=1e7 path's launch shape of K1 (one 65,536-point
    chunk against 1,024 anchors; K1 r=3 and r=1), where most of K1's
    launches happen; K3 and K4, whose sums are exact, against the float64
@@ -55,8 +53,7 @@ Phases, each of which ends the script with a non-zero exit if it fails:
    (``_colsum_fixed_plain``) bit for bit, both against themselves over five
    launches, K4 with its kept and spilled pair additions and, as its
    yardstick, ``torch.sparse.mm`` of the normalized graph's CSR transpose
-   and CSR; K5 also against its first, warp-a-row body (``legacy``), the same
-   bits, both timed in turns; K1 at the chunk shape beside the two-call
+   and CSR; K1 at the chunk shape beside the two-call
    yardstick too; the Pólya-Gamma kernel ``polya_gamma`` against its plain
    version, the loop ``ops.polya_gamma._sample_jstar`` on the card, at 1,000
    and 5,000 float64 lanes (the two GPC cells' sweeps): a two-sample KS test
@@ -81,7 +78,7 @@ Phases, each of which ends the script with a non-zero exit if it fails:
    ``torch.sparse.mm`` beside it), K7 with the share of its pair additions
    that stayed in shared memory and, as a yardstick, with its table forced
    down to two slots (nearly every addition a global atomic, the same bits),
-   K8 against its first body as K5 is, and its pad rows exact zeros;
+   K8 with its pad rows exact zeros;
    and the chunked spectrum (K6–K8) vs the point-major one (K3–K5) on one
    n=1e6 graph;
 7. the n=1e7 fit of the huge-n path (k-means anchors on a column sample,
@@ -123,8 +120,8 @@ Phases, each of which ends the script with a non-zero exit if it fails:
     multiclass shape (``mnist_like``: n = 7e4, d = 16, s = 600, r = 3,
     K = 100; K1's differing rows near-ties only, at most 0.1% of them;
     side rows, the kernels line keeps its shapes); K1's tiled body (every d
-    but 2 and 3) against the old run-time-d body forced by ``legacy``, the
-    same indices and d² bit for bit, at the shapes of that fit, of its
+    but 2 and 3) against its plain version (differing rows near-ties only,
+    at most 1% of them, d² within 1e-5), at the shapes of that fit, of its
     k-means‖ rounds, of the grid drivers, of a streamed chunk and of the
     anchor split at d = 16 and at (n = 7e4, s = 600, r = 3) for d = 64, 256
     and 784, timed beside the plain version, the two-call library yardstick
@@ -474,13 +471,13 @@ def gram_library(values, idx, s: int, ref, reps: int) -> tuple:
 
 
 def sass_fista_step(lib: Path, r: int = 3) -> dict:
-    """Instructions one FISTA step of K2 issues, per arithmetic variant,
-    counted from the library's SASS: the largest loop (a backward branch and
-    everything back to its target) of each ``lae_kernel<r, ·>`` instance,
-    divided by the steps the compiler unrolled into it (a step has r² FMNMX:
-    the sorting network's r(r−1) and the clip's r).  A report, not a check:
-    {"not counted": reason} where the disassembler is missing or its output
-    is not understood."""
+    """Instructions one FISTA step of K2 issues, counted from the library's
+    SASS: the largest loop (a backward branch and everything back to its
+    target) of the ``lae_kernel<r>`` instance, divided by the steps the
+    compiler unrolled into it (a step has r² FMNMX: the sorting network's
+    r(r−1) and the clip's r).  A report, not a check: {"not counted":
+    reason} where the disassembler is missing or its output is not
+    understood."""
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     try:
         out = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True, text=True,
@@ -492,8 +489,7 @@ def sass_fista_step(lib: Path, r: int = 3) -> dict:
     found = {}
     for chunk in out.stdout.split("Function : ")[1:]:
         name = chunk.split("\n", 1)[0].strip()
-        m = re.search(rf"lae_kernelILi{r}E(Lb([01])E)?", name)
-        if not m:
+        if not re.search(rf"lae_kernelILi{r}E", name):
             continue
         ins, labels, pending = [], {}, []     # a branch names an address or a label
         for line in chunk.splitlines():
@@ -520,20 +516,19 @@ def sass_fista_step(lib: Path, r: int = 3) -> dict:
             return {"not counted": f"no loop found in the SASS of {name}"}
         body = max(loops, key=len)
         steps = sum(o.startswith("FMNMX") for o in body) / (r * r)
-        variant = {None: "exact", "0": "exact", "1": "fused"}[m.group(2)]
-        found[variant] = dict(loop=len(body), steps=steps, per_step=len(body) / max(steps, 1e-9),
-                              ops=dict(Counter(o.split(".")[0] for o in body).most_common()))
-    return found or {"not counted": f"no lae_kernel<{r}> instance in the SASS of {lib.name}"}
+        return dict(loop=len(body), steps=steps, per_step=len(body) / max(steps, 1e-9),
+                    ops=dict(Counter(o.split(".")[0] for o in body).most_common()))
+    return {"not counted": f"no lae_kernel<{r}> instance in the SASS of {lib.name}"}
 
 
 def print_sass(lib: Path) -> None:
-    for variant, c in sass_fista_step(lib).items():
-        if variant == "not counted":
-            print(f"  SASS, lae_kernel<r=3>: not counted ({c})", flush=True)
-        else:
-            print(f"  SASS, lae_kernel<r=3> {variant}: {c['per_step']:.1f} instructions a FISTA "
-                  f"step ({c['loop']} in the loop, {c['steps']:g} steps unrolled into it): "
-                  f"{c['ops']}", flush=True)
+    c = sass_fista_step(lib)
+    if "not counted" in c:
+        print(f"  SASS, lae_kernel<r=3>: not counted ({c['not counted']})", flush=True)
+    else:
+        print(f"  SASS, lae_kernel<r=3>: {c['per_step']:.1f} instructions a FISTA step "
+              f"({c['loop']} in the loop, {c['steps']:g} steps unrolled into it): {c['ops']}",
+              flush=True)
 
 
 def lae_differences(U, idx, got, ref) -> tuple:
@@ -544,11 +539,10 @@ def lae_differences(U, idx, got, ref) -> tuple:
     return _maxabs(got, ref), _maxabs(recon(got), recon(ref))
 
 
-def check_lae(label: str, X, U, idx, reps: int, results: dict, key: str) -> tuple:
-    """K2's point-major entry against its plain version: the exact variant
-    (the one the fits launch) held to 2e-4 and to the simplex; the fused
-    variant reported beside it and held to nothing.  Returns (kernel's
-    weights, plain version's weights, kernel ms)."""
+def check_lae(label: str, X, U, idx, reps: int) -> tuple:
+    """K2's point-major entry against its plain version, held to 2e-4 and to
+    the simplex.  Returns (kernel's weights, plain version's weights, kernel
+    ms)."""
     got = hk.lae_weights(X, U, idx)
     torch.cuda.synchronize()
     ref = lae_weights_plain(X, U, idx)
@@ -556,32 +550,10 @@ def check_lae(label: str, X, U, idx, reps: int, results: dict, key: str) -> tupl
     if float(torch.max(torch.abs(got.sum(1) - 1.0))) > 1e-5 or float(got.min()) < 0.0:
         _fail(f"lae_weights {label}: rows off the simplex")
     ms = cuda_ms(lambda: hk.lae_weights(X, U, idx), reps)
-    fused = hk._lae_weights(X, U, idx, 150, fused=True)
-    fused_ms = cuda_ms(lambda: hk._lae_weights(X, U, idx, 150, fused=True), reps)
-    dw, dr = lae_differences(U, idx, fused, ref)
     ew, er = lae_differences(U, idx, got, ref)
-    off = float(torch.max(torch.abs(fused.sum(1) - 1.0)))
-    print(f"  {label:5s} lae_weights variants (n={X.shape[0]}): exact {ms:.4f} ms, max abs diff "
-          f"from plain {ew:.3e} (weights) {er:.3e} (reconstructions zᵀU); fused {fused_ms:.4f} ms, "
-          f"{dw:.3e} (weights; the gate would be 2e-4) {dr:.3e} (reconstructions), rows off the "
-          f"simplex by at most {off:.3e}", flush=True)
-    results.setdefault("lae_fused", {})[key] = dict(ms=fused_ms, dw=dw, dr=dr)
+    print(f"  {label:5s} lae_weights (n={X.shape[0]}): {ms:.4f} ms, max abs diff from plain "
+          f"{ew:.3e} (weights) {er:.3e} (reconstructions zᵀU)", flush=True)
     return got, ref, ms
-
-
-def fused_over_draws(X, s: int, r: int, draws: int = 6) -> None:
-    """How far the fused variant's weights lie from the plain version's on
-    further anchor draws from the same cloud (reported only)."""
-    worst = []
-    for seed in range(draws):
-        g = torch.Generator(device=X.device).manual_seed(100 + seed)
-        U = X[torch.randperm(X.shape[0], generator=g, device=X.device)[:s]].contiguous()
-        idx = knn_plain(X, U, r).indices
-        worst.append(_maxabs(hk._lae_weights(X, U, idx, 150, fused=True),
-                             lae_weights_plain(X, U, idx)))
-    print(f"        lae_weights fused variant, {draws} more anchor draws (n={X.shape[0]}, s={s}): "
-          f"max abs diff of the weights from plain " + ", ".join(f"{w:.3e}" for w in worst),
-          flush=True)
 
 
 def check_knn(label: str, X, U, r: int, max_share: float = 1e-4):
@@ -724,42 +696,35 @@ def knn_library(X, U, r: int):
 
 
 def knn_widths(X16, dev) -> None:
-    """K1's tiled body against the old run-time-d body (``_knn(legacy=
-    True)``) at KNN_WIDTHS: the same indices and d² bit for bit (else the
-    script fails), and the times of both, of the plain version and of the
-    library yardstick (and of its product alone, the card's float32 GEMM
-    rate) beside the bound.  d = 16 on phase 11's points (the first n of
-    them), the other widths on ``mnist_like`` at that width."""
+    """K1's tiled body against its plain version at KNN_WIDTHS, as the card
+    tests hold it: rows differing on near-ties only, at most 1% of them, d²
+    within 1e-5 (else the script fails); its times beside the plain
+    version's, the library yardstick's (and its product's alone, the card's
+    float32 GEMM rate) and the bound.  d = 16 on phase 11's points (the
+    first n of them), the other widths on ``mnist_like`` at that width."""
     from flgp_tpu_torch.datasets import mnist_like
 
     g = torch.Generator(device=dev).manual_seed(11)
-    print("K1's tiled body (every d but 2 and 3) vs the old run-time-d body, ms a call:",
-          flush=True)
+    print("K1's tiled body (every d but 2 and 3) vs its plain version, ms a call:", flush=True)
     for what, n, s, d, r in KNN_WIDTHS:
         X = X16[:n] if d == 16 else cloud(mnist_like(n=n, d=d, m_train=min(500, n // 2), seed=0),
                                           dev)
         U = X[torch.randperm(n, generator=g, device=dev)[:s]].contiguous()
-        got = hk.knn(X, U, r)
-        old = hk._knn(X, U, r, 0, legacy=True)
-        torch.cuda.synchronize()
-        if not (torch.equal(got.indices, old.indices) and torch.equal(got.sqdists, old.sqdists)):
-            _fail(f"knn {what} (n={n}, s={s}, d={d}, r={r}): the tiled body's indices or d² "
-                  f"are not the old body's")
-        ref = knn_plain(X, U, r)
+        got, ref = check_knn(what, X, U, r, max_share=1e-2)
         slow = d >= 784
         ms = cuda_ms(lambda: hk.knn(X, U, r), 20)
-        old_ms = cuda_ms(lambda: hk._knn(X, U, r, 0, legacy=True), 2 if slow else 5)
         plain_ms = cuda_ms(lambda: knn_plain(X, U, r), 2 if slow else 3)
         lib_ms = cuda_ms(lambda: knn_library(X, U, r), 10)
         mm_ms = cuda_ms(lambda: X @ U.T, 10)
         b_ms, b_by = bound(work("knn", n=n, r=r, s=s, d=d))
         print(f"  {what:22s} n={n} s={s} d={d} r={r} split={hk.knn_anchor_split(n, s)}: tiled "
-              f"{ms:9.4f}  old {old_ms:9.4f}  plain {plain_ms:9.4f}  library {lib_ms:9.4f} "
+              f"{ms:9.4f}  plain {plain_ms:9.4f}  library {lib_ms:9.4f} "
               f"(addmm + topk, two calls; X @ U.T alone {mm_ms:.4f}, "
               f"{2e-9 * n * s * d / mm_ms:.1f} TFLOP/s)  bound {b_ms:.4f} ({b_by}), tiled/bound "
-              f"{ms / b_ms:.1f}x, {2e-9 * n * s * d / ms:.1f} TFLOP/s of x·u; the old body's "
-              f"bits; max_abs_err vs plain {_maxabs(got.sqdists, ref.sqdists):.3e}", flush=True)
-        del X, U, got, old, ref
+              f"{ms / b_ms:.1f}x, {2e-9 * n * s * d / ms:.1f} TFLOP/s of x·u; "
+              f"{int(torch.any(got.indices != ref.indices, dim=1).sum())} rows differ from plain "
+              f"(near-ties), max_abs_err {_maxabs(got.sqdists, ref.sqdists):.3e}", flush=True)
+        del X, U, got, ref
     torch.cuda.empty_cache()
 
 
@@ -770,7 +735,7 @@ def check_lae_chunk(X, U, r: int, results: dict) -> None:
     entry once."""
     n, s = X.shape[0], U.shape[0]
     idx = knn_plain(X, U, r).indices
-    got, ref, ms = check_lae("chunk", X, U, idx, 50, results, "chunk")
+    got, ref, ms = check_lae("chunk", X, U, idx, 50)
     plain_ms = cuda_ms(lambda: lae_weights_plain(X, U, idx), 3)
     w = work("lae_weights", n=n, r=r, s=s, d=X.shape[1])
     ent = results["lae_weights"]
@@ -785,27 +750,6 @@ def cloud(ds, dev) -> torch.Tensor:
     """The (n, d) float32 points [train; test] of a split on the card."""
     return torch.as_tensor(np.concatenate([ds.x_train, ds.x_test]), dtype=torch.float32,
                            device=dev).contiguous()
-
-
-def against_legacy(name: str, label: str, args: tuple, got, reps: int) -> tuple:
-    """K5 or K8 (``name``) on ``args`` against the first, warp-a-row body
-    (``legacy``): its output must be ``got`` bit for bit, else the script
-    fails; then both bodies timed in turns (legacy, tiled, tiled, legacy).
-    Returns (the tiled body's mean ms, the legacy body's, a line to print)."""
-    launch = getattr(hk, f"_{name}")
-    old = launch(*args, EPS, legacy=True)
-    torch.cuda.synchronize()
-    if not torch.equal(got, old):
-        _fail(f"{name} {label}: the tiled body differs from the legacy body in "
-              f"{int(torch.count_nonzero(got != old))} of {got.numel()} entries (max abs diff "
-              f"{_maxabs(got, old):.3e})")
-    del old
-    turns = [cuda_ms(lambda: launch(*args, EPS, legacy=old_body), reps)
-             for old_body in (True, False, False, True)]
-    ms, legacy_ms = (turns[1] + turns[2]) / 2, (turns[0] + turns[3]) / 2
-    return ms, legacy_ms, (f"tiled body {turns[1]:.4f}, {turns[2]:.4f} ms, legacy body "
-                           f"{turns[0]:.4f}, {turns[3]:.4f} ms (in that order: legacy, tiled, "
-                           f"tiled, legacy): the legacy body's bits")
 
 
 def check_kernels(label: str, X, cfg: dict, dev, results: dict, max_share: float = 1e-4) -> None:
@@ -853,9 +797,7 @@ def check_kernels(label: str, X, cfg: dict, dev, results: dict, max_share: float
     idx = knn_plain(X, U, r).indices
 
     # K2
-    got, ref, ms = check_lae(label, X, U, idx, reps_k, results, label)
-    if label == "large":
-        fused_over_draws(X, s, r)
+    got, ref, ms = check_lae(label, X, U, idx, reps_k)
     record("lae_weights", _maxabs(got, ref), ms,
            cuda_ms(lambda: lae_weights_plain(X, U, idx), reps_p))
     w = ref
@@ -907,19 +849,18 @@ def check_kernels(label: str, X, cfg: dict, dev, results: dict, max_share: float
                 f"the same bits over five launches; {lib_note}")
     del Gp, Dp
 
-    # K5, held to the warp-a-row body bit for bit
+    # K5
     W = torch.randn((s, K), generator=g, device=dev, dtype=torch.float32)
     got = hk.ell_norm_matmat(w, idx, cscale, W)
     torch.cuda.synchronize()
     ref = hk.ell_norm_matmat_plain(w, idx, cscale, W)
     _allclose(f"ell_norm_matmat {label}", got, ref, 1e-5, 1e-5)
-    ms, _, line = against_legacy("ell_norm_matmat", label, (w, idx, cscale, W), got, reps_k)
+    ms = cuda_ms(lambda: hk.ell_norm_matmat(w, idx, cscale, W), reps_k)
     csr = ell_to_csr(hk._normalized(w, idx, cscale, EPS).values, idx, s)
     lib_err = _maxabs(torch.sparse.mm(csr, W), ref)
     record("ell_norm_matmat", _maxabs(got, ref), ms,
            cuda_ms(lambda: hk.ell_norm_matmat_plain(w, idx, cscale, W), reps_p),
            cuda_ms(lambda: torch.sparse.mm(csr, W), reps_k))
-    rows.append(f"  {label:5s} ell_norm_matmat {line}")
     rows.append(f"  {label:5s} torch.sparse.mm (CSR of the normalized graph) vs plain: "
                 f"max abs diff {lib_err:.3e}")
     print(f"kernels vs plain, {label} shape (n={n}, d={d}, s={s}, r={r}, K={K}), ms per call:")
@@ -1058,8 +999,7 @@ def check_lae_t(Xt, U, idx, w, results: dict) -> None:
     """K2's feature-major entry, one launch over the whole chunked cloud
     (``w`` is what it gave ``build_graph_colmajor``), against its plain
     version, held to 2e-4, the simplex and exact zeros on the pads; beside
-    it the fused variant (reported only) and the per-chunk composition the
-    entry replaced: a row-major copy of the chunk's columns, a launch of the
+    it the per-chunk composition the entry replaced: a row-major copy of the chunk's columns, a launch of the
     point-major entry and a transpose of its weights, for every chunk."""
     n = Xt.shape[1]
     nch, r, c = idx.shape
@@ -1069,14 +1009,8 @@ def check_lae_t(Xt, U, idx, w, results: dict) -> None:
     if float(torch.max(torch.abs(flat.sum(1) - 1.0))) > 1e-5 or float(flat.min()) < 0.0:
         _fail("lae_weights_t: rows off the simplex")
     ms = cuda_ms(lambda: hk.lae_weights_t(Xt, U, idx), 10)
-    fused = hk._lae_weights_t(Xt, U, idx, 150, fused=True)
-    fused_ms = cuda_ms(lambda: hk._lae_weights_t(Xt, U, idx, 150, fused=True), 10)
-    if float(torch.max(torch.abs(col.point_major(fused, nch * c)[n:]))) != 0.0:
-        _fail("lae_weights_t (fused): a nonzero weight on a pad point")
-    flat_idx = col.point_major(idx, n)
-    ew, er = lae_differences(U, flat_idx, flat, flat_ref)
-    dw, dr = lae_differences(U, flat_idx, col.point_major(fused, n), flat_ref)
-    del fused, ref, flat_ref
+    ew, er = lae_differences(U, col.point_major(idx, n), flat, flat_ref)
+    del ref, flat_ref
 
     def per_chunk():
         out = torch.zeros_like(w)
@@ -1094,13 +1028,11 @@ def check_lae_t(Xt, U, idx, w, results: dict) -> None:
     ent = results["lae_weights"]
     ent["max_abs_err"] = max(ent["max_abs_err"], ew)
     ent.update(ms_huge=ms, work_huge=wk, ms_huge_chunks=chunks_ms)
-    results["lae_fused"]["huge"] = dict(ms=fused_ms, dw=dw, dr=dr)
     print(f"lae_weights_t, one launch over n={n} ({nch} chunks of {c}, d={Xt.shape[0]}, r={r}): "
           f"kernel {ms:.4f} ms  bound {bound(wk)[0]:.4f} ms ({bound(wk)[1]})  max abs diff from "
           f"plain {ew:.3e} (weights) {er:.3e} (reconstructions zᵀU); the per-chunk composition it "
           f"replaced ({nch} copies, launches and transposes) {chunks_ms:.4f} ms, equal bit for "
-          f"bit; fused variant {fused_ms:.4f} ms, {dw:.3e} (weights; the gate would be 2e-4) "
-          f"{dr:.3e} (reconstructions)", flush=True)
+          f"bit", flush=True)
 
 
 def check_kernels_t(Xt7, dev, results: dict) -> None:
@@ -1198,7 +1130,7 @@ def check_kernels_t(Xt7, dev, results: dict) -> None:
     if float(torch.max(torch.abs(got[n:]))) != 0.0:
         _fail("ell_norm_matmat_t: a pad row is not zero")
     err = _maxabs(got, ref)
-    ms, _, line = against_legacy("ell_norm_matmat_t", "huge", (w, idx, cscale, W), got, 10)
+    ms = cuda_ms(lambda: hk.ell_norm_matmat_t(w, idx, cscale, W), 10)
     del got
     csr = ell_to_csr(col.point_major(hk._normalized_t(w, idx, cscale, EPS), nch * c),
                      col.point_major(idx, nch * c), s)
@@ -1208,7 +1140,6 @@ def check_kernels_t(Xt7, dev, results: dict) -> None:
            cuda_ms(lambda: hk.ell_norm_matmat_t_plain(w, idx, cscale, W), 3),
            f"  (torch.sparse.mm vs plain: max abs diff {lib_err:.3e})",
            library_ms=cuda_ms(lambda: torch.sparse.mm(csr, W), 10))
-    rows.append(f"  huge  ell_norm_matmat_t {line}")
     del idx, w, csr
     print("\n".join(rows), flush=True)
 
@@ -3150,7 +3081,7 @@ def wide_rows_large(dev) -> None:
     del ref
     w16 = hk.lae_weights(X, U, idx16)
     r16 = runtime_r_at_16("lae_weights", lambda: hk.lae_weights(X, U, idx16),
-                          lambda: hk._lae_weights(X, U, idx16, 150, False, runtime_r=True), 3)
+                          lambda: hk._lae_weights(X, U, idx16, 150, runtime_r=True), 3)
     wide_row("large", "lae_weights", cuda_ms(lambda: hk.lae_weights(X, U, idx), 3), plain_ms,
              None, wk("lae_weights"), 0.0, r16, "  (the plain version's bits)")
 
@@ -3232,7 +3163,7 @@ def wide_rows_huge(Xt, dev) -> None:
               f"plain version's")
     del ref
     r16 = runtime_r_at_16("lae_weights_t", lambda: hk.lae_weights_t(Xt, U, idx16),
-                          lambda: hk._lae_weights_t(Xt, U, idx16, 150, False, runtime_r=True), 1)
+                          lambda: hk._lae_weights_t(Xt, U, idx16, 150, runtime_r=True), 1)
     wide_row("huge", "lae_weights_t", cuda_ms(lambda: hk.lae_weights_t(Xt, U, idx), 2), plain_ms,
              None, work("lae_weights", n=n, r=r, s=s, d=Xt.shape[0]), 0.0, r16,
              "  (the plain version's bits, the pads exact zeros)")
@@ -3426,11 +3357,11 @@ def wide_only(dev) -> None:
 
 def extension_only(dev) -> None:
     """``--extension``: the card, the build, then K5 and K8 (the eigenvector
-    extension) against the warp-a-row body at the shapes the fits launch them at:
-    K5 at the torus, n=1e6 and multiclass shapes, K8 at the n=1e7 chunked
-    shape, each on a graph from K1 and K2 over that fit's data with the
-    cluster-normalized column scale: the same bits (else the script fails),
-    both times in turns, the bound, the plain version, ``torch.sparse.mm``,
+    extension) against their plain versions at the shapes the fits launch
+    them at: K5 at the torus, n=1e6 and multiclass shapes, K8 at the n=1e7
+    chunked shape, each on a graph from K1 and K2 over that fit's data with
+    the cluster-normalized column scale: within 1e-5 (else the script
+    fails), timed beside the bound, the plain version, ``torch.sparse.mm``,
     the bytes a millisecond the tiled body writes and reads and, as the
     card's write rate, ``zero_()`` of a buffer the output's size."""
     from flgp_tpu_torch.datasets import mnist_like
@@ -3443,10 +3374,14 @@ def extension_only(dev) -> None:
 
     def row(name, label, args, rows, csr, shape):
         w, idx, cscale, W = args
-        got = getattr(hk, name)(*args)
-        ms, legacy_ms, line = against_legacy(name, label, args, got, 10)
-        del got
-        plain = getattr(hk, f"{name}_plain")
+        kernel, plain = getattr(hk, name), getattr(hk, f"{name}_plain")
+        got = kernel(*args)
+        torch.cuda.synchronize()
+        ref = plain(*args)
+        err = _maxabs(got, ref)
+        _allclose(f"{name} {label}", got, ref, 1e-5, 1e-5)
+        del got, ref
+        ms = cuda_ms(lambda: kernel(*args), 10)
         plain_ms = cuda_ms(lambda: plain(*args), 3)
         lib_ms = cuda_ms(lambda: torch.sparse.mm(csr, W), 10)
         # the card's write rate: zeros over a buffer the output's size
@@ -3455,9 +3390,9 @@ def extension_only(dev) -> None:
         del buf
         wk = work(name, n=rows, r=idx.shape[1], s=W.shape[0], K=W.shape[1])
         b_ms, b_by = bound(wk)
-        print(f"{label:5s} {name} ({shape}): {line}; bound {b_ms:.4f} ms ({b_by}), tiled at "
-              f"{b_ms / ms:.1%} of it ({wk['bytes'] / ms / 1e9:.3f} TB/s), legacy at "
-              f"{b_ms / legacy_ms:.1%}; plain {plain_ms:.4f} ms, torch.sparse.mm {lib_ms:.4f} ms; "
+        print(f"{label:5s} {name} ({shape}): {ms:.4f} ms, max abs err vs plain {err:.3e}; bound "
+              f"{b_ms:.4f} ms ({b_by}), at {b_ms / ms:.1%} of it ({wk['bytes'] / ms / 1e9:.3f} "
+              f"TB/s); plain {plain_ms:.4f} ms, torch.sparse.mm {lib_ms:.4f} ms; "
               f"zero_() of the output's size {zero_ms:.4f} ms "
               f"({4e-9 * rows * W.shape[1] / zero_ms:.3f} TB/s)", flush=True)
 

@@ -18,10 +18,10 @@
 // output row, from L1 and L2, never from device memory more than once.
 //
 // Design.  The TPU kernel recast the gather as a one-hot matmul because
-// Mosaic has none; Hopper gathers natively.  The first body (kept as the
-// `legacy` body below) ran one warp a row with every lane redoing the
-// row's normalization and 4-byte accesses; it wrote 5.13 GB at about
-// 1.7 TB/s.  What held it back, and what this body does about it:
+// Mosaic has none; Hopper gathers natively.  A first body ran one warp a
+// row with every lane redoing the row's normalization and 4-byte accesses;
+// it wrote 5.13 GB at about 1.7 TB/s.  What held it back, and what this
+// body does about it:
 //   1. One warp a row, one row a warp: each warp's life was one dependent
 //      chain (graph loads, cscale gathers, divide, W gathers, store) for
 //      400-512 bytes of output.  Here a warp takes a tile of 32 points and
@@ -31,8 +31,8 @@
 //      are too few to give every resident warp two (n = 4800, 7e4), `split`
 //      warps share a tile's output, each normalizing its 32 points itself.
 //   2. All 32 lanes redid normalized_point: here a lane normalizes its own
-//      point (unchanged normalized_point<R>, so the weights are the same
-//      floats) and writes the (weight, anchor) pairs to shared memory; the
+//      point (normalized_point<R>, so the weights are the floats K4 and K7
+//      form) and writes the (weight, anchor) pairs to shared memory; the
 //      row walk reads them back, a broadcast where lanes share a row.
 //   3. 4-byte accesses, 78% of the lanes busy in the last pass at K = 100:
 //      here a lane takes 16-byte pieces (float4 gathers of W rows, float4
@@ -52,10 +52,10 @@
 // n = 1e7 is the graph's reads interleaved with the output's writes;
 // staging the next tile's graph early (cp.async, an L2 prefetch) did not
 // shorten it, nor did one block sweeping a contiguous range.
-// The sum is the old body's, in the same order: for each output element
-// acc = 0, then acc = fmaf(w[a], W[c[a]][k], acc) for a = 0..R-1, skipping
-// an entry with c[a] < 0.  So the output is the legacy body's bit for bit.
-// No atomics: deterministic.  Indices outside [0, s) contribute nothing
+// The sum for each output element is acc = 0, then acc = fmaf(w[a],
+// W[c[a]][k], acc) for a = 0..R-1, skipping an entry with c[a] < 0: one
+// order, whatever the layout, the split or the piece width, so both layouts
+// give the same bits.  No atomics: deterministic.  Indices outside [0, s) contribute nothing
 // (knn never produces them; the guard keeps a bad input from reading out of
 // bounds), nor do zero weights.
 //
@@ -377,39 +377,11 @@ cudaError_t launch_wide(const float* v, const int* ii, const float* cs, const fl
   return cudaGetLastError();
 }
 
-// The first body, kept only as the new body's bit oracle (the `legacy` entry
-// points below, reached from the tests and chip_smoke.py): one warp a
-// point, every lane normalizing it, lanes striding the K columns.
-template <int R>
-__global__ void ell_norm_matmat_legacy_kernel(const float* __restrict__ vals,
-                                              const int* __restrict__ idx,
-                                              const float* __restrict__ cscale,
-                                              const float* __restrict__ W, long long npts, int c,
-                                              int s, int K, float eps, float* __restrict__ out) {
-  const long long p = (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
-  if (p >= npts) return;
-  const size_t base = c == 1 ? static_cast<size_t>(p) * R
-                             : static_cast<size_t>(p / c) * R * c + static_cast<size_t>(p % c);
-  int col[R];
-  float w[R];
-  normalized_point<R>(vals, idx, cscale, base, c, s, eps, col, w);
-  float* orow = out + static_cast<size_t>(p) * K;
-  for (int k = lane; k < K; k += 32) {
-    float acc = 0.0f;
-#pragma unroll
-    for (int a = 0; a < R; ++a) {
-      if (col[a] >= 0) acc = fmaf(w[a], W[static_cast<size_t>(col[a]) * K + k], acc);
-    }
-    orow[k] = acc;
-  }
-}
-
-// Body: 0 the tiled body (templated up to r = 16, run-time r above), 1 the
-// legacy body (r <= 16), 2 the run-time-r tiled body at any r >= 1 with at
-// most pair_cap (> 0; 0: as many as fit) pairs a point in shared memory
+// The tiled body by r (templated up to r = 16, run-time r above), or with
+// runtime_r the run-time-r tiled body at any r >= 1 with at most pair_cap
+// (> 0; 0: as many as fit) pairs a point in shared memory
 int matmat(const void* vals, const void* idx, const void* cscale, const void* W, long long npts,
-           int r, int c, int s, int K, float eps, void* out, void* stream, int body,
+           int r, int c, int s, int K, float eps, void* out, void* stream, bool runtime_r,
            int pair_cap = 0) {
   if (npts <= 0 || K <= 0) return static_cast<int>(cudaSuccess);
   if (r < 1) return static_cast<int>(cudaErrorInvalidValue);
@@ -419,30 +391,22 @@ int matmat(const void* vals, const void* idx, const void* cscale, const void* W,
   const float* cs = static_cast<const float*>(cscale);
   const float* w = static_cast<const float*>(W);
   float* o = static_cast<float*>(out);
-  const bool legacy = body == 1;
-  if (body == 2 || (body == 0 && r > kTemplatedMaxR)) {
+  if (runtime_r || r > kTemplatedMaxR) {
     const bool vec = K % 4 == 0 && reinterpret_cast<size_t>(w) % 16 == 0 &&
                      reinterpret_cast<size_t>(o) % 16 == 0;
     return static_cast<int>(
         vec ? launch_wide<float4>(v, ii, cs, w, npts, r, c, s, K, eps, pair_cap, o, st)
             : launch_wide<float>(v, ii, cs, w, npts, r, c, s, K, eps, pair_cap, o, st));
   }
-  const long long pts_per_block = 256 / 32;
-  const dim3 grid(static_cast<unsigned>((npts + pts_per_block - 1) / pts_per_block));
   switch (r) {
-#define FLGP_MATMAT_CASE(R)                                                                  \
-  case R:                                                                                    \
-    if (!legacy) return static_cast<int>(launch_tiles_r<R>(v, ii, cs, w, npts, c, s, K, eps, \
-                                                           o, st));                          \
-    ell_norm_matmat_legacy_kernel<R><<<grid, 256, 0, st>>>(v, ii, cs, w, npts, c, s, K, eps, \
-                                                           o);                               \
-    break;
+#define FLGP_MATMAT_CASE(R) \
+  case R:                   \
+    return static_cast<int>(launch_tiles_r<R>(v, ii, cs, w, npts, c, s, K, eps, o, st));
     FLGP_R_CASES(FLGP_MATMAT_CASE)
 #undef FLGP_MATMAT_CASE
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -451,7 +415,7 @@ int matmat(const void* vals, const void* idx, const void* cscale, const void* W,
 extern "C" int flgp_ell_norm_matmat(const void* vals, const void* idx, const void* cscale,
                                     const void* W, int n, int r, int s, int K, float eps,
                                     void* out, void* stream) {
-  return matmat(vals, idx, cscale, W, n, r, 1, s, K, eps, out, stream, 0);
+  return matmat(vals, idx, cscale, W, n, r, 1, s, K, eps, out, stream, false);
 }
 
 // K8: vals, idx (nch, r, c); cscale (s,); W (s, K) -> out (nch * c, K).
@@ -459,22 +423,7 @@ extern "C" int flgp_ell_norm_matmat_t(const void* vals, const void* idx, const v
                                       const void* W, int nch, int r, int c, int s, int K,
                                       float eps, void* out, void* stream) {
   return matmat(vals, idx, cscale, W, static_cast<long long>(nch) * c, r, c, s, K, eps, out,
-                stream, 0);
-}
-
-// The same two with the first body, for comparison only (r <= 16).
-extern "C" int flgp_ell_norm_matmat_legacy(const void* vals, const void* idx, const void* cscale,
-                                           const void* W, int n, int r, int s, int K, float eps,
-                                           void* out, void* stream) {
-  return matmat(vals, idx, cscale, W, n, r, 1, s, K, eps, out, stream, 1);
-}
-
-extern "C" int flgp_ell_norm_matmat_t_legacy(const void* vals, const void* idx,
-                                             const void* cscale, const void* W, int nch, int r,
-                                             int c, int s, int K, float eps, void* out,
-                                             void* stream) {
-  return matmat(vals, idx, cscale, W, static_cast<long long>(nch) * c, r, c, s, K, eps, out,
-                stream, 1);
+                stream, false);
 }
 
 // K5 (nch = n, c = 1) and K8 through the run-time-r body at any r >= 1, at
@@ -484,5 +433,5 @@ extern "C" int flgp_ell_norm_matmat_wide(const void* vals, const void* idx, cons
                                          const void* W, int nch, int r, int c, int s, int K,
                                          float eps, int pair_cap, void* out, void* stream) {
   return matmat(vals, idx, cscale, W, static_cast<long long>(nch) * c, r, c, s, K, eps, out,
-                stream, 2, pair_cap);
+                stream, true, pair_cap);
 }

@@ -4,9 +4,10 @@
 // (_knn_kernel): d = |x|^2 - 2 x.u + |u|^2 at full f32, then the r smallest
 // per row, nearest first, ties to the lowest anchor index, for any
 // 1 <= r <= s, as that kernel takes (r <= 16 is only the reference's
-// dispatch, flgp_tpu/ops/knn.py).  The bodies here and in knn.cuh and
-// knn_tiled.cu hold r in registers, a template parameter up to 16; every
-// larger r takes the run-time-r body of knn_wide.cu (its own note).
+// dispatch, flgp_tpu/ops/knn.py).  The bodies of knn.cuh and knn_tiled.cu
+// hold r in registers, a template parameter up to 16; every larger r takes
+// the run-time-r body of knn_wide.cu (its own note).  This file holds the
+// anchor pre-pass and the C entry point.
 //
 // What bounds it on the H100: at the paths' shapes (d = 2 or 3, s from 1024
 // anchors to the 1e5 points of a self-kNN) each (row, anchor) pair costs d
@@ -27,11 +28,7 @@
 //    r > 8), so that read and the loop's bookkeeping serve 4 pairs and the 4
 //    FMA chains overlap.  Every other d takes the tiled body of
 //    knn_tiled.cu (its own note): a GEMM's register tiling with the top-r
-//    selection as its epilogue, the same d^2 bits as the run-time-d body
-//    below.  That body (one row a thread, the row re-read through the L1,
-//    d + 1 scalar reads a pair) stays only as the tiled body's bit oracle and
-//    yardstick: flgp_knn's `legacy` forces it, for the tests and
-//    chip_smoke.py; the fits never take it.
+//    selection as its epilogue.
 //  * Each thread keeps a sorted top-r list per row in registers (r is a
 //    template parameter, 1 to 16).  A thread scans its anchors in
 //    increasing index order and a candidate displaces a list entry only if
@@ -94,66 +91,6 @@ __global__ void knn_pack_kernel(const float* __restrict__ U, int s, int d, int r
   p[rec - 1] = u2;
 }
 
-// Any d, the old body (forced by `legacy` only): one row a thread, records
-// of d + 1 floats streamed through shared memory in tiles, the row re-read
-// through a pointer (it stays in the L1).
-template <int R>
-__global__ void __launch_bounds__(kThreads)
-knn_any_kernel(const float* __restrict__ X, const float* __restrict__ P, int n, int s, int d,
-               int tile, int split, int* __restrict__ idx_out, float* __restrict__ dist_out) {
-  extern __shared__ __align__(16) unsigned char knn_smem[];
-  float* recs = reinterpret_cast<float*>(knn_smem);
-  const int rec = d + 1;
-
-  const int sub = threadIdx.x & (split - 1);
-  const int slots = kThreads / split;
-  const long long row[1] = {static_cast<long long>(blockIdx.x) * slots + threadIdx.x / split};
-  const float* x = X + static_cast<size_t>(row[0] < n ? row[0] : 0) * d;
-
-  float x2 = 0.0f;
-  for (int k = 0; k < d; ++k) x2 = __fadd_rn(x2, __fmul_rn(x[k], x[k]));
-  float bd[1][R];
-  int bi[1][R];
-  topr_init<R>(bd[0], bi[0]);
-
-  for (int t0 = 0; t0 < s; t0 += tile) {
-    const int cnt = min(tile, s - t0);
-    __syncthreads();  // the previous tile is fully consumed
-    for (int e = threadIdx.x; e < cnt * rec; e += kThreads) {
-      recs[e] = P[static_cast<size_t>(t0) * rec + e];
-    }
-    __syncthreads();
-    for (int j = sub; j < cnt; j += split) {
-      const float* a = recs + j * rec;
-      float m = __fmul_rn(x[0], a[0]);
-      for (int k = 1; k < d; ++k) m = fmaf(x[k], a[k], m);
-      const float dist = __fadd_rn(__fadd_rn(x2, m), a[d]);
-      if (dist < bd[0][R - 1]) topr_insert<R, false>(bd[0], bi[0], dist, t0 + j);
-    }
-  }
-  merge_and_store<R, 1>(bd, bi, split, sub, row, n, idx_out, dist_out);
-}
-
-int launch_any(const Args& a) {
-  const int rec = a.d + 1;
-  const int tile = std::max(1, std::min(a.s, kTileBytes / static_cast<int>(sizeof(float)) / rec));
-  const size_t smem = static_cast<size_t>(tile) * rec * sizeof(float);
-  const int rows = kThreads / a.split;
-  const dim3 grid((a.n + rows - 1) / rows);
-  switch (a.r) {
-#define FLGP_KNN_CASE(R)                                                              \
-  case R:                                                                             \
-    knn_any_kernel<R><<<grid, kThreads, smem, a.stream>>>(a.X, a.P, a.n, a.s, a.d,    \
-                                                          tile, a.split, a.idx, a.dist); \
-    break;
-    FLGP_R_CASES(FLGP_KNN_CASE)
-#undef FLGP_KNN_CASE
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
 // The fewest lanes a row (power of two, at most a warp) that put
 // kFillThreads threads in flight, while a lane still has anchors to scan.
 int choose_split(int n, int s, int rows_a_thread) {
@@ -167,31 +104,28 @@ int choose_split(int n, int s, int rows_a_thread) {
 }  // namespace flgp_k1
 
 // X (n, d) f32, U (s, d) f32 -> idx (n, r) i32, dist (n, r) f32; 1 <= r <= s.
-// scratch: s * tiled_rec(max(d, 3)) floats for the packed anchors.  r <= 16
-// takes a templated body unless `runtime_r` is set: d = 2 and 3 their
-// template bodies, any other d the tiled body, or the old run-time-d body
-// when `legacy` is set.  Every r > 16 (and any r with `runtime_r`) takes the
-// run-time-r body of knn_wide.cu, at every d; `lists` then holds
-// flgp_knn_wide_lists(n, r, split) words of its merge temps (none needed
-// where that is 0).  split: for the template and old bodies the lanes that
+// scratch: s * tiled_rec(max(d, 3)) floats for the packed anchors.  The
+// bodies: r <= 16 takes a templated body unless `runtime_r` is set, the
+// template bodies of knn.cuh at d = 2 and 3 and the tiled body of
+// knn_tiled.cu at every other d; every r > 16 (and any r with `runtime_r`)
+// takes the run-time-r body of knn_wide.cu, at every d, and `lists` then
+// holds flgp_knn_wide_lists(n, r, split) words of its merge temps (none
+// needed where that is 0).  split: for the template bodies the lanes that
 // share a row, 0 letting the entry point choose; for the tiled and
 // run-time-r bodies the blocks that divide a row block's anchors (0 means
 // 1), with `part` holding 2 * split * n * r words of their lists when
 // split > 1.  The tests pass 1, 2, ..., 32 to force a path.
 extern "C" int flgp_knn(const void* X, const void* U, int n, int s, int d, int r, int split,
-                        int legacy, int runtime_r, void* scratch, void* part, void* lists,
-                        void* idx, void* dist, void* stream) {
+                        int runtime_r, void* scratch, void* part, void* lists, void* idx,
+                        void* dist, void* stream) {
   using namespace flgp_k1;
   if (n <= 0) return static_cast<int>(cudaSuccess);
   const bool wide = r > kTemplatedMaxR || runtime_r != 0;
   const bool fixed = !wide && (d == 2 || d == 3);
-  const bool old_body = !wide && !fixed && legacy;
-  const bool blocks = !fixed && !old_body;  // split counts blocks, not lanes
   if (s <= 0 || d <= 0 || r < 1 || r > s || split < 0 || split > 32 ||
-      (split & (split - 1)) != 0 || (blocks && split > 1 && part == nullptr)) {
+      (split & (split - 1)) != 0 || (!fixed && split > 1 && part == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int rows_a_thread = fixed ? rows_per_thread(r) : 1;
   Args a;
   a.X = static_cast<const float*>(X);
   a.P = static_cast<const float*>(scratch);
@@ -199,7 +133,7 @@ extern "C" int flgp_knn(const void* X, const void* U, int n, int s, int d, int r
   a.s = s;
   a.d = d;
   a.r = r;
-  a.split = split ? split : blocks ? 1 : choose_split(n, s, rows_a_thread);
+  a.split = split ? split : fixed ? choose_split(n, s, rows_per_thread(r)) : 1;
   a.part = static_cast<float*>(part);
   a.lists = static_cast<float*>(lists);
   a.idx = static_cast<int*>(idx);
@@ -207,12 +141,11 @@ extern "C" int flgp_knn(const void* X, const void* U, int n, int s, int d, int r
   a.stream = static_cast<cudaStream_t>(stream);
 
   // tiled_rec(2) = tiled_rec(3) = 4: the template bodies' float4 records
-  const int rec = old_body ? d + 1 : tiled_rec(d);
+  const int rec = tiled_rec(d);
   knn_pack_kernel<<<(s + 255) / 256, 256, 0, a.stream>>>(static_cast<const float*>(U), s, d, rec,
                                                          static_cast<float*>(scratch));
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   if (wide) return launch_wide(a);
-  return fixed ? (d == 2 ? launch_d2(a) : launch_d3(a)) : old_body ? launch_any(a)
-                                                                   : launch_tiled(a);
+  return fixed ? (d == 2 ? launch_d2(a) : launch_d3(a)) : launch_tiled(a);
 }

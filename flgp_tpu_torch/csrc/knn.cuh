@@ -1,5 +1,5 @@
-// K1's kernels, shared by knn.cu (the pre-pass, the old run-time-d body and
-// the C entry point), knn_d2.cu / knn_d3.cu (the bodies with d a template
+// K1's kernels, shared by knn.cu (the pre-pass and the C entry point),
+// knn_d2.cu / knn_d3.cu (the bodies with d a template
 // parameter), knn_tiled.cu (the tiled body for every other d) and
 // knn_wide.cu (the run-time-r body: every r above 16, any d), one source
 // each so that nvcc builds them side by side.  The design notes are at the

@@ -15,8 +15,8 @@
 // anchor tile.
 //  * A block of 256 threads owns 64 rows of X and walks the anchors in tiles
 //    of 128.  A thread holds a 4 x 8 tile of partial dot products in
-//    registers (rows ty + 16q, anchors tx + 16c): 32 independent FMA chains,
-//    where the run-time-d body of knn.cu ran one.
+//    registers (rows ty + 16q, anchors tx + 16c): 32 independent FMA
+//    chains.
 //  * The features go through in slabs of 16, three slabs in flight: the
 //    slab of X (64 x 16) and of the packed anchor records (128 x 16) sit in
 //    shared memory row-major, filled by 16-byte cp.async (the records are
@@ -25,7 +25,7 @@
 //    each of its rows and anchors once, 16 bytes, one wavefront a warp.
 //  * Each chain stays in one register across the slabs and runs over the
 //    features in order, bounded at k < d (no padded feature takes part), so
-//    d^2 is the run-time-d body's bits: a chain starts at -0, and
+//    d^2 rounds as knn.cu's rule says: a chain starts at -0, and
 //    fmaf(x0, a0, -0) is __fmul_rn(x0, a0) exactly, the sign of a zero
 //    product included; |x|^2 is one thread's sum of rounded squares a row;
 //    d^2 = (|x|^2 + m) + |u|^2, |u|^2 brought with the tile's first slab.
@@ -44,13 +44,11 @@
 //    scratch that the wrapper allocates, and knn_merge_kernel merges the
 //    split lists of a row in (d^2, index) order: the same list, whatever
 //    the split.  For this body `split` counts blocks;
-//    ops/hopper_kernels.py:knn_anchor_split chooses it.  The forced old body
-//    (flgp_knn's `legacy`, for the tests and chip_smoke.py only) keeps
-//    knn.cu's meaning, lanes that share a row.
+//    ops/hopper_kernels.py:knn_anchor_split chooses it.
 //
 // Times (chip_smoke.py phase 11 on an H100 80GB HBM3 at 700 W; PERF.md
 // section 6 has every shape): at n = 7e4, s = 600, r = 3 it takes 0.128 ms
-// at d = 16 (bound 0.021; the run-time-d body 2.47, the plain version 1.47),
+// at d = 16 (bound 0.021; the plain version 1.47),
 // 0.300 at d = 64 (0.082), 0.976 at d = 256 (0.322) and 2.770 at d = 784
 // (0.984).  What keeps it from the bound: the product loop runs at some 24
 // TFLOP/s, half of what cuBLAS's float32 GEMM of the same shape reaches in

@@ -44,30 +44,21 @@
 // chunk) get weight exactly 0.  So the huge-n path is one launch over the
 // whole cloud instead of a copy, a launch and a transpose per chunk.
 //
-// Two arithmetic variants of the same body (template parameter FUSED):
-//   exact  every product and sum rounded on its own, in the order of the
-//          plain version (ops/lae.py:lae_weights_plain): __fmul_rn/__fadd_rn
-//          keep nvcc from contracting a*b+c.  Equal to the plain version
-//          bit for bit.  With nearly collinear anchors the problem is
-//          ill-conditioned, 150 steps do not converge and the iterate keeps
-//          the imprint of rounding, so this is the variant the wrapper
-//          launches.
-//   fused  fmaf in the momentum and gradient steps, the rho test as
-//          u_k (k+1) > css_k - 1 without a quotient, theta by one
-//          multiplication with 1/rho.  Fewer instructions; close to the
-//          plain version only where FISTA has converged.  Kept for
-//          measurement (hopper_kernels._lae_weights(fused=True)).
-// The body and the launcher are in lae.cuh; this file instantiates the exact
-// variant and lae_fused.cu the fused one, two nvcc processes side by side
-// (the 16 fan-ins of one variant take a compiler about as long as all the
-// other sources of the library).
+// Arithmetic: every product and sum rounded on its own, in the order of the
+// plain version (ops/lae.py:lae_weights_plain): __fmul_rn/__fadd_rn keep
+// nvcc from contracting a*b+c, so the weights are the plain version's bit
+// for bit.  With nearly collinear anchors the problem is ill-conditioned,
+// 150 steps do not converge and the iterate keeps the imprint of rounding:
+// fused multiply-adds, or the rho test without its quotient, would take
+// fewer instructions but move the weights by up to some 3e-4, beyond the
+// 2e-4 that the plain version is held to.  The body and the launcher are in
+// lae.cuh; this file instantiates the 16 fan-ins.
 //
 // Fan-in.  These bodies take 1 <= r <= 16 (G's triangle in registers).  Every
-// larger r goes to the exact variant's run-time-r body in lae_wide.cu: a
-// warp a point, G in shared memory, the same roundings in the same order, so
-// the plain version's bits at every r up to the one limit left, r^2 floats
-// of G beside the momentum table in one block's 227 KB (r = 240 at 150
-// steps).  The fused variant stays r <= 16.
+// larger r goes to the run-time-r body in lae_wide.cu: a warp a point, G in
+// shared memory, the same roundings in the same order, so the plain
+// version's bits at every r up to the one limit left, r^2 floats of G beside
+// the momentum table in one block's 227 KB (r = 240 at 150 steps).
 
 #include "lae.cuh"
 
@@ -99,11 +90,10 @@ __global__ void div_check_kernel(unsigned long long* __restrict__ bad) {
 // idx (nch, r, c) i32 with nch*c = npts >= n, the (n, r) layout being c = 1;
 // alpha (iters,) f32, the momentum sequence -> out as idx, f32, zero on the
 // npts - n pad points.  r <= 16 takes the templated body, a larger r the
-// run-time-r body (r^2 + iters floats within 227 KB); fused != 0 takes the
-// fused variant, r <= 16 only.
+// run-time-r body (r^2 + iters floats within 227 KB).
 extern "C" int flgp_lae(const void* X, long long xs_p, long long xs_k, const void* U,
                         const void* idx, long long n, long long npts, int c, int s, int d, int r,
-                        int iters, const void* alpha, int fused, void* out, void* stream) {
+                        int iters, const void* alpha, void* out, void* stream) {
   if (npts <= 0) return static_cast<int>(cudaSuccess);
   if (c <= 0 || iters < 0 || n > npts) return static_cast<int>(cudaErrorInvalidValue);
   if (static_cast<size_t>(iters) * sizeof(float) > 48 * 1024)
@@ -112,10 +102,10 @@ extern "C" int flgp_lae(const void* X, long long xs_p, long long xs_k, const voi
                         static_cast<const int*>(idx), n, npts, c, s, d, r, iters,
                         static_cast<const float*>(alpha), static_cast<float*>(out),
                         static_cast<cudaStream_t>(stream)};
-  return fused ? flgp_k2::launch_fused(a) : flgp_k2::launch<false>(a);
+  return flgp_k2::launch(a);
 }
 
-// flgp_lae's exact variant through the run-time-r body at any r it takes
+// flgp_lae through the run-time-r body at any r it takes
 // (1 <= r, r^2 + iters floats within 227 KB): the templated bodies' bit
 // oracle at r <= 16, for the tests and the smoke test.
 extern "C" int flgp_lae_wide(const void* X, long long xs_p, long long xs_k, const void* U,

@@ -1,8 +1,8 @@
-// K2's kernel body and launcher, shared by lae.cu (the exact variant and
-// the C entry points) and lae_fused.cu (the fused variant): two translation
-// units, so that nvcc compiles the 16 fan-ins of each variant side by side.
-// Every other r goes to the run-time-r body of lae_wide.cu (exact variant
-// only).  The design is described in lae.cu.
+// K2's templated body and launcher (r <= 16), instantiated by lae.cu, and
+// the launch arguments and the run-time-r launcher that lae_wide.cu
+// shares: every other r goes to that body, a translation unit of its own
+// so that nvcc compiles the two side by side.  The design is described in
+// lae.cu.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -41,7 +41,7 @@ __device__ __forceinline__ void simplex_quotients(const float (&css)[R], float (
   }
 }
 
-template <int R, bool FUSED>
+template <int R>
 __device__ __forceinline__ void project_simplex(const float (&w)[R], float (&z)[R]) {
   float u[R];
 #pragma unroll
@@ -65,29 +65,14 @@ __device__ __forceinline__ void project_simplex(const float (&w)[R], float (&z)[
   // as the plain version takes it); theta = (css_rho - 1)/rho
   float theta;
   int more = 0;
-  if constexpr (FUSED) {
-    float x[R];
+  float q[R];
+  q[0] = __fadd_rn(css[0], -1.0f);
+  simplex_quotients<R>(css, q);
 #pragma unroll
-    for (int k = 0; k < R; ++k) x[k] = css[k] - 1.0f;
+  for (int k = 1; k < R; ++k) more += (u[k] > q[k]) ? 1 : 0;   // u - q > 0, no flush to zero
+  theta = q[0];
 #pragma unroll
-    for (int k = 1; k < R; ++k) more += (u[k] * (k + 1.0f) > x[k]) ? 1 : 0;
-    float xr = x[0], yr = 1.0f;
-#pragma unroll
-    for (int k = 1; k < R; ++k) {
-      xr = (more == k) ? x[k] : xr;
-      yr = (more == k) ? 1.0f / (k + 1.0f) : yr;
-    }
-    theta = xr * yr;
-  } else {
-    float q[R];
-    q[0] = __fadd_rn(css[0], -1.0f);
-    simplex_quotients<R>(css, q);
-#pragma unroll
-    for (int k = 1; k < R; ++k) more += (u[k] > q[k]) ? 1 : 0;   // u - q > 0, no flush to zero
-    theta = q[0];
-#pragma unroll
-    for (int k = 1; k < R; ++k) theta = (more == k) ? q[k] : theta;
-  }
+  for (int k = 1; k < R; ++k) theta = (more == k) ? q[k] : theta;
 #pragma unroll
   for (int a = 0; a < R; ++a) z[a] = fmaxf(__fadd_rn(w[a], -theta), 0.0f);
 }
@@ -101,7 +86,7 @@ __device__ __forceinline__ constexpr int tri(int a, int e) {
 
 // X: the cloud, coordinate k of point p at X[p*xs_p + k*xs_k].  idx, out:
 // (nch, R, c) with nch*c = npts >= n; U (s, d) row-major; alpha_tab (iters,).
-template <int R, bool FUSED>
+template <int R>
 __global__ void __launch_bounds__(kThreads)
 lae_kernel(const float* __restrict__ X, long long xs_p, long long xs_k,
            const float* __restrict__ U, const int* __restrict__ idx, long long n,
@@ -170,31 +155,19 @@ lae_kernel(const float* __restrict__ X, long long xs_p, long long xs_k,
   for (int it = 0; it < iters; ++it) {
     const float alpha = alpha_s[it];
     float v[R], w[R];
-    if constexpr (FUSED) {
 #pragma unroll
-      for (int a = 0; a < R; ++a) v[a] = fmaf(alpha, z[a] - z_prev[a], z[a]);
+    for (int a = 0; a < R; ++a)
+      v[a] = __fadd_rn(z[a], __fmul_rn(alpha, __fadd_rn(z[a], -z_prev[a])));
 #pragma unroll
-      for (int e = 0; e < R; ++e) {
-        float g = -b[e];
+    for (int e = 0; e < R; ++e) {
+      float g = __fmul_rn(v[0], G[tri<R>(0, e)]);
 #pragma unroll
-        for (int a = 0; a < R; ++a) g = fmaf(v[a], G[tri<R>(a, e)], g);
-        w[e] = fmaf(-inv_L, g, v[e]);
-      }
-    } else {
-#pragma unroll
-      for (int a = 0; a < R; ++a)
-        v[a] = __fadd_rn(z[a], __fmul_rn(alpha, __fadd_rn(z[a], -z_prev[a])));
-#pragma unroll
-      for (int e = 0; e < R; ++e) {
-        float g = __fmul_rn(v[0], G[tri<R>(0, e)]);
-#pragma unroll
-        for (int a = 1; a < R; ++a) g = __fadd_rn(g, __fmul_rn(v[a], G[tri<R>(a, e)]));
-        w[e] = __fadd_rn(v[e], -__fmul_rn(inv_L, __fadd_rn(g, -b[e])));
-      }
+      for (int a = 1; a < R; ++a) g = __fadd_rn(g, __fmul_rn(v[a], G[tri<R>(a, e)]));
+      w[e] = __fadd_rn(v[e], -__fmul_rn(inv_L, __fadd_rn(g, -b[e])));
     }
 #pragma unroll
     for (int a = 0; a < R; ++a) z_prev[a] = z[a];
-    project_simplex<R, FUSED>(w, z);
+    project_simplex<R>(w, z);
   }
 
 #pragma unroll
@@ -216,25 +189,23 @@ struct Args {
 
 int launch_wide(const Args& a);   // the run-time-r body, compiled in lae_wide.cu
 
-template <bool FUSED>
-int launch(const Args& a) {
+// the templated body at r <= 16, the run-time-r body above
+inline int launch(const Args& a) {
   const dim3 grid(static_cast<unsigned>((a.npts + kThreads - 1) / kThreads));
   const size_t smem = static_cast<size_t>(a.iters) * sizeof(float);
   switch (a.r) {
 #define FLGP_LAE_CASE(R)                                                                       \
   case R:                                                                                      \
-    lae_kernel<R, FUSED><<<grid, kThreads, smem, a.stream>>>(                                  \
-        a.X, a.xs_p, a.xs_k, a.U, a.idx, a.n, a.npts, a.c, a.s, a.d, a.iters, a.alpha, a.out); \
+    lae_kernel<R><<<grid, kThreads, smem, a.stream>>>(a.X, a.xs_p, a.xs_k, a.U, a.idx, a.n,    \
+                                                      a.npts, a.c, a.s, a.d, a.iters, a.alpha, \
+                                                      a.out);                                  \
     break;
     FLGP_R_CASES(FLGP_LAE_CASE)
 #undef FLGP_LAE_CASE
     default:
-      if constexpr (FUSED) return static_cast<int>(cudaErrorInvalidValue);
-      else return launch_wide(a);
+      return launch_wide(a);
   }
   return static_cast<int>(cudaGetLastError());
 }
-
-int launch_fused(const Args& a);  // launch<true>, compiled in lae_fused.cu
 
 }  // namespace flgp_k2

@@ -30,7 +30,7 @@
 //     phases that follow find the order nearly sorted and stop after two
 //     phases in a row that move nothing, a handful instead of r.
 //
-// The plain version's bits, as the exact templated variant keeps them:
+// The plain version's bits, as the templated body keeps them:
 //   * every product and sum rounded on its own (__fmul_rn/__fadd_rn), in the
 //     order of ops/lae.py:lae_weights_plain: G and b over the d coordinates,
 //     the gradient over a, a Gershgorin row over its columns (G is symmetric

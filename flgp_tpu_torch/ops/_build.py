@@ -33,9 +33,9 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 # C entry points and their argument types (pointers and the stream as void*)
 _SIGNATURES = {
-    "flgp_knn": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P],
+    "flgp_knn": [_P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P],
     "flgp_knn_wide_lists": [_I, _I, _I],
-    "flgp_lae": [_P, _L, _L, _P, _P, _L, _L, _I, _I, _I, _I, _I, _P, _I, _P, _P],
+    "flgp_lae": [_P, _L, _L, _P, _P, _L, _L, _I, _I, _I, _I, _I, _P, _P, _P],
     "flgp_lae_wide": [_P, _L, _L, _P, _P, _L, _L, _I, _I, _I, _I, _I, _P, _P, _P],
     "flgp_lae_div_check": [_I, _P, _P],
     "flgp_ell_norm_matmat": [_P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_float, _P, _P],
@@ -44,9 +44,6 @@ _SIGNATURES = {
     "flgp_ell_norm_gram_t_wide": [_P, _P, _P, _I, _I, _I, _I, ctypes.c_float, _I, _I, _P, _P, _P,
                                   _P],
     "flgp_ell_norm_matmat_t": [_P, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_float, _P, _P],
-    "flgp_ell_norm_matmat_legacy": [_P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_float, _P, _P],
-    "flgp_ell_norm_matmat_t_legacy": [_P, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_float, _P,
-                                      _P],
     "flgp_ell_norm_matmat_wide": [_P, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_float, _I, _P, _P],
     "flgp_ell_matmat": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P],
     "flgp_ell_sym_matmat": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P],

@@ -28,7 +28,8 @@ larger r, and K2 has a run-time-r body for 17 ≤ r ≤ ``lae_max_r(iters)``
 raises).  The private ``runtime_r=True`` of ``_knn``, ``_lae_weights``,
 ``_ell_norm_gram`` and ``_ell_norm_matmat`` (and their ``_t`` twins)
 forces the run-time-r body at r ≤ 16, for the tests and chip_smoke.py: it
-gives the templated bodies' bits.
+gives the templated bodies' bits.  Each kernel's oracle is its plain
+version.
 
 Each wrapper but ``polya_gamma`` takes its plain PyTorch version for tensors
 on the CPU, and only then (``polya_gamma`` draws from a key on the card,
@@ -130,25 +131,23 @@ def knn_anchor_split(n: int, s: int) -> int:
     return split
 
 
-def _knn(X: torch.Tensor, U: torch.Tensor, r: int, split: int, legacy: bool = False,
+def _knn(X: torch.Tensor, U: torch.Tensor, r: int, split: int,
          runtime_r: bool = False) -> KnnResult:
     """K1 on CUDA tensors, any 1 ≤ r ≤ s.  Above r = 16, or at any r with
     ``runtime_r``, the run-time-r body (csrc/knn_wide.cu), every d.  At
     r ≤ 16, d = 2 and 3 take their template bodies, where ``split`` lanes
     share a row and divide the anchors (a power of two up to 32; 0 lets the
     kernel's entry point choose from (n, s)), and every other d the tiled
-    body, or with ``legacy`` the old run-time-d body with the lanes' meaning
-    of ``split``: the tiled body's bit oracle, for the tests and
-    chip_smoke.py only.  In the tiled and run-time-r bodies ``split`` blocks
-    divide a row block's anchors (0: ``knn_anchor_split``).  The result
-    depends on none of these."""
+    body (csrc/knn_tiled.cu).  In the tiled and run-time-r bodies ``split``
+    blocks divide a row block's anchors (0: ``knn_anchor_split``).  The
+    result depends on none of these."""
     n, d = X.shape
     s = U.shape[0]
     _check_r("knn", r, s)
     _check("X", X, torch.float32, (n, d), X.device)
     _check("U", U, torch.float32, (s, d), X.device)
     wide = r > _TEMPLATED_MAX_R or runtime_r
-    blocks = wide or (d not in (2, 3) and not legacy)
+    blocks = wide or d not in (2, 3)
     if blocks and split == 0:
         split = knn_anchor_split(n, s)
     lib = _build.load()
@@ -164,7 +163,7 @@ def _knn(X: torch.Tensor, U: torch.Tensor, r: int, split: int, legacy: bool = Fa
     lists = torch.empty((lib.flgp_knn_wide_lists(n, r, int(split)) if wide else 0,),
                         dtype=torch.float32, device=X.device)
     _launch("knn", X.device, lib.flgp_knn,
-            X.data_ptr(), U.data_ptr(), n, s, d, r, int(split), int(legacy), int(runtime_r),
+            X.data_ptr(), U.data_ptr(), n, s, d, r, int(split), int(runtime_r),
             packed.data_ptr(), part.data_ptr(), lists.data_ptr(), idx.data_ptr(), dist.data_ptr())
     return KnnResult(idx, dist)
 
@@ -209,22 +208,20 @@ def lae_weights(X: torch.Tensor, anchors: torch.Tensor, knn_idx: torch.Tensor,
     """FISTA simplex weights (K2), (n, r) row-major; see ``ops.lae.lae_weights``."""
     if X.device.type == "cpu":
         return lae_weights_plain(X, anchors, knn_idx, iters)
-    return _lae_weights(X, anchors, knn_idx, iters, fused=False)
+    return _lae_weights(X, anchors, knn_idx, iters)
 
 
 def _lae_weights(X: torch.Tensor, anchors: torch.Tensor, knn_idx: torch.Tensor, iters: int,
-                 fused: bool, runtime_r: bool = False) -> torch.Tensor:
-    """K2 on CUDA tensors, point-major.  ``fused`` takes the kernel's
-    fused-multiply-add variant (r ≤ 16), which is not the plain version bit
-    for bit; no fit uses it, the smoke test and the card tests measure it.
-    ``runtime_r`` takes the run-time-r body at any r it holds."""
+                 runtime_r: bool = False) -> torch.Tensor:
+    """K2 on CUDA tensors, point-major.  ``runtime_r`` takes the run-time-r
+    body at any r it holds."""
     n, d = X.shape
     r = knn_idx.shape[1]
     _check("X", X, torch.float32, (n, d), X.device)
     _check("knn_idx", knn_idx, torch.int32, (n, r), X.device)
     out = torch.empty((n, r), dtype=torch.float32, device=X.device)
     # the (n, r) layout is the chunked one with c = 1
-    _launch_lae(X, d, 1, d, anchors, knn_idx, n, n, 1, r, iters, fused, runtime_r, out)
+    _launch_lae(X, d, 1, d, anchors, knn_idx, n, n, 1, r, iters, runtime_r, out)
     return out
 
 
@@ -251,13 +248,12 @@ def lae_weights_t(Xt: torch.Tensor, anchors: torch.Tensor, knn_idx_t: torch.Tens
     zeros on the pads; see ``ops.lae.lae_weights_t``."""
     if Xt.device.type == "cpu":
         return lae_weights_t_plain(Xt, anchors, knn_idx_t, iters)
-    return _lae_weights_t(Xt, anchors, knn_idx_t, iters, fused=False)
+    return _lae_weights_t(Xt, anchors, knn_idx_t, iters)
 
 
 def _lae_weights_t(Xt: torch.Tensor, anchors: torch.Tensor, knn_idx_t: torch.Tensor, iters: int,
-                   fused: bool, runtime_r: bool = False) -> torch.Tensor:
-    """K2 on CUDA tensors, feature-major; ``fused`` and ``runtime_r`` as in
-    ``_lae_weights``."""
+                   runtime_r: bool = False) -> torch.Tensor:
+    """K2 on CUDA tensors, feature-major; ``runtime_r`` as in ``_lae_weights``."""
     d, n = Xt.shape
     if knn_idx_t.dim() != 3:
         raise ValueError(f"knn_idx_t must be (nch, r, c), got shape {tuple(knn_idx_t.shape)}")
@@ -267,28 +263,25 @@ def _lae_weights_t(Xt: torch.Tensor, anchors: torch.Tensor, knn_idx_t: torch.Ten
     _check("Xt", Xt, torch.float32, (d, n), Xt.device)
     _check("knn_idx_t", knn_idx_t, torch.int32, (nch, r, c), Xt.device)
     out = torch.empty((nch, r, c), dtype=torch.float32, device=Xt.device)
-    _launch_lae(Xt, 1, n, d, anchors, knn_idx_t, n, nch * c, c, r, iters, fused, runtime_r, out)
+    _launch_lae(Xt, 1, n, d, anchors, knn_idx_t, n, nch * c, c, r, iters, runtime_r, out)
     return out
 
 
 def _launch_lae(X: torch.Tensor, xs_p: int, xs_k: int, d: int, anchors: torch.Tensor,
-                idx: torch.Tensor, n: int, npts: int, c: int, r: int, iters: int, fused: bool,
+                idx: torch.Tensor, n: int, npts: int, c: int, r: int, iters: int,
                 runtime_r: bool, out: torch.Tensor) -> None:
     """Both K2 entries: coordinate k < d of point p is at X[p·xs_p + k·xs_k];
     idx and out are (npts/c, r, c), of which (n, r) is the case c = 1."""
     s = anchors.shape[0]
     if not 0 <= int(iters) <= 12288:
         raise ValueError(f"the CUDA kernel takes 0 <= iters <= 12288, got iters={iters}")
-    _check_r("lae_weights" + (" (fused)" if fused else ""), r,
-             _TEMPLATED_MAX_R if fused else lae_max_r(iters))
+    _check_r("lae_weights", r, lae_max_r(iters))
     _check("anchors", anchors, torch.float32, (s, d), X.device)
     lib = _build.load()
     head = (X.data_ptr(), xs_p, xs_k, anchors.data_ptr(), idx.data_ptr(), n, npts, c, s, d, r,
             int(iters), _momentum_table(iters, X.device).data_ptr())
-    if runtime_r:
-        _launch("lae_weights", X.device, lib.flgp_lae_wide, *head, out.data_ptr())
-    else:
-        _launch("lae_weights", X.device, lib.flgp_lae, *head, int(bool(fused)), out.data_ptr())
+    fn = lib.flgp_lae_wide if runtime_r else lib.flgp_lae
+    _launch("lae_weights", X.device, fn, *head, out.data_ptr())
 
 
 # ---------------------------------------------------------------------------
@@ -436,31 +429,29 @@ def ell_norm_matmat(values: torch.Tensor, indices: torch.Tensor, cscale: torch.T
 
 
 def _ell_norm_matmat(values: torch.Tensor, indices: torch.Tensor, cscale: torch.Tensor,
-                     W: torch.Tensor, eps: float, legacy: bool = False,
-                     out: Optional[torch.Tensor] = None, runtime_r: bool = False,
-                     pair_cap: int = 0) -> torch.Tensor:
+                     W: torch.Tensor, eps: float, out: Optional[torch.Tensor] = None,
+                     runtime_r: bool = False, pair_cap: int = 0) -> torch.Tensor:
     """K5 on CUDA tensors: K8's body on the (n, r) layout (c = 1).
-    ``legacy`` takes the first, warp-a-row body instead (r ≤ 16), the tiled
-    body's bit oracle, and ``runtime_r`` the run-time-r tiled body at any r,
-    holding at most ``pair_cap`` (0: as many as fit) of a point's pairs in
-    shared memory, the templated body's bit oracle at r ≤ 16: both for the
-    tests and chip_smoke.py only.  ``out``: an (n, K) float32 buffer to write
-    into (the tests pass one that is not 16-byte aligned)."""
+    ``runtime_r`` takes the run-time-r tiled body at any r, holding at most
+    ``pair_cap`` (0: as many as fit) of a point's pairs in shared memory, the
+    templated body's bit oracle at r ≤ 16, for the tests and chip_smoke.py
+    only.  ``out``: an (n, K) float32 buffer to write into (the tests pass
+    one that is not 16-byte aligned)."""
     n, r = values.shape
     _check("values", values, torch.float32, (n, r), values.device)
     _check("indices", indices, torch.int32, (n, r), values.device)
-    return _matmat("ell_norm_matmat", (n, r, 1), values, indices, cscale, W, eps, out, legacy,
-                   runtime_r, pair_cap)
+    return _matmat("ell_norm_matmat", (n, r, 1), values, indices, cscale, W, eps, out, runtime_r,
+                   pair_cap)
 
 
 def _matmat(name: str, shape: tuple, values: torch.Tensor, indices: torch.Tensor,
             cscale: torch.Tensor, W: torch.Tensor, eps: float, out: Optional[torch.Tensor],
-            legacy: bool, runtime_r: bool, pair_cap: int) -> torch.Tensor:
+            runtime_r: bool, pair_cap: int) -> torch.Tensor:
     """K5 and K8: one launch on the graph's (nch, r, c) ``shape`` into
     ``out``, (nch·c, K), allocated when None."""
     nch, r, c = shape
     s, K = W.shape
-    _check_r(name, r, _TEMPLATED_MAX_R if legacy else None)
+    _check_r(name, r)
     _check("cscale", cscale, torch.float32, (s,), values.device)
     _check("W", W, torch.float32, (s, K), values.device)
     if out is None:
@@ -471,11 +462,9 @@ def _matmat(name: str, shape: tuple, values: torch.Tensor, indices: torch.Tensor
     if runtime_r:
         fn, args = lib.flgp_ell_norm_matmat_wide, (nch, r, c, s, K, float(eps), int(pair_cap))
     elif values.dim() == 2:
-        fn = lib.flgp_ell_norm_matmat_legacy if legacy else lib.flgp_ell_norm_matmat
-        args = (nch, r, s, K, float(eps))
+        fn, args = lib.flgp_ell_norm_matmat, (nch, r, s, K, float(eps))
     else:
-        fn = lib.flgp_ell_norm_matmat_t_legacy if legacy else lib.flgp_ell_norm_matmat_t
-        args = (nch, r, c, s, K, float(eps))
+        fn, args = lib.flgp_ell_norm_matmat_t, (nch, r, c, s, K, float(eps))
     _launch(name, values.device, fn, *head, *args, out.data_ptr())
     return out
 
@@ -575,14 +564,13 @@ def ell_norm_matmat_t(values: torch.Tensor, indices: torch.Tensor, cscale: torch
 
 
 def _ell_norm_matmat_t(values: torch.Tensor, indices: torch.Tensor, cscale: torch.Tensor,
-                       W: torch.Tensor, eps: float, legacy: bool = False,
-                       out: Optional[torch.Tensor] = None, runtime_r: bool = False,
-                       pair_cap: int = 0) -> torch.Tensor:
-    """K8 on CUDA tensors; ``legacy``, ``out``, ``runtime_r`` and
-    ``pair_cap`` as in ``_ell_norm_matmat``."""
+                       W: torch.Tensor, eps: float, out: Optional[torch.Tensor] = None,
+                       runtime_r: bool = False, pair_cap: int = 0) -> torch.Tensor:
+    """K8 on CUDA tensors; ``out``, ``runtime_r`` and ``pair_cap`` as in
+    ``_ell_norm_matmat``."""
     nch, r, c = _check_t(values, indices)
     return _matmat("ell_norm_matmat_t", (nch, r, c), values, indices, cscale, W, eps, out,
-                   legacy, runtime_r, pair_cap)
+                   runtime_r, pair_cap)
 
 
 # ---------------------------------------------------------------------------

@@ -106,15 +106,15 @@ def _near_ties_only(got, ref, X, U, share):
 
 @pytest.mark.parametrize("r", [1, 3, 8, 9, 16])
 @pytest.mark.parametrize("d", [1, 4, 5, 16, 17, 33, 64, 256, 784])
-def test_knn_tiled_body_is_the_old_body_bit_for_bit(dev, d, r):
-    """K1's tiled body (every d but 2 and 3) against the old run-time-d body
-    that ``legacy`` forces: the same indices and d² bit for bit, at ragged n
-    (3,001 and 70,001), ragged s (601 and 700) and the anchor-split shape
-    (n = 3000, s = 700), with exact ties at anchors 4, 9 and 10 (4 first);
-    one launch counted a call; and against ``knn_plain``, rows differing on
+def test_knn_tiled_body_matches_plain(dev, d, r):
+    """K1's tiled body (every d but 2 and 3) against ``knn_plain``, at ragged
+    n (3,001 and 70,001), ragged s (601 and 700) and the anchor-split shape
+    (n = 3000, s = 700): one launch counted a call; rows differing on
     near-ties only (at most 1% of them: at d = 784 and r = 16 some 0.1% of
     the rows swap two neighbours whose d² the two roundings order
-    otherwise), d² within 1e-5."""
+    otherwise), d² within 1e-5; and with exact ties at anchors 4, 9 and 10,
+    in every row that lists anchor 9 or 10, anchor 4 before it, and 9
+    before 10."""
     from flgp_tpu_torch.ops import hopper_kernels as hk
     from flgp_tpu_torch.ops.knn import knn_plain
 
@@ -126,18 +126,15 @@ def test_knn_tiled_body_is_the_old_body_bit_for_bit(dev, d, r):
         U[10] = U[4]
         before = hk.LAUNCHES["knn"]
         got = hk.knn(X, U, r)
-        old = hk._knn(X, U, r, 0, legacy=True)
         torch.cuda.synchronize()
-        assert hk.LAUNCHES["knn"] == before + 2
-        assert torch.equal(got.indices, old.indices), (n, s)
-        assert torch.equal(got.sqdists, old.sqdists), (n, s)
+        assert hk.LAUNCHES["knn"] == before + 1
         ref = knn_plain(X, U, r)
         _near_ties_only(got, ref, X, U, 1e-2)
         torch.testing.assert_close(got.sqdists, ref.sqdists, rtol=1e-5, atol=2e-5)
-        for row in got.indices[:3000].cpu().tolist():
-            where = [row.index(j) for j in (4, 9, 10) if j in row]
-            assert where == sorted(where)
-            assert 4 in row or not (9 in row or 10 in row)
+        slot = torch.arange(r, device=dev)
+        p4, p9, p10 = (torch.where(got.indices == j, slot, r).amin(dim=1) for j in (4, 9, 10))
+        assert bool(torch.all((p9 == r) | (p4 < p9))), (n, s)
+        assert bool(torch.all((p10 == r) | ((p4 < p10) & (p9 < p10)))), (n, s)
 
 
 @pytest.mark.parametrize("r", [8, 12])
@@ -299,24 +296,6 @@ def test_lae_kernel_matches_plain(dev, gen, r, d):
     assert torch.equal(flat[:n], got)
     assert float(torch.max(torch.abs(flat[n:]))) == 0.0              # the pad points
     assert torch.equal(hk.lae_weights_t_plain(X.T.contiguous(), U, idx_t), got_t)
-
-
-@pytest.mark.parametrize("r", [2, 3, 6])
-def test_lae_kernel_fused_variant(dev, gen, r):
-    """The fused-multiply-add variant, which no fit launches: on
-    well-conditioned data (Gaussian anchors at d = 3, FISTA converged) it
-    meets the same 2e-4 gate and its rows lie on the simplex."""
-    from flgp_tpu_torch.ops import hopper_kernels as hk
-    from flgp_tpu_torch.ops.knn import knn_plain
-    from flgp_tpu_torch.ops.lae import lae_weights_plain
-
-    X = _cuda(gen.normal(size=(5000, 3)), dev)
-    U = _cuda(gen.normal(size=(200, 3)), dev)
-    idx = knn_plain(X, U, r).indices
-    got = hk._lae_weights(X, U, idx, 150, fused=True)
-    torch.cuda.synchronize()
-    torch.testing.assert_close(got, lae_weights_plain(X, U, idx), rtol=0, atol=2e-4)
-    assert float(torch.max(torch.abs(got.sum(1) - 1))) <= 1e-5 and float(got.min()) >= 0
 
 
 @pytest.mark.parametrize("m", list(range(1, 17)))
@@ -581,8 +560,8 @@ def test_lae_wide_body_is_the_plain_version_bit_for_bit(dev, gen, r):
 
 def test_lae_above_its_shared_memory_limit_raises(dev, gen):
     """K2's one fan-in limit: r² Gram floats and the momentum table in 227 KB
-    (r = 240 at 150 steps).  Above it, and the fused variant above 16, the
-    wrapper raises; at it, the kernel runs."""
+    (r = 240 at 150 steps).  Above it the wrapper raises; at it, the kernel
+    runs."""
     from flgp_tpu_torch.ops import hopper_kernels as hk
     from flgp_tpu_torch.ops.lae import lae_weights_plain
 
@@ -595,8 +574,6 @@ def test_lae_above_its_shared_memory_limit_raises(dev, gen):
         hk.lae_weights_t(Xt, U, idx_t)
     assert torch.equal(hk.lae_weights(X, U, idx[:, :240].contiguous()),
                        lae_weights_plain(X, U, idx[:, :240]))
-    with pytest.raises(ValueError):
-        hk._lae_weights(X, U, idx[:, :17].contiguous(), 150, fused=True)
 
 
 @pytest.mark.parametrize("r", [1, 3, 16])
@@ -610,10 +587,10 @@ def test_runtime_r_bodies_are_the_templated_bodies_bit_for_bit(dev, gen, r):
     from flgp_tpu_torch.ops import hopper_kernels as hk
 
     X, U, idx = _lae_problem(gen, dev, 3001, r)
-    assert torch.equal(hk._lae_weights(X, U, idx, 150, False, runtime_r=True),
+    assert torch.equal(hk._lae_weights(X, U, idx, 150, runtime_r=True),
                        hk.lae_weights(X, U, idx))
     Xt, idx_t = _feature_major(X, idx, 768)
-    assert torch.equal(hk._lae_weights_t(Xt, U, idx_t, 150, False, runtime_r=True),
+    assert torch.equal(hk._lae_weights_t(Xt, U, idx_t, 150, runtime_r=True),
                        hk.lae_weights_t(Xt, U, idx_t))
 
     v, i, _, _ = _point_major_graph(gen, dev, 4001, r, 64)
@@ -745,15 +722,18 @@ def _misaligned(t):
                                   "misaligned"])
 @pytest.mark.parametrize("K", [1, 3, 40, 100, 128, 130])
 @pytest.mark.parametrize("r", [1, 3, 5, 16])
-def test_ell_norm_matmat_body_is_the_legacy_body_bit_for_bit(dev, gen, r, K, case):
-    """K5 and K8's tiled body against the first, warp-a-row body (``legacy``):
-    the same bits (``torch.equal``) at K % 4 == 0 (16-byte pieces) and not,
-    on a ragged n (4001, 5 points, and 70,001, where warps walk several
-    tiles), on the chunked layout with c = 999 (tiles straddle chunks) and a
-    zero-weight pad tail, with a W and an output that are not 16-byte
-    aligned (the 4-byte pieces); duplicate anchors in a row, out-of-range
-    indices and a point with no weight, whose row and the pad rows must be
-    exact zeros."""
+def test_ell_norm_matmat_tiled_body_matches_plain(dev, gen, r, K, case):
+    """K5 and K8's tiled body against ``ell_norm_matmat_plain`` and
+    ``_t_plain`` at the tolerance of ``test_ell_norm_matmat_at_wide_r_matches_plain``
+    (the plain side given the graph with its out-of-range entries as zero
+    weights on anchor 0, which add nothing), at K % 4 == 0 (16-byte pieces)
+    and not, on a ragged n (4001, 5 points, and 70,001, where warps walk
+    several tiles); on the chunked layout with c = 999 (tiles straddle
+    chunks) and a zero-weight pad tail, whose first n rows are the
+    point-major output's bits; with a W and an output that are not 16-byte
+    aligned (the 4-byte pieces), the aligned output's bits and no NaN left;
+    duplicate anchors in a row, out-of-range indices and a point with no
+    weight, whose row and the pad rows must be exact zeros."""
     from flgp_tpu_torch.config import EPS
     from flgp_tpu_torch.ops import hopper_kernels as hk
 
@@ -767,37 +747,43 @@ def test_ell_norm_matmat_body_is_the_legacy_body_bit_for_bit(dev, gen, r, K, cas
     idx[n - 1, r - 1] = -7
     vals[n // 2] = 0.0                                     # no weight: a row of zeros
     v, i = _cuda(vals, dev), _cuda(idx, dev, torch.int32)
+    v0, i0 = v.clone(), i.clone()
+    for row, k in ((0, 0), (n - 1, r - 1)):
+        v0[row, k], i0[row, k] = 0.0, 0
     cs = _cuda(gen.uniform(0.5, 2.0, size=s), dev)
     W = _cuda(gen.normal(size=(s, K)), dev)
     before = hk.LAUNCHES["ell_norm_matmat"]
+    got = hk._ell_norm_matmat(v, i, cs, W, EPS)
+    torch.cuda.synchronize()
+    assert hk.LAUNCHES["ell_norm_matmat"] == before + 1
     if case == "chunked":
         c = 999
         vt, it = _chunked(v, c), _chunked(i, c)
-        got = hk._ell_norm_matmat_t(vt, it, cs, W, EPS)
-        old = hk._ell_norm_matmat_t(vt, it, cs, W, EPS, legacy=True)
+        got_t = hk._ell_norm_matmat_t(vt, it, cs, W, EPS)
         torch.cuda.synchronize()
-        assert got.shape == (vt.shape[0] * c, K)
-        assert float(torch.max(torch.abs(got[n:]))) == 0.0           # pad rows
+        assert got_t.shape == (vt.shape[0] * c, K)
+        torch.testing.assert_close(
+            got_t, hk.ell_norm_matmat_t_plain(_chunked(v0, c), _chunked(i0, c), cs, W),
+            rtol=1e-5, atol=1e-5)
+        assert float(torch.max(torch.abs(got_t[n:]))) == 0.0         # pad rows
+        assert torch.equal(got_t[:n], got)                  # the two layouts agree
     elif case == "misaligned":
         Wm = _misaligned(W)
-        got = hk._ell_norm_matmat(v, i, cs, Wm, EPS, out=_misaligned(W.new_full((n, K), nan)))
-        old = hk._ell_norm_matmat(v, i, cs, W, EPS, legacy=True)
+        got_m = hk._ell_norm_matmat(v, i, cs, Wm, EPS, out=_misaligned(W.new_full((n, K), nan)))
         c = 1000
         vt, it = _chunked(v, c), _chunked(i, c)
         got_t = hk._ell_norm_matmat_t(vt, it, cs, Wm, EPS,
                                       out=_misaligned(W.new_full((vt.shape[0] * c, K), nan)))
-        old_t = hk._ell_norm_matmat_t(vt, it, cs, W, EPS, legacy=True)
+        aligned_t = hk._ell_norm_matmat_t(vt, it, cs, W, EPS)
         torch.cuda.synchronize()
-        assert got.data_ptr() % 16 != 0
-        assert torch.equal(got_t, old_t) and not bool(torch.any(torch.isnan(got_t)))
-        assert torch.equal(got_t[:n], old)                  # the two layouts agree too
+        assert got_m.data_ptr() % 16 != 0
+        assert torch.equal(got_m, got) and torch.equal(got_t, aligned_t)
+        assert not bool(torch.any(torch.isnan(got_t)))
+        assert torch.equal(got_t[:n], got)                  # the two layouts agree too
     else:
-        got = hk._ell_norm_matmat(v, i, cs, W, EPS)
-        old = hk._ell_norm_matmat(v, i, cs, W, EPS, legacy=True)
-        torch.cuda.synchronize()
-        assert hk.LAUNCHES["ell_norm_matmat"] == before + 2
         assert torch.equal(hk.ell_norm_matmat(v, i, cs, W), got)      # the public wrapper
-    assert torch.equal(got, old)
+    torch.testing.assert_close(got, hk.ell_norm_matmat_plain(v0, i0, cs, W), rtol=1e-5,
+                               atol=1e-5)
     assert not bool(torch.any(torch.isnan(got)))
     assert float(torch.max(torch.abs(got[n // 2]))) == 0.0
 
