@@ -11,6 +11,7 @@
     python3 chip_smoke.py --knn-times
     python3 chip_smoke.py --assign-times
     python3 chip_smoke.py --pg-times
+    python3 chip_smoke.py --seed-times
 
 (the second only counts K2's instructions in a library already built; the
 third only times the n=1e6 subsample stage, four calls from one seed, with
@@ -30,7 +31,9 @@ matrix at three (n, s), each pass held to the other, the measurement behind
 ``ops/kmeans.py:_KERNEL_ASSIGN_MAX_D``; the tenth builds and times the
 Pólya-Gamma draw on its kernel against the plain loop at 1,000 and 5,000
 lanes, holds the kernel's moments to the closed form, and times a 50-sweep
-PG chain both ways).
+PG chain both ways; the eleventh builds and holds k-means‖'s weighted
+k-means++ kernel to its plain loop at the cells' two shapes, timed beside
+the loop, the noise's draw and the bound).
 Phases, each of which ends the script with a non-zero exit if it fails:
 
 1. the card: name and power limit from nvidia-smi; a CUDA device is required
@@ -59,9 +62,13 @@ Phases, each of which ends the script with a non-zero exit if it fails:
    and 5,000 float64 lanes (the two GPC cells' sweeps): a two-sample KS test
    of the kernel's 2e5 draws against the loop's 4e4–5e4 on the same c, each
    draw standardized by PG(1, c)'s closed-form moments, and the kernel's
-   mean and variance held to the closed form, with both times;
+   mean and variance held to the closed form, with both times; k-means‖'s
+   weighted k-means++ kernel ``weighted_kmeanspp`` against its plain loop on
+   the same noise at s = 1024 and 600 (C = 2s + 1), the same indices in
+   order, with both times;
 4. the torus fit through ``fit_lae_logit_gp`` (error ≤ 0.03; all five
-   kernels and ``polya_gamma`` must be launched by it), then a second, warm
+   kernels, ``polya_gamma`` and ``weighted_kmeanspp`` must be launched by
+   it), then a second, warm
    fit for its time;
 5. the n=1e6 fit (error ≤ 0.03), its wall time, build_spectrum's time alone
    and the peak device memory; then the port's subsampler twice from one
@@ -311,6 +318,9 @@ KERNELS = {
     # the Pólya-Gamma sampler, which the reference runs as lax.while_loops
     # (its outer rejection loop)
     "polya_gamma": ("flgp_tpu_torch/csrc/polya_gamma.cu", "flgp_tpu/ops/polya_gamma.py:158"),
+    # k-means‖'s weighted k-means++ over its candidates, which the reference
+    # runs as one lax.scan
+    "weighted_kmeanspp": ("flgp_tpu_torch/csrc/kmeanspp.cu", "flgp_tpu/ops/kmeans.py:158"),
 }
 # the kernels each path must launch; an LAE logit fit also draws its PG chain
 # on the card
@@ -322,6 +332,9 @@ SHAPES = {  # the configurations of the main path and of the huge-n path
     "large": dict(n=1_000_000, m=1000, seed=3, s=1024, r=3, K=128),
     "huge": dict(n=10_000_000, m=1000, seed=4, s=1024, r=3, K=128, chunk=1 << 16),
 }
+# k-means‖'s weighted k-means++ at the cells' anchors: s picks from C = 2s + 1
+# candidates (the torus and SE cells' s = 1024, the ten-class cell's 600)
+SEED_SHAPES = {"seed1024": 1024, "seed600": 600}
 ERR_GATE = 0.03
 # the sparse GLGP spectrum's shape (a Gaussian cloud) and the README-size fits
 LOBPCG = dict(n=100_000, d=3, r=8, K=128, iters=60)
@@ -346,7 +359,11 @@ def work(name: str, n: int, r: int, s: int, K: int = 0, d: int = 0, distinct=Non
     starts) and names every row of X.  The Pólya-Gamma draw (n float64
     lanes) counts its compulsory bytes alone, z, the draws and the 16-byte
     key: its operations vary lane by lane with the rejections, and a launch
-    of a few thousand lanes is latency-bound far above either term."""
+    of a few thousand lanes is latency-bound far above either term.
+    Weighted k-means++ over n = C candidates, s picks: a row of the squared
+    distances and a row of noise a step, the weights and the indices; six
+    operations a candidate a step (product, clamp, log, add, compare, min).
+    Its steps are a serial chain, latency-bound far above either term."""
     graph = 8 * n * r                                   # f32 values + i32 indices
     if name == "knn":           # d²: 2d for the dot product, 2 to add the norms
         return dict(bytes=4 * (n * d + s * d) + 8 * n * r, flops=n * s * (2 * d + 2))
@@ -376,6 +393,8 @@ def work(name: str, n: int, r: int, s: int, K: int = 0, d: int = 0, distinct=Non
                     flops=2 * (n * r + distinct) * K)
     if name == "polya_gamma":
         return dict(bytes=16 * n + 16, flops=0)
+    if name == "weighted_kmeanspp":
+        return dict(bytes=8 * (s - 1) * n + 4 * n + 8 * s, flops=6 * (s - 1) * n)
     raise KeyError(name)
 
 
@@ -684,6 +703,59 @@ def check_polya_gamma(dev, results: dict, alpha: float = 1e-4) -> None:
             _fail(f"polya_gamma at {lanes} lanes: KS p {ks.pvalue:.3g} against the loop, "
                   f"mean z {z_mean:.2f}, variance z {z_var:.2f}")
     print("\n".join(rows), flush=True)
+
+
+def check_weighted_kmeanspp(dev, results: dict, reps: int = 20, loop_reps: int = 3) -> None:
+    """k-means‖'s weighted k-means++ kernel against its plain version, the
+    loop ``kmeans._weighted_kmeanspp_plain`` on the card, at ``SEED_SHAPES``:
+    C = 2s + 1 candidates drawn from the n=1e6 torus cloud, weighted by their
+    1-NN masses over it (``kmeans._counts``), their squared distances, and
+    the noise of s − 1 steps (``kmeans._gumbel_rows``); the same s indices in
+    order, or the script fails.  Times: the kernel by CUDA events, the loop
+    and the noise's s − 1 row draws (what is left of the seeding on the
+    host) by the wall around a synchronized call."""
+    from flgp_tpu_torch.ops import kmeans
+
+    big = SHAPES["large"]
+    X = cloud(torus_rings(n=big["n"], m_train=big["m"], seed=big["seed"]), dev)
+    ent = results.setdefault("weighted_kmeanspp", dict(max_abs_err=0))
+    g = torch.Generator(device=dev).manual_seed(23)
+    for label, s in SEED_SHAPES.items():
+        C = 2 * s + 1
+        cands = X[torch.randperm(X.shape[0], generator=g, device=dev)[:C]].contiguous()
+        w = kmeans._counts(knn(X, cands, 1).indices[:, 0].long(), C, X.dtype)
+        dcc = torch.clamp(kmeans.sqdist(cands, cands), min=0.0)
+        t0 = _synced()
+        noise = kmeans._gumbel_rows(g, s - 1, C, w)
+        noise_ms = 1e3 * (_synced() - t0)
+        got = hk.weighted_kmeanspp(dcc, w, noise)
+        walls = []
+        for _ in range(loop_reps):
+            t0 = _synced()
+            ref = kmeans._weighted_kmeanspp_plain(dcc, w, noise)
+            walls.append(_synced() - t0)
+        differ = int(torch.sum(got != ref))
+        ms = cuda_ms(lambda: hk.weighted_kmeanspp(dcc, w, noise), reps)
+        plain_ms = 1e3 * float(np.mean(walls))
+        wk = work("weighted_kmeanspp", n=C, r=0, s=s)
+        ent.update({f"ms_{label}": ms, f"plain_ms_{label}": plain_ms, f"work_{label}": wk,
+                    f"library_ms_{label}": None, f"noise_ms_{label}": noise_ms})
+        print(f"weighted_kmeanspp s={s}, C={C}: {differ} of {s} picks differ from the plain "
+              f"loop; kernel {ms:9.4f} ms  loop {plain_ms:9.4f} ms (wall)  noise draw "
+              f"{noise_ms:8.4f} ms (wall)  bound {bound(wk)[0]:.5f} ms ({bound(wk)[1]})  loop over "
+              f"kernel {plain_ms / ms:.0f}x", flush=True)
+        if differ:
+            _fail(f"weighted_kmeanspp at s={s}: {differ} picks differ from the plain loop")
+
+
+def seed_times(dev) -> None:
+    """``--seed-times``: the card, the build, then ``check_weighted_kmeanspp``."""
+    card = card_line()
+    print(f"card: {card}", flush=True)
+    _build.build()
+    _build.load()
+    check_weighted_kmeanspp(dev, {})
+    print(card)
 
 
 def knn_library(X, U, r: int):
@@ -3710,6 +3782,7 @@ def main() -> None:
         del X
     check_knn_chunk(dev, results)
     check_polya_gamma(dev, results)
+    check_weighted_kmeanspp(dev, results)
 
     # 4. torus fit: the main path, through the entry point a user calls
     tor = SHAPES["torus"]
@@ -3722,7 +3795,7 @@ def main() -> None:
           f"launches {launches}", flush=True)
     if err > ERR_GATE:
         _fail(f"torus test error {err} > {ERR_GATE}")
-    missing = [k for k in LOGIT_PATH if launches[k] == 0]
+    missing = [k for k in LOGIT_PATH + ("weighted_kmeanspp",) if launches[k] == 0]
     if missing:
         _fail(f"the torus fit launched no {missing} kernel")
     res, err2, wall2, _ = fit(tor, tor_cfg, dev, seed=0)
@@ -3788,14 +3861,16 @@ def main() -> None:
     # ell_sym_matmat: launches of the sparse-LOBPCG GLGP fit, times at the
     # LOBPCG block's shape; polya_gamma: launches of the torus fit (one a
     # sweep), times at 1,000 lanes (the torus cell's m), its KS p-value
-    # against the loop in place of an error
+    # against the loop in place of an error; weighted_kmeanspp: launches of
+    # the torus fit (one a k-means‖ seeding), times at s = 1024
     kernels = []
     for name, (src, replaces) in KERNELS.items():
         r = results[name]
         shape = ("huge" if name.endswith("_t") else
                  "se-torus" if name == "ell_matmat" else
                  "lobpcg" if name == "ell_sym_matmat" else
-                 "pg1000" if name == "polya_gamma" else "large")
+                 "pg1000" if name == "polya_gamma" else
+                 "seed1024" if name == "weighted_kmeanspp" else "large")
         bound_ms, bound_by = bound(r[f"work_{shape}"])
         kernels.append(dict(name=name, route="cuda", source=src, replaces=replaces,
                             launches=launches[name], max_abs_err=r["max_abs_err"],
@@ -3819,7 +3894,7 @@ if __name__ == "__main__":
         print_sass(Path(sys.argv[2]))      # K2's step count of any build of the library
     elif sys.argv[1:] in (["--subsample-times"], ["--sampling"], ["--streaming"],
                           ["--extension"], ["--wide"], ["--knn-times"], ["--assign-times"],
-                          ["--pg-times"]):
+                          ["--pg-times"], ["--seed-times"]):
         if not torch.cuda.is_available():
             _fail("torch.cuda.is_available() is false: this smoke test needs an NVIDIA GPU")
         pin_full_precision()
@@ -3837,6 +3912,8 @@ if __name__ == "__main__":
             assign_times(torch.device("cuda", 0))
         elif sys.argv[1] == "--pg-times":
             pg_times(torch.device("cuda", 0))
+        elif sys.argv[1] == "--seed-times":
+            seed_times(torch.device("cuda", 0))
         else:
             print(f"card: {card_line()}", flush=True)
             subsample_stage_times(torch.device("cuda", 0))

@@ -48,6 +48,7 @@ _SIGNATURES = {
     "flgp_ell_matmat": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P],
     "flgp_ell_sym_matmat": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
     "flgp_polya_gamma": [_P, _P, _L, _I, _P, _P],
+    "flgp_weighted_kmeanspp": [_P, _P, _P, _I, _I, _P, _P],
 }
 
 # entry points that return a count, not a cudaError

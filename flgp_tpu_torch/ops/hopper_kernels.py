@@ -16,7 +16,10 @@ and to its transpose in one launch: the product (Z + Zᵀ)·X of the sparse
 GLGP operator.  ``polya_gamma`` (csrc/polya_gamma.cu) replaces no TPU
 kernel: it is the Pólya-Gamma sampler of ``ops/polya_gamma.py`` with every
 lane finished in one launch, where the plain version's rejection loops read
-on the host once a round.
+on the host once a round.  ``weighted_kmeanspp`` (csrc/kmeanspp.cu) replaces
+no TPU kernel either: it is k-means‖'s weighted k-means++ reduction of the
+candidates (``ops/kmeans.py:_weighted_kmeanspp_plain``, the reference's
+``lax.scan``) with its s − 1 serial steps in one launch.
 
 Fan-in.  Every kernel takes every r its TPU kernel takes.  K1 takes any
 1 ≤ r ≤ s, as the reference's ``fused_knn`` does (its r ≤ 16 is only the
@@ -31,9 +34,11 @@ forces the run-time-r body at r ≤ 16, for the tests and chip_smoke.py: it
 gives the templated bodies' bits.  Each kernel's oracle is its plain
 version.
 
-Each wrapper but ``polya_gamma`` takes its plain PyTorch version for tensors
-on the CPU, and only then (``polya_gamma`` draws from a key on the card,
-where the plain version draws from a generator: its caller dispatches).
+Each wrapper but ``polya_gamma`` and ``weighted_kmeanspp`` takes its plain
+PyTorch version for tensors on the CPU, and only then (``polya_gamma`` draws
+from a key on the card, where the plain version draws from a generator;
+``weighted_kmeanspp``'s plain version lives with its caller: both callers
+dispatch, and both wrappers raise on a CPU tensor).
 For CUDA tensors it checks device, dtype (float32 values, int32 indices),
 shape and contiguity, raises on anything else, launches the kernel on the
 current stream and adds one to ``LAUNCHES[name]`` (``utils.metrics.count``).
@@ -60,7 +65,8 @@ from .lae import fista_momentum, lae_weights_plain
 # counters ``kernel_launches:<kernel>`` of the recorder's store.
 LAUNCHES = CounterView("kernel_launches:", (
     "knn", "lae_weights", "ell_colsum", "ell_norm_gram", "ell_norm_matmat", "ell_colsum_t",
-    "ell_norm_gram_t", "ell_norm_matmat_t", "ell_matmat", "ell_sym_matmat", "polya_gamma"))
+    "ell_norm_gram_t", "ell_norm_matmat_t", "ell_matmat", "ell_sym_matmat", "polya_gamma",
+    "weighted_kmeanspp"))
 
 
 def reset_launches() -> None:
@@ -684,4 +690,39 @@ def polya_gamma(z: torch.Tensor, key: torch.Tensor) -> torch.Tensor:
         return out                # nothing to launch, and no launch counted
     _launch("polya_gamma", z.device, _build.load().flgp_polya_gamma, z.data_ptr(), key.data_ptr(),
             z.numel(), int(z.dtype == torch.float64), out.data_ptr())
+    return out
+
+
+# ---------------------------------------------------------------------------
+# k-means‖'s weighted k-means++
+# ---------------------------------------------------------------------------
+
+# The most candidates the kernel takes: their mindc and w in one block's
+# shared memory (csrc/kmeanspp.cu's kMaxC)
+KMEANSPP_MAX_C = 28_672
+
+
+def weighted_kmeanspp(dcc: torch.Tensor, w: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:
+    """The s = steps + 1 picks of weighted k-means++ over C candidates, in one
+    launch (csrc/kmeanspp.cu): ``ops.kmeans._weighted_kmeanspp_plain``'s
+    indices, its plain version, from the same (C, C) squared distances
+    ``dcc``, weights ``w`` (C,) and Gumbel noise (steps, C), one row a step.
+    Returns the (s,) int64 indices.  CUDA tensors of float32 only,
+    contiguous, with 1 ≤ C ≤ ``KMEANSPP_MAX_C``; anything else raises."""
+    if w.device.type != "cuda":
+        raise ValueError(f"the CUDA kernel weighted_kmeanspp takes CUDA tensors, got one on "
+                         f"{w.device}")
+    if w.dim() != 1 or not 1 <= w.shape[0] <= KMEANSPP_MAX_C:
+        raise ValueError(f"w must have shape (C,) with 1 <= C <= {KMEANSPP_MAX_C}, got "
+                         f"{tuple(w.shape)}")
+    C = w.shape[0]
+    _check("w", w, torch.float32, (C,), w.device)
+    _check("dcc", dcc, torch.float32, (C, C), w.device)
+    if noise.dim() != 2:
+        raise ValueError(f"noise must have shape (steps, {C}), got {tuple(noise.shape)}")
+    steps = noise.shape[0]
+    _check("noise", noise, torch.float32, (steps, C), w.device)
+    out = torch.empty((steps + 1,), dtype=torch.int64, device=w.device)
+    _launch("weighted_kmeanspp", w.device, _build.load().flgp_weighted_kmeanspp, dcc.data_ptr(),
+            w.data_ptr(), noise.data_ptr(), C, steps, out.data_ptr())
     return out

@@ -6,7 +6,9 @@ the caller's ``torch.Generator``, which must live on the data's device.
 Data-dependent loops (Lloyd's early exit) check their condition on the host
 once per round (``utils.metrics.to_host``); each Lloyd round counts one
 ``lloyd_rounds``, and each of its assignment passes that runs on K1 one
-``lloyd_kernel_rounds``.
+``lloyd_kernel_rounds``.  k-means‖'s weighted k-means++ reduction of its
+candidates counts one ``seedings`` and, where ``seed_on_kernel`` holds, runs
+as one launch of ``hk.weighted_kmeanspp`` on noise drawn up front.
 
 Every sum over a cluster's points adds in an order fixed by the data alone
 (``_segment_sums``), so one seed gives one set of anchors, bit for bit, on
@@ -36,6 +38,18 @@ def _gumbel(generator: torch.Generator, n: int, like: torch.Tensor) -> torch.Ten
     u = torch.rand((n,), generator=generator, dtype=like.dtype, device=like.device)
     u = torch.clamp(u, min=torch.finfo(like.dtype).tiny)
     return -torch.log(-torch.log(u))
+
+
+def _gumbel_rows(generator: torch.Generator, rows: int, n: int, like: torch.Tensor
+                 ) -> torch.Tensor:
+    """(rows, n) standard Gumbel draws, row k the bits of the k-th of ``rows``
+    calls of ``_gumbel(generator, n, like)``: each row is drawn by its own call,
+    in order (on the card that keeps each draw's Philox offset), and the
+    transform, elementwise, runs once over all of them, in place."""
+    u = torch.empty((rows, n), dtype=like.dtype, device=like.device)
+    for row in u:
+        row.uniform_(generator=generator)
+    return u.clamp_(min=torch.finfo(like.dtype).tiny).log_().neg_().log_().neg_()
 
 
 # The widest data at which K1 at r = 1 was measured to find the nearest
@@ -142,6 +156,31 @@ def _random_rows(generator: torch.Generator, X: torch.Tensor, s: int) -> torch.T
     return X[idx]
 
 
+def seed_on_kernel(device_type: str, dtype: torch.dtype, C: int) -> bool:
+    """Whether k-means‖'s weighted k-means++ over C candidates of this device
+    type and dtype takes the kernel (``hk.weighted_kmeanspp``): float32 on the
+    card, up to the candidates one block's shared memory holds.  The CPU and
+    float64 keep the plain loop."""
+    return device_type == "cuda" and dtype == torch.float32 and C <= hk.KMEANSPP_MAX_C
+
+
+def _weighted_kmeanspp_plain(dcc: torch.Tensor, w: torch.Tensor, noise: torch.Tensor
+                             ) -> torch.Tensor:
+    """Weighted k-means++ over C candidates by Gumbel-max: the first pick is
+    argmax(w), each next the candidate with the largest log(w·d²) + noise[k],
+    d² to the nearest pick so far (``dcc``, (C, C)).  One step a row of
+    ``noise`` (steps, C); returns the steps + 1 picks, int64."""
+    j = torch.argmax(w).reshape(1)
+    mindc = dcc[j][0]
+    picks = [j]
+    for z in noise:
+        logits = torch.log(torch.clamp(w * mindc, min=1e-30))
+        j = torch.argmax(logits + z).reshape(1)
+        mindc = torch.minimum(mindc, dcc[j][0])
+        picks.append(j)
+    return torch.cat(picks)
+
+
 def _kmeanspp_rows(generator: torch.Generator, X: torch.Tensor, s: int) -> torch.Tensor:
     """k-means++ seeding: each next center is a row drawn with probability ∝
     squared distance to the nearest chosen center (Gumbel-max sampling)."""
@@ -192,17 +231,17 @@ def _kmeanspar_rows(
     assign = knn(X, cands, 1).indices[:, 0].long()
     w = _counts(assign, C, X.dtype)
 
-    # weighted k-means++ over the candidate set (C ≈ 2s: each step is O(C·d))
+    # weighted k-means++ over the candidate set (C ≈ 2s): its noise drawn
+    # first, then one launch on the card or the plain loop
     dcc = torch.clamp(sqdist(cands, cands), min=0.0)
-    j = torch.argmax(w).reshape(1)
-    mindc = dcc[j][0]
-    rows = [cands[j]]
-    for _ in range(s - 1):
-        logits = torch.log(torch.clamp(w * mindc, min=1e-30))
-        j = torch.argmax(logits + _gumbel(generator, C, logits)).reshape(1)
-        mindc = torch.minimum(mindc, dcc[j][0])
-        rows.append(cands[j])
-    centers = torch.cat(rows, dim=0)
+    noise = _gumbel_rows(generator, s - 1, C, w)
+    count("seedings")
+    if seed_on_kernel(X.device.type, X.dtype, C):
+        picks = hk.weighted_kmeanspp(dcc, w, noise)
+    else:
+        picks = _weighted_kmeanspp_plain(dcc, w, noise)
+    del noise, dcc
+    centers = cands[picks]
 
     # weighted Lloyd polish on the candidate set
     for _ in range(polish_iters):

@@ -1138,6 +1138,94 @@ def test_subsample_twice_from_one_seed_is_the_same_bits(dev, method):
     assert float(subs[0].counts.sum()) == 200_000
 
 
+def _seed_case(dev, s, C, seed):
+    """Weighted k-means++ inputs at (s, C) on the card: C candidates from four
+    clusters with 1-NN masses for weights (whole numbers, zeros, the largest
+    tied), their float32 squared distances, and the noise of s − 1 steps."""
+    from flgp_tpu_torch.ops import kmeans
+
+    rng = np.random.default_rng(seed)
+    cands = _cuda(rng.normal(size=(C, 2)) + 6.0 * rng.integers(0, 4, size=(C, 1)), dev)
+    w = rng.integers(0, 50, size=C).astype(np.float64)
+    w[rng.choice(C, min(3, C), replace=False)] = 60.0        # argmax(w) ties: the first wins
+    w = _cuda(w, dev)
+    dcc = torch.clamp(kmeans.sqdist(cands, cands), min=0.0)
+    noise = kmeans._gumbel_rows(torch.Generator(device=dev).manual_seed(seed), s - 1, C, w)
+    return dcc, w, noise
+
+
+@pytest.mark.parametrize("s,C", [(1024, 2049), (600, 1201), (37, 75), (2048, 4097), (1, 1),
+                                 (65, 28_672)])
+def test_weighted_kmeanspp_kernel_picks_the_plain_loop_s_indices(dev, s, C):
+    """The kernel and ``_weighted_kmeanspp_plain`` on the same noise give the
+    same s indices, in order, at the cells' shapes (C = 2s + 1), a small and a
+    large one, and at the most candidates the kernel takes (dynamic shared
+    memory above 48 KB); one launch."""
+    from flgp_tpu_torch.ops import hopper_kernels as hk
+    from flgp_tpu_torch.ops import kmeans
+
+    dcc, w, noise = _seed_case(dev, s, C, seed=C)
+    before = hk.LAUNCHES["weighted_kmeanspp"]
+    got = hk.weighted_kmeanspp(dcc, w, noise)
+    torch.cuda.synchronize()
+    assert hk.LAUNCHES["weighted_kmeanspp"] == before + 1
+    ref = kmeans._weighted_kmeanspp_plain(dcc, w, noise)
+    assert got.dtype == torch.int64 and got.shape == (s,)
+    assert torch.equal(got, ref), int(torch.sum(got != ref))
+    assert torch.equal(hk.weighted_kmeanspp(dcc, w, noise), got)   # the same bits again
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_kmeanspar_rows_on_the_card_gives_the_parent_s_centers_bit_for_bit(dev, dtype):
+    """k-means‖ at the torus cell's s on the card: the seeding with its noise
+    drawn up front (and, in float32, its one launch) gives the centers of the
+    loop it replaced, bit for bit, from one seed; one ``seedings`` either way."""
+    from collections import Counter
+
+    import kmeans_parent
+    from flgp_tpu_torch.ops import kmeans
+    from flgp_tpu_torch.utils import metrics
+
+    rng = np.random.default_rng(7)
+    X = _cuda(rng.normal(size=(200_000, 2)) + 6.0 * rng.integers(0, 4, size=(200_000, 1)), dev,
+              dtype)
+    before = Counter(metrics.COUNTS)
+    got = kmeans._kmeanspar_rows(torch.Generator(device=dev).manual_seed(3), X, 1024)
+    counted = {k: metrics.COUNTS[k] - before[k]
+               for k in ("seedings", "kernel_launches:weighted_kmeanspp")}
+    ref = kmeans_parent.kmeanspar_rows(torch.Generator(device=dev).manual_seed(3), X, 1024)
+    assert torch.equal(got, ref)
+    kernel = dtype == torch.float32
+    assert kmeans.seed_on_kernel("cuda", dtype, 2049) is kernel
+    assert counted == {"seedings": 1, "kernel_launches:weighted_kmeanspp": int(kernel)}
+
+
+def test_weighted_kmeanspp_kernel_refuses_what_it_does_not_take(dev):
+    """No fallback: a CPU tensor, another dtype, a non-contiguous input, a
+    wrong shape or more candidates than shared memory holds raises."""
+    from flgp_tpu_torch.ops import hopper_kernels as hk
+
+    dcc, w, noise = _seed_case(dev, 37, 75, seed=1)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        hk.weighted_kmeanspp(dcc.cpu(), w.cpu(), noise.cpu())
+    for args in ((dcc.double(), w, noise), (dcc, w.double(), noise), (dcc, w, noise.double()),
+                 (dcc, w, noise.half())):
+        with pytest.raises(TypeError):
+            hk.weighted_kmeanspp(*args)
+    wide = torch.zeros((75, 150), device=dev)
+    for args in ((dcc.t(), w, noise), (dcc, wide[:, ::2][0], noise),
+                 (dcc, w, noise.t().contiguous().t()), (dcc[:, :74], w, noise),
+                 (dcc, w, noise[:, :74]), (dcc, w, noise[0]), (dcc, w[:0], noise)):
+        with pytest.raises(ValueError):
+            hk.weighted_kmeanspp(*args)
+    with pytest.raises(ValueError):
+        hk.weighted_kmeanspp(dcc.cpu(), w, noise)
+    C = hk.KMEANSPP_MAX_C + 1
+    with pytest.raises(ValueError):
+        hk.weighted_kmeanspp(torch.zeros((1, 1), device=dev).expand(C, C),
+                             torch.ones((C,), device=dev), torch.zeros((0, C), device=dev))
+
+
 def _lloyd_cloud(dev, d, n=1_000_000):
     """The torus cell's points at d = 2, standard normal points otherwise."""
     from flgp_tpu_torch.datasets import torus_rings

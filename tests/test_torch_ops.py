@@ -35,6 +35,8 @@ from flgp_tpu_torch.ops.lae import (fista_momentum, lae_weights, lae_weights_pla
 from flgp_tpu_torch.ops.spectrum import spectrum_fused
 from flgp_tpu_torch.types import EllMatrix
 
+import kmeans_parent
+
 torch.set_num_threads(1)
 
 REPO = Path(__file__).resolve().parent.parent
@@ -370,7 +372,8 @@ def test_wrappers_take_plain_version_on_cpu_without_counting(rng):
     assert all(v == 0 for v in hk.LAUNCHES.values())
     assert set(hk.LAUNCHES) == {"knn", "lae_weights", "ell_colsum", "ell_norm_gram",
                                 "ell_norm_matmat", "ell_colsum_t", "ell_norm_gram_t",
-                                "ell_norm_matmat_t", "ell_matmat", "ell_sym_matmat", "polya_gamma"}
+                                "ell_norm_matmat_t", "ell_matmat", "ell_sym_matmat", "polya_gamma",
+                                "weighted_kmeanspp"}
 
 
 # F9: the call sites of K1–K8 route every float32 graph to the kernels'
@@ -556,6 +559,49 @@ def test_subsample_methods_count_every_point(rng, method):
     sub = kmeans.subsample(torch.Generator().manual_seed(1), T(X), 80, method=method, iters=20)
     assert float(sub.counts.sum()) == X.shape[0]
     assert sub.centers.shape == (80, 2)
+
+
+def _seed_inputs(rng, C, dtype):
+    """Candidates with weights (their 1-NN masses: whole numbers, zeros and
+    ties among them) and their clamped squared distances."""
+    cands = T(rng.normal(size=(C, 3)), dtype)
+    w = T(rng.integers(0, 5, size=C), dtype)
+    return w, torch.clamp(torch.sum((cands[:, None] - cands[None]) ** 2, dim=-1), min=0.0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("s,C", [(64, 129), (600, 1201)])
+def test_gumbel_rows_are_the_per_step_draws_bit_for_bit(dtype, s, C):
+    """Row k of the noise drawn up front is the k-th per-step ``_gumbel``
+    draw, bit for bit, and the generator ends where the per-step draws leave
+    it."""
+    like = torch.empty(0, dtype=dtype)
+    g_step, g_rows = torch.Generator().manual_seed(11), torch.Generator().manual_seed(11)
+    steps = torch.stack([kmeans._gumbel(g_step, C, like) for _ in range(s - 1)])
+    rows = kmeans._gumbel_rows(g_rows, s - 1, C, like)
+    assert rows.shape == (s - 1, C) and rows.dtype == dtype
+    assert torch.equal(rows, steps)
+    assert torch.equal(g_rows.get_state(), g_step.get_state())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("s,C", [(37, 75), (64, 129), (600, 1201)])
+def test_weighted_kmeanspp_plain_picks_the_parent_loop_s(rng, dtype, s, C):
+    w, dcc = _seed_inputs(rng, C, dtype)
+    parent = kmeans_parent.weighted_kmeanspp(torch.Generator().manual_seed(5), dcc, w, s)
+    g = torch.Generator().manual_seed(5)
+    picks = kmeans._weighted_kmeanspp_plain(dcc, w, kmeans._gumbel_rows(g, s - 1, C, w))
+    assert picks.dtype == torch.int64 and picks.shape == (s,)
+    assert torch.equal(picks, parent)
+    assert len(set(picks.tolist())) == s          # no candidate picked twice
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_kmeanspar_rows_gives_the_parent_s_centers_bit_for_bit(rng, dtype):
+    X = T(_blobs(rng, n=2000), dtype)
+    got = kmeans._kmeanspar_rows(torch.Generator().manual_seed(4), X, 96)
+    ref = kmeans_parent.kmeanspar_rows(torch.Generator().manual_seed(4), X, 96)
+    assert got.shape == (96, 2) and torch.equal(got, ref)
 
 
 # ---------------------------------------------------------------------------

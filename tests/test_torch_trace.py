@@ -247,6 +247,34 @@ def test_lloyd_on_the_cpu_counts_no_kernel_round(dtype, iters, rounds):
     assert metrics.COUNTS["lloyd_kernel_rounds"] == before["lloyd_kernel_rounds"]
 
 
+# k-means‖'s weighted k-means++: the kernel for float32 on the card up to the
+# candidates one block's shared memory holds, the plain loop everywhere else
+_MAX_C = hk.KMEANSPP_MAX_C
+_SEED_KERNEL = [("cuda", torch.float32, C) for C in (1, 75, 1201, 2049, 4097, _MAX_C)]
+_SEED_PLAIN = [("cpu", torch.float32, 2049), ("cpu", F64, 2049), ("cuda", F64, 2049),
+               ("cuda", F64, 75), ("cuda", torch.float32, _MAX_C + 1)]
+
+
+@pytest.mark.parametrize("device_type,dtype,C,kernel",
+                         [(*c, True) for c in _SEED_KERNEL] + [(*c, False) for c in _SEED_PLAIN])
+def test_seed_takes_the_kernel_for_float32_on_the_card_up_to_its_shared_memory(
+        device_type, dtype, C, kernel):
+    assert kmeans.seed_on_kernel(device_type, dtype, C) is kernel
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, F64])
+def test_seedings_count_one_a_weighted_reduction(rng, dtype):
+    """One ``seedings`` a k-means‖ seeding, on the CPU's plain loop (no
+    launch); none from the k-means++ and random seedings, which have no
+    candidates to reduce."""
+    X = torch.as_tensor(rng.normal(size=(1200, 2)), dtype=dtype)
+    for init, seeded in (("kmeans||", 1), ("kmeans++", 0), ("random", 0), ("auto", 1)):
+        before = Counter(metrics.COUNTS)
+        kmeans.kmeans(torch.Generator().manual_seed(2), X, 64, iters=3, init=init)
+        assert metrics.COUNTS["seedings"] - before["seedings"] == seeded, init
+        assert hk.LAUNCHES["weighted_kmeanspp"] == before["kernel_launches:weighted_kmeanspp"]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, F64])
 def test_update_takes_k1_s_int32_assignments_bit_for_bit(dtype):
     """K1 gives int32 indices where the plain pass gives int64: the centers,
