@@ -18,6 +18,14 @@ card.
 Anchors for out-of-core data come from a reservoir sample of the rows,
 k-means on the device, and a streamed 1-NN count pass (``streamed_subsample``).
 
+A fit's layers are the recorder's spans (``utils.metrics``), one tree under
+``fit``: ``reservoir`` (the sample's pass), ``subsample`` (its k-means and the
+count pass), ``graph`` (the graph pass), ``spectrum``, ``train`` and
+``predict``.  The counter ``stream_chunks`` counts each chunk handed to a
+pass's consumer, ``stream_buffer_waits`` each wait of the host on a pinned
+buffer's copy; such a wait is not a ``host_syncs``: it waits for one copy, and
+the launch queue runs on behind it.
+
 The predict tail is O(n·K): prediction anywhere is C[·, train]·adj with
 C = ΦΦᵀ + σI and Φ the K-dim heat-kernel factor of the eigenvectors, so the
 tail streams row blocks of the (n, K) eigenvector store and never forms an
@@ -46,7 +54,7 @@ from ..ops.knn import knn
 from ..ops.lae import lae_weights
 from ..ops.spectrum import spectrum_fused
 from ..types import EigenPair, EllMatrix
-from ..utils.metrics import fit_entry, to_host
+from ..utils.metrics import count, fit_entry, span, to_device, to_host
 from .drivers import _counts, _solve_cast, _start, _train_gpc, _train_gpr
 from .multiclass import _train_mult, one_hot_labels
 
@@ -66,6 +74,7 @@ def reservoir_sample(mat: MatrixFile, size: int, chunk_rows: int = 1 << 16,
     sample = np.empty((size, mat.shape[1]), mat.dtype)
     seen = 0
     for lo, chunk in StreamLoader(mat, chunk_rows):
+        count("stream_chunks")
         if seen < size:  # fill the reservoir first
             take = min(size - seen, len(chunk))
             sample[seen : seen + take] = chunk[:take]
@@ -100,6 +109,7 @@ def _stream_chunks(mat: MatrixFile, chunk_rows: int, device: torch.device,
     chunk_rows = min(chunk_rows, n)
     if device.type != "cuda":
         for lo, chunk in StreamLoader(mat, chunk_rows):
+            count("stream_chunks")
             consume(lo, torch.from_numpy(chunk).to(device))
         return
     tdtype = _TORCH_DTYPES[np.dtype(mat.dtype)]
@@ -110,12 +120,14 @@ def _stream_chunks(mat: MatrixFile, chunk_rows: int, device: torch.device,
     for i, lo in enumerate(range(0, n, chunk_rows)):
         b = i % len(host)
         if copied[b] is not None:
+            count("stream_buffer_waits")
             copied[b].synchronize()               # the copy that read host[b] is done
         rows = mat.read_into(lo, chunk_rows, host[b].data_ptr())
         dev[:rows].copy_(host[b][:rows], non_blocking=overlap)
         if overlap:
             copied[b] = torch.cuda.Event()
             copied[b].record()
+        count("stream_chunks")
         consume(lo, dev[:rows])
         if not overlap:
             torch.cuda.synchronize(device)
@@ -139,21 +151,23 @@ def streamed_subsample(
     means the CUDA device and raises without one."""
     device = resolve_device(device, "streamed_subsample")
     dtype = dtype or _TORCH_DTYPES[np.dtype(mat.dtype)]
-    sample = reservoir_sample(mat, min(sample_factor * g.s, mat.shape[0]), chunk_rows)
-    sub = kmeans(generator, torch.as_tensor(sample, dtype=dtype, device=device), g.s,
-                 nstart=g.nstart, iters=g.kmeans_iters)
-    centers = sub.centers.contiguous()
-    counts = torch.zeros((g.s,), dtype=torch.int64, device=device)
-    ones = torch.ones((min(chunk_rows, mat.shape[0]),), dtype=torch.int64, device=device)
+    with span("reservoir"):
+        sample = reservoir_sample(mat, min(sample_factor * g.s, mat.shape[0]), chunk_rows)
+    with span("subsample"):
+        sub = kmeans(generator, to_device(sample, dtype, device), g.s, nstart=g.nstart,
+                     iters=g.kmeans_iters)
+        centers = sub.centers.contiguous()
+        counts = torch.zeros((g.s,), dtype=torch.int64, device=device)
+        ones = torch.ones((min(chunk_rows, mat.shape[0]),), dtype=torch.int64, device=device)
 
-    def count(lo, chunk):
-        # integer additions: exact in any order; ``torch.bincount`` would read
-        # the labels' maximum to the host once a chunk
-        lab = knn(chunk.to(dtype), centers, 1).indices[:, 0]
-        counts.index_add_(0, lab.long(), ones[:lab.shape[0]])
+        def count_pass(lo, chunk):
+            # integer additions: exact in any order; ``torch.bincount`` would
+            # read the labels' maximum to the host once a chunk
+            lab = knn(chunk.to(dtype), centers, 1).indices[:, 0]
+            counts.index_add_(0, lab.long(), ones[:lab.shape[0]])
 
-    _stream_chunks(mat, chunk_rows, device, count)
-    return SubsampleResult(centers, counts.to(torch.float64))
+        _stream_chunks(mat, chunk_rows, device, count_pass)
+        return SubsampleResult(centers, counts.to(torch.float64))
 
 
 def streamed_ell_graph(
@@ -205,9 +219,11 @@ def streamed_build_spectrum(
         raise ValueError(f"anchors are on {anchors.centers.device}, the spectrum on {device}")
     sub = anchors if anchors is not None else streamed_subsample(
         generator, mat, g, chunk_rows=chunk_rows, device=device, dtype=dtype)
-    Z = streamed_ell_graph(mat, sub.centers, g, chunk_rows)
-    return spectrum_fused(Z.values, Z.indices, g.s, g.resolved_K(), g.gl, g.root,
-                          sub.counts), sub
+    with span("graph"):
+        Z = streamed_ell_graph(mat, sub.centers, g, chunk_rows)
+    with span("spectrum"):
+        return spectrum_fused(Z.values, Z.indices, g.s, g.resolved_K(), g.gl, g.root,
+                              sub.counts), sub
 
 
 class StreamedGpcResult(NamedTuple):
@@ -332,7 +348,7 @@ def _streamed_spectrum(generator, mat: MatrixFile, cfg: FitConfig, chunk_rows: i
     eig, _ = streamed_build_spectrum(generator, mat, g, chunk_rows, device=device,
                                      dtype=cfg.dtype)
     n = mat.shape[0]
-    idx = torch.as_tensor(np.asarray(train_idx), dtype=torch.int64, device=device)
+    idx = to_device(np.asarray(train_idx), torch.int64, device)
     return device, eig, n, min(g.resolved_K(), g.s, n), idx
 
 
@@ -361,12 +377,14 @@ def fit_lae_logit_gp_streamed(
     device, eig, n, K, idx = _streamed_spectrum(generator, mat, cfg, chunk_rows, device,
                                                 train_idx)
     m = idx.shape[0]
-    Y = torch.as_tensor(np.asarray(Y_train), dtype=cfg.dtype, device=device)
+    Y = to_device(np.asarray(Y_train), cfg.dtype, device)
     N_arr, max_count = _counts(N, m, cfg.dtype, device)
     scfg, eig_m, (Ys, Ns) = _solve_cast(cfg, _train_rows(eig, idx), Y, N_arr)
-    res = _train_gpc(eig_m, Ys, Ns, slice(0, m), K, scfg)
-    labels, probs, mean, var = _gpc_lowrank_tail(generator, eig, Ys, Ns, idx, K, scfg, res.x,
-                                                 max_count, chunk_rows)
+    with span("train"):
+        res = _train_gpc(eig_m, Ys, Ns, slice(0, m), K, scfg)
+    with span("predict"):
+        labels, probs, mean, var = _gpc_lowrank_tail(generator, eig, Ys, Ns, idx, K, scfg,
+                                                     res.x, max_count, chunk_rows)
     return StreamedGpcResult(labels, probs, mean, var, dict(t=res.x, obj=res.obj))
 
 
@@ -388,16 +406,18 @@ def fit_lae_logit_mult_gp_streamed(
     device, eig, n, K, idx = _streamed_spectrum(generator, mat, cfg, chunk_rows, device,
                                                 train_idx)
     m = idx.shape[0]
-    Y = torch.as_tensor(np.asarray(Y_train), dtype=cfg.dtype, device=device)
+    Y = to_device(np.asarray(Y_train), cfg.dtype, device)
     aug_y = one_hot_labels(Y, int(to_host(torch.max(Y))) + 1)
     scfg, eig_m, (aug_s,) = _solve_cast(cfg, _train_rows(eig, idx), aug_y)
-    res = _train_mult(eig_m, aug_s, m, K, scfg)
-    N_arr = torch.ones((m,), dtype=scfg.dtype, device=device)
-    seeds = to_host(torch.randint(0, 2 ** 62, (aug_s.shape[1],), generator=generator,
-                                  device=device)).tolist()
-    tails = [_gpc_lowrank_tail(torch.Generator(device=device).manual_seed(seed), eig,
-                               aug_s[:, j], N_arr, idx, K, scfg, res.x[j], 1, chunk_rows)
-             for j, seed in enumerate(seeds)]
+    with span("train"):
+        res = _train_mult(eig_m, aug_s, m, K, scfg)
+    with span("predict"):
+        N_arr = torch.ones((m,), dtype=scfg.dtype, device=device)
+        seeds = to_host(torch.randint(0, 2 ** 62, (aug_s.shape[1],), generator=generator,
+                                      device=device)).tolist()
+        tails = [_gpc_lowrank_tail(torch.Generator(device=device).manual_seed(seed), eig,
+                                   aug_s[:, j], N_arr, idx, K, scfg, res.x[j], 1, chunk_rows)
+                 for j, seed in enumerate(seeds)]
     probs = torch.stack([tail[1] for tail in tails])
     mean = torch.stack([tail[2] for tail in tails], dim=1)
     var = torch.stack([tail[3] for tail in tails], dim=1)
@@ -423,14 +443,16 @@ def fit_lae_regression_gp_streamed(
     device, eig, n, K, idx = _streamed_spectrum(generator, mat, cfg, chunk_rows, device,
                                                 train_idx)
     m = idx.shape[0]
-    Y = torch.as_tensor(np.asarray(Y_train), dtype=cfg.dtype, device=device)
+    Y = to_device(np.asarray(Y_train), cfg.dtype, device)
     scfg, eig_m, (Ys,) = _solve_cast(cfg, _train_rows(eig, idx), Y)
-    res = _train_gpr(eig_m, Ys, slice(0, m), K, scfg)
+    with span("train"):
+        res = _train_gpr(eig_m, Ys, slice(0, m), K, scfg)
     train, rows = slice(0, m), slice(m, None)
 
     def predict(Vc):
         block = EigenPair(eig_m.values, torch.cat([eig_m.vectors, Vc.to(scfg.dtype)]))
         return (gpr_mod.gpr_predict(block, Ys, train, rows, K, res.t, res.noise, scfg.sigma),)
 
-    (pred,) = _chunked_rows(predict, eig.vectors, chunk_rows)
+    with span("predict"):
+        (pred,) = _chunked_rows(predict, eig.vectors, chunk_rows)
     return pred, dict(t=res.t, noise=res.noise, obj=res.obj)

@@ -517,6 +517,52 @@ def test_host_syncs_count_every_synchronizing_call_of_a_fit(dev, driver):
     assert metrics.COUNTS["host_syncs"] - before == syncs > 0
 
 
+def test_streamed_fit_counts_its_syncs_apart_from_its_buffer_waits(dev, tmp_path):
+    """The out-of-core binary fit: ``host_syncs`` is what the sync debug mode
+    reports, and the host's waits on a pinned buffer's copy are counted apart
+    (``stream_buffer_waits``: each of the two passes through the pinned
+    buffers waits once a chunk but for the first two), beside three passes of
+    ``stream_chunks``."""
+    import math
+    import warnings
+
+    import flgp_tpu_torch as ft
+    from flgp_tpu_torch import native
+    from flgp_tpu_torch.datasets import torus_rings
+    from flgp_tpu_torch.fit import streaming
+    from flgp_tpu_torch.utils import metrics
+
+    ds = torus_rings(n=24000, m_train=200, seed=1234)
+    path = str(tmp_path / "x.flgp")
+    native.write_matrix(path, np.concatenate([ds.x_train, ds.x_test]).astype(np.float32))
+    cfg = ft.FitConfig(graph=ft.GraphConfig(s=240, r=3, K=60), n_gibbs=10, gibbs_avg_sweeps=5,
+                       dtype=torch.float32, solve_dtype=torch.float64)
+    rows = 5000
+    chunks = math.ceil(24000 / rows)
+
+    def fit(mat):
+        return streaming.fit_lae_logit_gp_streamed(
+            torch.Generator(device=dev).manual_seed(0), mat, ds.y_train, np.arange(200), cfg=cfg,
+            chunk_rows=rows)
+
+    with native.MatrixFile(path) as mat:
+        fit(mat)                            # the kernels' first launches
+        torch.cuda.synchronize()
+        before = metrics.COUNTS.copy()
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                fit(mat)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+    syncs = sum("called a synchronizing CUDA operation" in str(w.message) for w in seen)
+    got = metrics.COUNTS - before
+    assert got["host_syncs"] == syncs > 0
+    assert got["stream_chunks"] == 3 * chunks
+    assert got["stream_buffer_waits"] == 2 * (chunks - 2)
+
+
 # ---------------------------------------------------------------------------
 # K2–K8 above r = 16: the run-time-r bodies
 # ---------------------------------------------------------------------------

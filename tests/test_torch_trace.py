@@ -9,10 +9,14 @@ that a patch of the tensor's read methods sees); ``lloyd_rounds`` and
 passes sent to K1, none on the CPU; under the profiler every span is a
 ``flgp:`` range of the trace.  The SE regression with its bandwidth grid
 opens a ``grid`` span for each bandwidth and counts ``grid_spectra`` there,
-and ``adam_steps`` in its ``train`` span.
+and ``adam_steps`` in its ``train`` span.  The out-of-core binary fit, from
+an FLGP0001 file, opens ``reservoir``, ``subsample``, ``graph``,
+``spectrum``, ``train`` and ``predict`` under ``fit`` and counts each chunk
+its three passes hand on (``stream_chunks``).
 """
 
 import json
+import math
 from collections import Counter
 
 import numpy as np
@@ -20,7 +24,9 @@ import pytest
 import torch
 
 import flgp_tpu_torch as ft
+from flgp_tpu_torch import native
 from flgp_tpu_torch.datasets import mnist_like, spiral, torus_rings
+from flgp_tpu_torch.fit import streaming
 from flgp_tpu_torch.inference import nuts
 from flgp_tpu_torch.models import gpc
 from flgp_tpu_torch.ops import hopper_kernels as hk
@@ -43,6 +49,10 @@ SE_CFG = ft.FitConfig(graph=ft.GraphConfig(s=48, r=3, K=16, kernel="se"), sigma=
 SE_TREE = {"fit": None, "upload": "fit", "subsample": "fit", "graph": "fit", "knn": "graph",
            "grid": "fit", "train": "fit", "predict": "fit"}
 N_GRID = len(ft.config.default_a2s())
+# the out-of-core binary fit: its layers, each once, and its chunks
+STREAM_TREE = {"fit": None, "reservoir": "fit", "subsample": "fit", "graph": "fit",
+               "spectrum": "fit", "train": "fit", "predict": "fit"}
+STREAM_ROWS = 250
 
 
 def _data(driver):
@@ -156,6 +166,98 @@ def test_each_fit_keeps_its_own_counts(driver):
     assert last == Counter(metrics.COUNTS) - before
     assert last - Counter(fits=1) == rec.fit_counts(1) and last["fits"] == 1
     assert last["host_syncs"] > 0
+
+
+@pytest.fixture(scope="module")
+def streamed_file(tmp_path_factory):
+    """The torus of the LAE drivers' tests as a float32 FLGP0001 file, the
+    train rows first, and its split."""
+    ds = _data("fit_lae_logit_gp")
+    path = str(tmp_path_factory.mktemp("streamed") / "x.flgp")
+    native.write_matrix(path, np.concatenate([ds.x_train, ds.x_test]).astype(np.float32))
+    return path, ds
+
+
+def _fit_streamed(streamed_file):
+    path, ds = streamed_file
+    with native.MatrixFile(path) as mat:
+        return streaming.fit_lae_logit_gp_streamed(
+            torch.Generator().manual_seed(5), mat, ds.y_train, np.arange(len(ds.y_train)),
+            cfg=CFG, chunk_rows=STREAM_ROWS, device="cpu")
+
+
+def test_streamed_fit_changes_no_output_bit_when_recording(streamed_file):
+    off = _fit_streamed(streamed_file)
+    with recording() as rec:
+        on = _fit_streamed(streamed_file)
+    after = _fit_streamed(streamed_file)
+    for name in ("labels", "probs", "post_mean", "post_var"):
+        assert torch.equal(getattr(off, name), getattr(on, name)), name
+        assert torch.equal(getattr(off, name), getattr(after, name)), name
+    assert torch.equal(off.pars["t"], on.pars["t"]) and torch.equal(off.pars["obj"], on.pars["obj"])
+    assert rec.fits() == [1] and len(rec.spans) == len(STREAM_TREE)
+
+
+def test_streamed_spans_form_one_tree_under_fit(streamed_file):
+    with recording() as rec:
+        _fit_streamed(streamed_file)
+    assert Counter(s.name for s in rec.spans) == Counter(STREAM_TREE.keys())
+    by_id = {s.id: s for s in rec.spans}
+    for s in rec.spans:
+        assert s.fit == 1 and s.t0 <= s.t1
+        if STREAM_TREE[s.name] is None:
+            assert s.parent is None
+            continue
+        parent = by_id[s.parent]
+        assert parent.name == STREAM_TREE[s.name], (s.name, parent.name)
+        assert parent.t0 <= s.t0 and s.t1 <= parent.t1, s.name
+    # the layers in the order the fit runs them, none overlapping
+    order = sorted((s for s in rec.spans if s.parent is not None), key=lambda s: s.t0)
+    assert [s.name for s in order] == ["reservoir", "subsample", "graph", "spectrum", "train",
+                                       "predict"]
+    assert all(a.t1 <= b.t0 for a, b in zip(order, order[1:]))
+
+
+def test_streamed_fit_counts_three_passes_of_chunks_in_their_layers(streamed_file):
+    """Each of the three passes over the file (the reservoir's, the count
+    pass, the graph pass) hands on ⌈n / chunk_rows⌉ chunks; the record and the
+    fit's own entry of ``FIT_COUNTS`` agree."""
+    n = len(streamed_file[1].y_train) + len(streamed_file[1].y_test)
+    with recording() as rec:
+        _fit_streamed(streamed_file)
+    chunks = 3 * math.ceil(n / STREAM_ROWS)
+    assert rec.fit_counts(1)["stream_chunks"] == metrics.FIT_COUNTS[-1]["stream_chunks"] == chunks
+    name_of = {s.id: s.name for s in rec.spans}
+    where = Counter()
+    for (_, sid), c in rec.counts.items():
+        where[name_of.get(sid)] += c["stream_chunks"]
+    assert +where == Counter(reservoir=chunks // 3, subsample=chunks // 3, graph=chunks // 3)
+
+
+def test_streamed_host_syncs_count_every_read_and_no_buffer_wait(streamed_file, monkeypatch):
+    """``host_syncs`` counts the reads a patch of the tensor's read methods
+    sees, and nothing else: on the CPU the passes read through the loader, so
+    no pinned buffer is waited on (``stream_buffer_waits`` stays where it
+    was; on the card the two are counted apart, ``tests/test_torch_cuda.py``)."""
+    seen = Counter()
+
+    def patched(name):
+        orig = getattr(torch.Tensor, name)
+
+        def read(self, *args, **kwargs):
+            if name != "cpu" or self.device.type != "cpu":
+                seen[name] += 1
+            return orig(self, *args, **kwargs)
+        return read
+
+    for name in _READS:
+        monkeypatch.setattr(torch.Tensor, name, patched(name))
+    before = Counter(metrics.COUNTS)
+    _fit_streamed(streamed_file)
+    monkeypatch.undo()
+    syncs = metrics.COUNTS["host_syncs"] - before["host_syncs"]
+    assert syncs == sum(seen.values()) > 0, (syncs, seen)
+    assert metrics.COUNTS["stream_buffer_waits"] == before["stream_buffer_waits"]
 
 
 def test_se_regression_changes_no_output_bit_when_recording():
