@@ -129,28 +129,38 @@ def _train_gpr(eigenpair: EigenPair, Y, idx, K: int, cfg: FitConfig) -> GprOptRe
 
 
 def _train_gpc(eigenpair: EigenPair, Y, N, idx, K: int, cfg: FitConfig) -> Scalar1DResult:
+    """Empirical-Bayes t for the labels Y over the training rows ``idx``.  Y
+    of shape (m,) is one problem, and every field of the result a scalar; Y
+    of shape (J, m), J label columns over the one spectrum, is J problems
+    solved together as ``minimize_1d_log``'s problem axis, every field of
+    the result (J,) and each problem's the one it gets alone."""
     tc = cfg.train
+    Yj = Y if Y.dim() == 2 else Y[None]
 
-    def obj_at(t, max_iter):
+    def obj_at(t, rows, max_iter):
+        # t (J', w) against the problems' labels (J', 1, m)
+        Yr = (Yj if rows is None else torch.stack([Yj[r] for r in rows]))[:, None, :]
         if tc.approach == Approach.POSTERIOR:
             return gpc_mod.gpc_nlp_objective(
-                eigenpair, Y, N, idx, K, t, cfg.sigma,
+                eigenpair, Yr, N, idx, K, t, cfg.sigma,
                 p=tc.prior_p_gpc, q=tc.prior_q, tau=tc.prior_tau,
                 tol=tc.newton_tol, max_iter=max_iter,
             )
         return gpc_mod.gpc_nmll_objective(
-            eigenpair, Y, N, idx, K, t, cfg.sigma, tol=tc.newton_tol, max_iter=max_iter,
+            eigenpair, Yr, N, idx, K, t, cfg.sigma, tol=tc.newton_tol, max_iter=max_iter,
         )
 
     # The coarse scan ranks cells that differ by orders of magnitude, so a
     # 30-iteration Newton budget ranks them as well as the full one while
     # extreme-t lanes stop early; refinement uses the full budget.
     coarse_cap = min(30, tc.newton_max_iter)
-    return minimize_1d_log(
-        lambda t: obj_at(t, tc.newton_max_iter),
+    res = minimize_1d_log(
+        lambda t, rows: obj_at(t, rows, tc.newton_max_iter),
         lo=tc.t_lb, hi=tc.t_ub, n_grid=tc.grid_size, dtype=cfg.dtype,
-        coarse_fn=lambda t: obj_at(t, coarse_cap), device=eigenpair.values.device,
+        coarse_fn=lambda t, rows: obj_at(t, rows, coarse_cap), device=eigenpair.values.device,
+        problems=Yj.shape[0],
     )
+    return res if Y.dim() == 2 else res.first()
 
 
 @spanned("predict")

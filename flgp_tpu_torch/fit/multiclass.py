@@ -4,9 +4,11 @@ The port of ``flgp_tpu.fit.multiclass``.  J binary logit GPs share one
 spectral basis: each class's diffusion time t is trained on its own 0/1
 column of the one-hot labels, then J PG-Gibbs chains give J probability
 columns and the label is their argmax (the first class on ties).  Training
-runs the J classes one after the other, each a batched Newton solve over its
-t grid whose lanes freeze exactly as a lone run would (``models/gpc.py``), so
-the result equals the reference's vmap over classes.  The chains run as the J
+runs the J classes as the problems of one t-search (``drivers._train_gpc``):
+each stage is one batched Newton solve over the classes' t grids whose lanes
+freeze exactly as a lone run would (``models/gpc.py``), and each class keeps
+its own window and bracket, so the result equals the reference's vmap over
+classes.  The chains run as the J
 lanes of one chain (``inference/pg_gibbs.py``) and the Laplace moments as J
 lanes of one Newton solve.  The SE, Nyström and GLGP drivers train every
 class at each bandwidth of the grid and keep the bandwidth of the smallest
@@ -51,17 +53,12 @@ def one_hot_labels(Y: torch.Tensor, J: int) -> torch.Tensor:
 
 
 def _train_mult(eigenpair: EigenPair, aug_y, m: int, K: int, cfg: FitConfig) -> Scalar1DResult:
-    """The J binary t-optimizations over the shared spectrum, class after
-    class, in one span ``train``; every field of the result has a leading
-    (J,) axis."""
+    """The J binary t-optimizations over the shared spectrum as the J
+    problems of one ``_train_gpc``, in one span ``train``; every field of the
+    result has a leading (J,) axis."""
     with span("train"):
         N = torch.ones((m,), dtype=aug_y.dtype, device=aug_y.device)
-        results = [_train_gpc(eigenpair, aug_y[:, j], N, slice(0, m), K, cfg)
-                   for j in range(aug_y.shape[1])]
-    return Scalar1DResult(
-        torch.stack([r.x for r in results]), torch.stack([r.obj for r in results]),
-        torch.stack([r.bracket_logwidth for r in results]),
-        torch.tensor([r.n_expansions for r in results]))
+        return _train_gpc(eigenpair, aug_y.T, N, slice(0, m), K, cfg)
 
 
 def _predict_mult(generator, eigenpair: EigenPair, aug_y, ts, m: int, n: int, K: int,

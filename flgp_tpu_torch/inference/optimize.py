@@ -20,8 +20,9 @@ entry point of the port runs on the card unless the caller names the CPU.
 from __future__ import annotations
 
 import math
-from typing import Callable, NamedTuple, Optional, Tuple
+from typing import Any, Callable, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 from ..config import resolve_device
@@ -32,22 +33,40 @@ class Scalar1DResult(NamedTuple):
     x: torch.Tensor
     obj: torch.Tensor               # objective value at x (minimized)
     bracket_logwidth: torch.Tensor  # final refinement bracket width in log-x
-    n_expansions: int               # window shifts taken (== max_expand → top-pinned)
+    n_expansions: Any               # window shifts taken (== max_expand → top-pinned): an int,
+                                    # or a list of J ints for J problems
+
+    def first(self) -> "Scalar1DResult":
+        """The first problem's result, every field a scalar."""
+        return Scalar1DResult(self.x[0], self.obj[0], self.bracket_logwidth[0],
+                              self.n_expansions[0])
 
 
 def _linspace(a: torch.Tensor, b: torch.Tensor, n: int) -> torch.Tensor:
-    """n points from a to b, the last exactly b (tensor endpoints)."""
+    """n points from a to b along a new last axis, the last exactly b (a and b
+    tensors of one shape)."""
     step = (b - a) / (n - 1)
-    head = a + step * torch.arange(n - 1, dtype=a.dtype, device=a.device)
-    return torch.cat([head, b.reshape(1)])
+    head = a[..., None] + step[..., None] * torch.arange(n - 1, dtype=a.dtype, device=a.device)
+    return torch.cat([head, b[..., None]], dim=-1)
 
 
 def _finite(f: torch.Tensor) -> torch.Tensor:
     return torch.where(torch.isfinite(f), f, torch.full_like(f, float("inf")))
 
 
+def _pick(x: torch.Tensor, cols) -> torch.Tensor:
+    """x[r, cols[r]] for each row r, the columns read on the host."""
+    return torch.stack([x[r, c] for r, c in enumerate(cols.tolist())])
+
+
+def _merge(old: torch.Tensor, new: torch.Tensor, rows: list) -> torch.Tensor:
+    """``old`` with its rows ``rows`` replaced by the rows of ``new``, in order."""
+    at = {r: k for k, r in enumerate(rows)}
+    return torch.stack([new[at[r]] if r in at else old[r] for r in range(old.shape[0])])
+
+
 def minimize_1d_log(
-    fn: Callable[[torch.Tensor], torch.Tensor],
+    fn: Callable,
     lo: float = 1e-2,
     hi: float = 1e3,
     n_grid: int = 32,
@@ -55,8 +74,9 @@ def minimize_1d_log(
     refine_width: int = 32,
     dtype: torch.dtype = torch.float32,
     max_expand: int = 4,
-    coarse_fn: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
+    coarse_fn: Optional[Callable] = None,
     device=None,
+    problems: Optional[int] = None,
 ) -> Scalar1DResult:
     """Minimize fn over [lo, hi], unbounded above: while the optimum pins to
     the top of the scan window, the window shifts up by its own log-span (at
@@ -69,46 +89,79 @@ def minimize_1d_log(
     is chosen.  Refinement (``refine_rounds`` rounds of ``refine_width``
     points, each shrinking the bracket by 2/(width−1)) and the returned
     objective always use the exact ``fn``.  Non-finite values count as +inf.
+
+    Without ``problems``, fn takes a 1-D tensor of x values and returns one
+    value per x, and every field of the result is a scalar.  With
+    ``problems`` = J, J independent problems over the same [lo, hi] are
+    solved together: fn(x, rows) takes x of shape (J', w), row k holding w
+    points of problem ``rows[k]``, and returns (J', w); ``rows`` lists the
+    J' problems in ascending order, or is None for all J.  Each problem keeps
+    its own window, argmin (ties to the lower index), window shifts,
+    re-ranked top 3, bracket and best-so-far, so its result is the one it
+    gets alone; each stage reads all its problems' argmins in one
+    ``to_host``, and a window shift evaluates only the problems still pinned
+    to the top of their window.  Every field of the result has a leading
+    (J,) axis (``n_expansions`` a list).  Each call counts one
+    ``t_searches`` and J ``t_search_problems``.
     """
     device = resolve_device(device, "minimize_1d_log")
+    if problems is None:
+        def lift(f):
+            return None if f is None else (lambda x, rows: f(x[0])[None])
+        return minimize_1d_log(lift(fn), lo, hi, n_grid, refine_rounds, refine_width, dtype,
+                               max_expand, lift(coarse_fn), device, problems=1).first()
+    J = problems
+    count("t_searches")
+    count("t_search_problems", J)
     lo_l = torch.log(to_device(lo, dtype, device))
     hi_l = torch.log(to_device(hi, dtype, device))
-    g = lambda u: _finite(fn(torch.exp(u)))  # noqa: E731
-    g_coarse = g if coarse_fn is None else (lambda u: _finite(coarse_fn(torch.exp(u))))
+    g = lambda u, rows: _finite(fn(torch.exp(u), rows))  # noqa: E731
+    g_coarse = g if coarse_fn is None else (
+        lambda u, rows: _finite(coarse_fn(torch.exp(u), rows)))
 
-    def scan_window(a_l, b_l):
+    def scan_window(a_l, b_l, rows):
         us = _linspace(a_l, b_l, n_grid)
-        fs = g_coarse(us)
-        return us, fs, to_host(torch.argmin(fs))
+        fs = g_coarse(us, rows)
+        return us, fs, to_host(torch.argmin(fs, dim=-1))
 
-    us, fs, i = scan_window(lo_l, hi_l)
+    us, fs, i = scan_window(lo_l.expand(J), hi_l.expand(J), None)
     span = hi_l - lo_l
-    n_exp = 0
-    while i == n_grid - 1 and n_exp < max_expand:
-        us, fs, i = scan_window(us[-1], us[-1] + span)
-        n_exp += 1
+    n_exp = np.zeros(J, dtype=np.int64)
+    while True:
+        rows = [r for r in range(J) if i[r] == n_grid - 1 and n_exp[r] < max_expand]
+        if not rows:
+            break
+        if len(rows) == J:
+            us, fs, i = scan_window(us[:, -1], us[:, -1] + span, None)
+        else:
+            top = torch.stack([us[r, -1] for r in rows])
+            us_r, fs_r, i[rows] = scan_window(top, top + span, rows)
+            us, fs = _merge(us, us_r, rows), _merge(fs, fs_r, rows)
+        n_exp[rows] += 1
     if coarse_fn is not None:
         # the surrogate's 3 best cells (ties to the lower index), re-ranked exactly
-        top3 = torch.sort(fs, stable=True).indices[:3]
-        i = to_host(top3[to_host(torch.argmin(g(us[top3])))])
-    wa, wb = us[0], us[-1]
-    a = us[max(i - 1, 0)]
-    b = us[min(i + 1, n_grid - 1)]
+        top3 = torch.sort(fs, dim=-1, stable=True).indices[:, :3]
+        k = to_host(torch.argmin(g(torch.gather(us, 1, top3), None), dim=-1))
+        i = to_host(_pick(top3, k))
+    wa, wb = us[:, 0], us[:, -1]
+    a = _pick(us, np.maximum(i - 1, 0))
+    b = _pick(us, np.minimum(i + 1, n_grid - 1))
     w = refine_width
 
     # a surrogate's coarse values must not seed the best-so-far tracker
-    best_u = us[i]
-    best_f = fs[i] if coarse_fn is None else to_device(float("inf"), dtype, device)
+    best_u = _pick(us, i)
+    best_f = _pick(fs, i) if coarse_fn is None else to_device(float("inf"), dtype, device)
     for _ in range(refine_rounds):
         uu = _linspace(a, b, w)
-        ff = g(uu)
-        j = to_host(torch.argmin(ff))
-        improved = ff[j] < best_f
-        best_u = torch.where(improved, uu[j], best_u)
-        best_f = torch.where(improved, ff[j], best_f)
+        ff = g(uu, None)
+        j = to_host(torch.argmin(ff, dim=-1))
+        u_j, f_j = _pick(uu, j), _pick(ff, j)
+        improved = f_j < best_f
+        best_u = torch.where(improved, u_j, best_u)
+        best_f = torch.where(improved, f_j, best_f)
         h = (b - a) / (w - 1)
-        a, b = torch.clamp(uu[j] - h, wa, wb), torch.clamp(uu[j] + h, wa, wb)
-    return Scalar1DResult(torch.exp(best_u), best_f, b - a, n_exp)
+        a, b = torch.clamp(u_j - h, wa, wb), torch.clamp(u_j + h, wa, wb)
+    return Scalar1DResult(torch.exp(best_u), best_f.expand(J), b - a, n_exp.tolist())
 
 
 class AdamResult(NamedTuple):

@@ -1373,6 +1373,48 @@ def test_multiclass_entry_point_on_the_card(dev, name, graph):
     assert np.all(np.isfinite(res.posterior_mean)) and np.all(np.isfinite(res.pars["t"]))
 
 
+def test_ten_classes_in_one_t_search_are_their_lone_trainings(dev):
+    """Ten classes trained as the problems of one t-search (float32 graph,
+    float64 tail): each class's window shifts and objective (within 1e-9) of
+    its lone training, its t inside the lone training's last bracket, the
+    labels of the lone trainings' t, and at least three times fewer Newton
+    rounds than the ten lone trainings together.  Batched cuBLAS and
+    cuSOLVER may round an objective differently at ten times the batch, and
+    where two cells of the last refinement round are that close the search
+    takes the other: t moves by one cell, 9e-6 of t at 32 points a round."""
+    import flgp_tpu_torch as ft
+    from flgp_tpu_torch.datasets import mnist_like
+    from flgp_tpu_torch.fit import multiclass as mc
+    from flgp_tpu_torch.fit import spectral
+    from flgp_tpu_torch.fit.drivers import _solve_cast, _train_gpc
+    from flgp_tpu_torch.utils import metrics
+
+    ds = mnist_like(n=20000, n_classes=10, d=64, m_train=500, seed=4)
+    X = torch.as_tensor(np.concatenate([ds.x_train, ds.x_test]), dtype=torch.float32, device=dev)
+    cfg = ft.FitConfig(graph=ft.GraphConfig(s=600, r=3, K=100), n_gibbs=50, gibbs_avg_sweeps=25,
+                       dtype=torch.float32, solve_dtype=torch.float64)
+    m, n, K = len(ds.y_train), X.shape[0], 100
+    eig, _ = spectral.build_spectrum(torch.Generator(device=dev).manual_seed(0), X, cfg.graph)
+    aug = mc.one_hot_labels(torch.as_tensor(ds.y_train, dtype=torch.float32, device=dev), 10)
+    scfg, seig, (aug_s,) = _solve_cast(cfg, eig, aug)
+    before = metrics.COUNTS["newton_rounds"]
+    joint = mc._train_mult(seig, aug_s, m, K, scfg)
+    joint_rounds = metrics.COUNTS["newton_rounds"] - before
+    N = torch.ones(m, dtype=torch.float64, device=dev)
+    before = metrics.COUNTS["newton_rounds"]
+    lone = [_train_gpc(seig, aug_s[:, j], N, slice(0, m), K, scfg) for j in range(10)]
+    lone_rounds = metrics.COUNTS["newton_rounds"] - before
+    t_lone = torch.stack([r.x for r in lone])
+    gap = torch.abs(torch.log(joint.x) - torch.log(t_lone))
+    assert bool(torch.all(gap <= torch.stack([r.bracket_logwidth for r in lone]))), gap
+    torch.testing.assert_close(joint.obj, torch.stack([r.obj for r in lone]), rtol=1e-9, atol=0)
+    assert joint.n_expansions == [r.n_expansions for r in lone]
+    assert 0 < 3 * joint_rounds <= lone_rounds, (joint_rounds, lone_rounds)
+    labels = [mc._predict_mult(torch.Generator(device=dev).manual_seed(1), seig, aug_s, t, m, n,
+                               K, scfg)[0] for t in (joint.x, t_lone)]
+    assert torch.equal(labels[0], labels[1])
+
+
 def test_extras_on_the_card(dev):
     """``heat_kernel_covariance`` on float32 points launches K1–K5;
     ``lae_eigenmap`` gives sorted Laplacian eigenvalues in [0, 2]."""

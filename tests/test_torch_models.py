@@ -13,6 +13,7 @@ from pathlib import Path
 import jax
 import jax.numpy as jnp
 import numpy as np
+import optimize_parent
 import pytest
 import torch
 
@@ -159,6 +160,73 @@ def test_minimize_1d_log_expands_past_the_window():
     assert res.n_expansions == int(ref.n_expansions) >= 1
     np.testing.assert_allclose(float(res.x), float(ref.x), rtol=1e-9)
     np.testing.assert_allclose(float(res.x), 5e4, rtol=1e-3)
+
+
+def _expanding(x):
+    # minimum at x = 5e4, above the initial window [1e-2, 1e3]; non-finite values count as +inf
+    return torch.where(x < 2e-2, torch.nan, (torch.log(x) - np.log(5e4)) ** 2)
+
+
+def _pinned(x):
+    # decreasing everywhere: every window pins to its top, up to max_expand
+    return -torch.log(x)
+
+
+def _bumpy(x):
+    # many local minima: the surrogate's top 3 and the exact re-rank differ
+    u = torch.log(x)
+    return torch.cos(3.0 * u) + 0.05 * (u - 2.0) ** 2
+
+
+@pytest.mark.parametrize("f", [_expanding, _pinned, _bumpy])
+@pytest.mark.parametrize("surrogate", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_one_problem_is_the_parent_s_search_bit_for_bit(f, surrogate, dtype):
+    """A scalar objective, and the same objective as one problem of the
+    problem axis, give the one-problem optimizer's values bit for bit, its
+    window shifts and its host syncs."""
+    from flgp_tpu_torch.inference.optimize import minimize_1d_log
+
+    coarse = (lambda x: f(x) + 0.1 * torch.sin(x)) if surrogate else None
+    kw = dict(dtype=dtype, device="cpu", n_grid=16)
+    def syncs_of(search):
+        before = metrics.COUNTS["host_syncs"]
+        res = search()
+        return res, metrics.COUNTS["host_syncs"] - before
+
+    ref, ref_syncs = syncs_of(lambda: optimize_parent.minimize_1d_log(f, coarse_fn=coarse, **kw))
+    lift = lambda g: None if g is None else (lambda x, rows: g(x[0])[None])  # noqa: E731
+    for search in (lambda: minimize_1d_log(f, coarse_fn=coarse, **kw),
+                   lambda: minimize_1d_log(lift(f), coarse_fn=lift(coarse), problems=1,
+                                           **kw).first()):
+        got, syncs = syncs_of(search)
+        assert got.n_expansions == ref.n_expansions and syncs == ref_syncs
+        for a, b in zip(got[:3], ref[:3]):
+            assert a.shape == b.shape == () and torch.equal(a, b)
+    assert ref.n_expansions == {_expanding: 1, _pinned: 4, _bumpy: 0}[f]
+
+
+@pytest.mark.parametrize("m,K", [(20, 30), (40, 10)], ids=["dense", "woodbury"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_binary_training_is_the_parent_s_bit_for_bit(rng, m, K, dtype):
+    """``_train_gpc`` on labels (m,), one problem of the problem axis, gives
+    the one-problem training's t, objective, bracket and shifts bit for bit,
+    with its Newton rounds and host syncs to the count."""
+    values, vectors, Y, N = _problem(rng, m, K)
+    eig = eigenpair_from_numpy(values, vectors, dtype=dtype)
+    cfg = fit_config_from_jax(JFitConfig(dtype=jnp.float64))
+    cfg = dataclasses.replace(cfg, dtype=dtype)
+    Y, N = T(Y, dtype), T(N, dtype)
+    keys = ("newton_rounds", "host_syncs")
+    before = {k: metrics.COUNTS[k] for k in keys}
+    ref = optimize_parent.train_gpc(eig, Y, N, slice(0, m), K, cfg)
+    mid = {k: metrics.COUNTS[k] for k in keys}
+    got = drivers._train_gpc(eig, Y, N, slice(0, m), K, cfg)
+    for k in keys:
+        assert metrics.COUNTS[k] - mid[k] == mid[k] - before[k] > 0, k
+    assert got.n_expansions == ref.n_expansions
+    for a, b in zip(got[:3], ref[:3]):
+        assert a.shape == b.shape == () and torch.equal(a, b)
 
 
 # ---------------------------------------------------------------------------

@@ -179,6 +179,79 @@ def test_train_mult_matches_reference(blobs):
     np.testing.assert_allclose(res.obj.numpy(), np.asarray(jres.obj), rtol=1e-8)
 
 
+def _shifting_problem(m, K, n=80):
+    """A spectrum whose top pair is (1, a constant vector) and three label
+    columns: all ones, which wants a t above the others', a split on the
+    second vector and coin flips."""
+    rng = np.random.default_rng(1)
+    values = np.sort(rng.uniform(0.05, 0.9, size=K))[::-1].copy()
+    values[0] = 1.0
+    vectors = rng.normal(size=(n, K))
+    vectors[:, 0] = 2.0
+    cols = [np.ones(m), (vectors[:m, 1] > 0).astype(float),
+            (rng.uniform(size=m) < 0.5).astype(float)]
+    return eigenpair_from_numpy(values, vectors), torch.as_tensor(np.stack(cols, 1))
+
+
+def _recording_training(monkeypatch):
+    """Patch the training so that each evaluation of the objective records
+    the problems it ran (None: all) and each Newton solve its lanes' final
+    iteration counts; returns the two lists, in call order."""
+    rows, its = [], []
+    minimize, iterate = drivers.minimize_1d_log, gpc._iterate_lanes
+
+    def spy(fn):
+        def evaluate(t, r):
+            rows.append(r)
+            return fn(t, r)
+        return evaluate
+
+    def minimize_spied(fn, **kw):
+        return minimize(spy(fn), **dict(kw, coarse_fn=spy(kw["coarse_fn"])))
+
+    def iterate_recorded(*args):
+        st = iterate(*args)
+        its.append(st.it.clone())
+        return st
+
+    monkeypatch.setattr(drivers, "minimize_1d_log", minimize_spied)
+    monkeypatch.setattr(gpc, "_iterate_lanes", iterate_recorded)
+    return rows, its
+
+
+@pytest.mark.parametrize("m,K,t_ub,shifts", [(40, 10, 10.0, [1, 0, 0]), (40, 10, 0.03, [3, 2, 2]),
+                                             (20, 30, 10.0, [1, 0, 1]), (20, 30, 0.03, [3, 2, 3])],
+                         ids=["woodbury-one-shifts", "woodbury-all-shift", "dense-two-shift",
+                              "dense-all-shift"])
+def test_train_mult_is_each_class_s_lone_training(m, K, t_ub, shifts, monkeypatch):
+    """The J classes solved together give each class its lone run: the same
+    window shifts, the same Newton iteration count in every lane of every
+    evaluation it takes part in, and its t, objective and bracket, in float64
+    on both forms of the objective (m > K: the Woodbury dual; m ≤ K: dense),
+    with one class shifting its window more often than another."""
+    eig, Y = _shifting_problem(m, K)
+    cfg = ft.FitConfig(dtype=torch.float64, train=ft.TrainConfig(t_ub=t_ub, grid_size=16))
+    N = torch.ones(m, dtype=torch.float64)
+    rows, its = _recording_training(monkeypatch)
+    joint = mc._train_mult(eig, Y, m, K, cfg)
+    joint_rows, joint_its = list(rows), list(its)
+    assert joint.x.shape == joint.obj.shape == joint.bracket_logwidth.shape == (3,)
+    assert joint.n_expansions == shifts
+    for j in range(3):
+        rows.clear()
+        its.clear()
+        lone = drivers._train_gpc(eig, Y[:, j], N, slice(0, m), K, cfg)
+        assert lone.x.dim() == 0 and joint.n_expansions[j] == lone.n_expansions
+        for got, want in zip(joint[:3], lone[:3]):
+            np.testing.assert_allclose(float(got[j]), float(want), rtol=1e-12, atol=0)
+        assert rows == [None] * len(its)
+        mine = [it[(list(range(3)) if r is None else r).index(j)]
+                for r, it in zip(joint_rows, joint_its) if r is None or j in r]
+        assert len(mine) == len(its)
+        for a, b in zip(mine, its):
+            assert torch.equal(a, b[0])
+
+
 def test_posterior_mult_matches_reference(blobs):
     m, n, ts = blobs["m"], blobs["n"], np.asarray(blobs["jres"].x)
     ref = jmc._posterior_mult(blobs["jeig"], blobs["jaug"], jnp.asarray(ts), jnp.arange(m),

@@ -409,6 +409,73 @@ def test_newton_rounds_count_the_rounds_run():
     assert metrics.COUNTS["newton_rounds"] - before == int(its.max())
 
 
+@pytest.mark.parametrize("classes", [1, 4, 10])
+def test_a_fit_counts_one_t_search_of_its_classes(classes):
+    """A fit trains its classes in one t-search: ``t_searches`` 1 and
+    ``t_search_problems`` the number of classes, one for a binary fit."""
+    if classes == 1:
+        driver, ds = "fit_lae_logit_gp", _data("fit_lae_logit_gp")
+    else:
+        driver = "fit_lae_logit_mult_gp"
+        ds = mnist_like(n=900, n_classes=classes, d=8, m_train=80, seed=4)
+    with recording() as rec:
+        res = _fit(driver, ds)
+    got = rec.fit_counts(1)
+    assert (got["t_searches"], got["t_search_problems"]) == (1, classes)
+    assert np.asarray(res.pars["t"]).size == classes
+
+
+def test_a_joint_t_search_counts_the_slowest_lane_s_rounds(monkeypatch):
+    """The joint training's ``newton_rounds`` are the sum over its
+    evaluations of the slowest lane's iterations, and fewer than the sum over
+    the classes' lone trainings."""
+    from flgp_tpu_torch.fit import drivers
+    from flgp_tpu_torch.fit import multiclass as mc
+
+    ds = _data("fit_lae_logit_mult_gp")
+    X = torch.as_tensor(np.concatenate([ds.x_train, ds.x_test]), dtype=F64)
+    eig, _ = ft.fit.spectral.build_spectrum(torch.Generator().manual_seed(5), X, CFG.graph)
+    m = len(ds.y_train)
+    aug = mc.one_hot_labels(torch.as_tensor(ds.y_train, dtype=F64), 4)
+    its = []
+    iterate = gpc._iterate_lanes
+
+    def iterate_recorded(*args):
+        st = iterate(*args)
+        its.append(int(st.it.max()))
+        return st
+
+    monkeypatch.setattr(gpc, "_iterate_lanes", iterate_recorded)
+    before = metrics.COUNTS["newton_rounds"]
+    mc._train_mult(eig, aug, m, CFG.graph.K, CFG)
+    joint = metrics.COUNTS["newton_rounds"] - before
+    assert joint == sum(its) > 0
+    before = metrics.COUNTS["newton_rounds"]
+    N = torch.ones(m, dtype=F64)
+    for j in range(4):
+        drivers._train_gpc(eig, aug[:, j], N, slice(0, m), CFG.graph.K, CFG)
+    assert joint < metrics.COUNTS["newton_rounds"] - before
+
+
+def test_a_binary_fit_makes_the_one_problem_training_s_rounds_and_syncs(monkeypatch):
+    """A binary fit, one problem of the problem axis, makes the one-problem
+    training's Newton rounds and host syncs to the count, and its bits."""
+    import optimize_parent
+
+    from flgp_tpu_torch.fit import drivers
+
+    ds = _data("fit_lae_logit_gp")
+    got = _fit("fit_lae_logit_gp", ds)
+    counts = metrics.FIT_COUNTS[-1]
+    monkeypatch.setattr(drivers, "_train_gpc", optimize_parent.train_gpc)
+    ref = _fit("fit_lae_logit_gp", ds)
+    ref_counts = metrics.FIT_COUNTS[-1]
+    _same_bits(got, ref)
+    for k in ("newton_rounds", "host_syncs"):
+        assert counts[k] == ref_counts[k] > 0, k
+    assert (counts["t_searches"], ref_counts["t_searches"]) == (1, 0)
+
+
 @pytest.mark.parametrize("driver", DRIVERS)
 def test_counts_land_in_their_layers(driver):
     with recording() as rec:
@@ -424,6 +491,7 @@ def test_counts_land_in_their_layers(driver):
     assert where["lloyd_rounds"] == {"subsample"}
     assert where["pg_rounds"] == {"predict"}
     assert where["newton_rounds"] == {"train", "predict"}
+    assert where["t_searches"] == where["t_search_problems"] == {"train"}
     assert {"subsample", "train", "predict"} <= where["host_syncs"]
 
 
