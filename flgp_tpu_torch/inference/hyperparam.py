@@ -13,6 +13,10 @@ J classes, or (J, G, m, K) for J classes × G grid points, each lane stopping
 on its own condition (``models.gpc``).  At P = 64, J = 10, m = 500, K = 100
 Φ is 128 MB in float32, the quadrature's 10 × 256 lanes 512 MB.
 
+Each evaluation of the likelihood over all particles counts one
+``smc_likelihood_evals`` and its lanes (particles × classes) in
+``smc_lanes`` (``utils.metrics``); the Newton solves count ``newton_rounds``.
+
 Prior: the reference's t-penalty p·log t + (t/τ)^(−q) is an improper density
 on (0, ∞), so θ gets a proper lognormal base N(μ0, s0²) and the penalty is
 folded into the tempered term: at β = 1 the target is
@@ -30,6 +34,7 @@ from ..config import resolve_device
 from ..models.gpc import gpc_marginal_log_likelihood_lowrank
 from ..models.latent import _same_device, t_log_prior_density
 from ..types import EigenPair
+from ..utils.metrics import count
 from .smc import SmcResult, run_smc, run_smc_chunked
 
 
@@ -78,6 +83,12 @@ def _phi(V_idx: torch.Tensor, lam: torch.Tensor, t: torch.Tensor) -> torch.Tenso
     return V_idx * torch.exp(-0.5 * t[..., None] * lam)[..., None, :]
 
 
+def _count_evaluation(theta: torch.Tensor) -> None:
+    """One likelihood evaluation over the particles θ (P, J): P·J lanes."""
+    count("smc_likelihood_evals")
+    count("smc_lanes", theta.numel())
+
+
 def _smc_posterior(generator, log_like, x0, mu0, s0, n_mutation_steps: int,
                    stages_per_dispatch) -> SmcResult:
     def log_prior(theta):
@@ -109,6 +120,7 @@ def gpc_t_posterior(generator: torch.Generator, eigenpair: EigenPair, Y, idx, K:
           else torch.as_tensor(N, dtype=dtype, device=dev))
 
     def log_like(theta):                                  # (P, 1) -> (P,)
+        _count_evaluation(theta)
         t = torch.exp(theta)
         mll = gpc_marginal_log_likelihood_lowrank(_phi(V_idx, lam, t[:, 0]), Y, Nv, sigma,
                                                   newton_tol, newton_max_iter)
@@ -139,6 +151,7 @@ def mult_t_posterior(generator: torch.Generator, eigenpair: EigenPair, aug_y, id
     Yt = aug_y.T.contiguous()                             # (J, m)
 
     def log_like(theta):                                  # (P, J) -> (P,)
+        _count_evaluation(theta)
         t = torch.exp(theta)
         mll = gpc_marginal_log_likelihood_lowrank(_phi(V_idx, lam, t), Yt, Nv, sigma,
                                                   newton_tol, newton_max_iter)

@@ -15,8 +15,10 @@ Two drivers over ONE stage body, as in ``flgp_tpu.inference.smc``:
 
 Both apply the identical stage body in the identical order, so their results
 are the same bits.  A stage makes no host read but the one of β that decides
-whether the ladder goes on; the ESS bisection is a fixed 30 steps on device
-tensors.
+whether the ladder goes on (``utils.metrics.to_host``, so ``host_syncs``
+counts it); the ESS bisection is a fixed 30 steps on device tensors.  The
+ladder runs in the recorder's span ``smc`` and counts ``smc_stages``, one a
+tempering stage.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ from typing import Callable, NamedTuple
 
 import torch
 
+from ..utils.metrics import count, span, to_host
 from .hmc import check_placement, hmc_kernel, init_state
 
 LogProbFn = Callable[[torch.Tensor], torch.Tensor]
@@ -113,6 +116,7 @@ def _stage(generator, log_prior, log_like, st: SmcState, n_mutation_steps: int,
     mutate, and move the step size toward the mutation's target acceptance
     by the acceptance of the last mutation step (the reference's scan
     returns the final step's)."""
+    count("smc_stages")
     n = st.particles.shape[0]
     ll = log_like(st.particles)
     beta_new = _next_beta(ll, st.beta, target_ess_frac * n)
@@ -138,8 +142,8 @@ def _stage(generator, log_prior, log_like, st: SmcState, n_mutation_steps: int,
 
 
 def smc_init(x0: torch.Tensor, step_size: float = 0.1, max_stages: int = 50) -> SmcState:
-    def scalar(v):
-        return torch.tensor(v, dtype=x0.dtype, device=x0.device)
+    def scalar(v):                  # a fill on the device: no upload
+        return torch.full((), v, dtype=x0.dtype, device=x0.device)
 
     return SmcState(x0, scalar(0.0), scalar(0.0), 0, scalar(step_size),
                     torch.ones((max_stages,), dtype=x0.dtype, device=x0.device))
@@ -150,11 +154,14 @@ def _check_mutation(mutation: str) -> None:
         raise ValueError(f"unknown mutation kernel {mutation!r}")
 
 
-def _run_stages(generator, log_prior, log_like, st: SmcState, limit: int, **kw) -> SmcState:
-    """Stages while β < 1 and stage < limit; one host read of β a stage."""
-    while st.stage < limit and float(st.beta) < 1.0:
+def _run_stages(generator, log_prior, log_like, st: SmcState, limit: int, **kw) -> tuple:
+    """Stages from a state with β < 1 while β < 1 and stage < limit: (the
+    state, whether β reached 1).  One host read of β a stage, after it."""
+    done = False
+    while not done and st.stage < limit:
         st = _stage(generator, log_prior, log_like, st, **kw)
-    return st
+        done = to_host(st.beta) >= 1.0
+    return st, done
 
 
 def _result(st: SmcState) -> SmcResult:
@@ -179,11 +186,12 @@ def run_smc(generator: torch.Generator, log_prior: LogProbFn, log_like: LogProbF
     device."""
     _check_mutation(mutation)
     check_placement(generator, log_like, x0)
-    st = smc_init(x0, step_size, max_stages)
-    st = _run_stages(generator, log_prior, log_like, st, max_stages,
-                     n_mutation_steps=n_mutation_steps, n_leapfrog=n_leapfrog,
-                     target_ess_frac=target_ess_frac, mutation=mutation)
-    return _result(st)
+    with span("smc"):
+        st = smc_init(x0, step_size, max_stages)
+        st, _ = _run_stages(generator, log_prior, log_like, st, max_stages,
+                            n_mutation_steps=n_mutation_steps, n_leapfrog=n_leapfrog,
+                            target_ess_frac=target_ess_frac, mutation=mutation)
+        return _result(st)
 
 
 def run_smc_chunked(generator: torch.Generator, log_prior: LogProbFn, log_like: LogProbFn,
@@ -192,17 +200,16 @@ def run_smc_chunked(generator: torch.Generator, log_prior: LogProbFn, log_like: 
                     step_size: float = 0.1, mutation: str = "hmc") -> SmcResult:
     """The :func:`run_smc` ladder in runs of at most ``stages_per_dispatch``
     stages, each run bounded by ``stage < stage_at_entry +
-    stages_per_dispatch`` (and β < 1).  The bound only truncates the loop
-    :func:`run_smc` runs, so the stage bodies, and the result, are the same
-    bits."""
+    stages_per_dispatch`` (and β < 1, read once a stage).  The bound only
+    truncates the loop :func:`run_smc` runs, so the stage bodies, and the
+    result, are the same bits."""
     _check_mutation(mutation)
     check_placement(generator, log_like, x0)
     kw = dict(n_mutation_steps=n_mutation_steps, n_leapfrog=n_leapfrog,
               target_ess_frac=target_ess_frac, mutation=mutation)
-    st = smc_init(x0, step_size, max_stages)
-    while st.stage < max_stages:
-        st = _run_stages(generator, log_prior, log_like, st,
-                         min(st.stage + stages_per_dispatch, max_stages), **kw)
-        if float(st.beta) >= 1.0:
-            break
-    return _result(st)
+    with span("smc"):
+        st, done = smc_init(x0, step_size, max_stages), False
+        while not done and st.stage < max_stages:
+            st, done = _run_stages(generator, log_prior, log_like, st,
+                                   min(st.stage + stages_per_dispatch, max_stages), **kw)
+        return _result(st)

@@ -478,12 +478,15 @@ def test_fit_launches_every_kernel(dev):
     assert np.all(np.isfinite(res.posterior_mean))
 
 
-@pytest.mark.parametrize("driver", ["fit_lae_logit_gp", "fit_lae_logit_mult_gp"])
+@pytest.mark.parametrize("driver", ["fit_lae_logit_gp", "fit_lae_logit_mult_gp",
+                                    "mult_t_posterior"])
 def test_host_syncs_count_every_synchronizing_call_of_a_fit(dev, driver):
     """Every call of the two LAE drivers' fit path that makes the host wait
     for the card, as ``torch.cuda.set_sync_debug_mode("warn")`` reports
     them (reads, uploads, and the library calls that read on the host), is
-    counted in ``host_syncs``."""
+    counted in ``host_syncs``; so is every one of a short SMC ladder over
+    four classes' log t (``mult_t_posterior``: its β reads and its Newton
+    rounds' reads), composed as the benchmark's hyperposterior job composes it."""
     import warnings
 
     import flgp_tpu_torch as ft
@@ -500,8 +503,23 @@ def test_host_syncs_count_every_synchronizing_call_of_a_fit(dev, driver):
                        solve_dtype=torch.float64)
 
     def fit():
-        return getattr(ft, driver)(torch.Generator(device=dev).manual_seed(0), ds.x_train,
-                                   ds.y_train, ds.x_test, cfg=cfg)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        if driver != "mult_t_posterior":
+            return getattr(ft, driver)(gen, ds.x_train, ds.y_train, ds.x_test, cfg=cfg)
+        from flgp_tpu_torch.fit import drivers, spectral
+        from flgp_tpu_torch.fit.multiclass import one_hot_labels
+        from flgp_tpu_torch.inference import hyperparam
+
+        X = torch.cat([metrics.to_device(ds.x_train, cfg.dtype, dev),
+                       metrics.to_device(ds.x_test, cfg.dtype, dev)])
+        Y = metrics.to_device(ds.y_train, cfg.dtype, dev)
+        eig, _ = spectral.build_spectrum(gen, X, cfg.graph)
+        _, seig, (aug,) = drivers._solve_cast(cfg, eig, one_hot_labels(Y, 4))
+        stages = metrics.COUNTS["smc_stages"]
+        post = hyperparam.mult_t_posterior(gen, seig, aug, torch.arange(200, device=dev), 40,
+                                           cfg.sigma, n_particles=16, n_mutation_steps=2)
+        assert metrics.COUNTS["smc_stages"] - stages == post.smc.n_stages > 1
+        return post
 
     fit()                                   # the kernels' first launches
     torch.cuda.synchronize()

@@ -118,3 +118,28 @@ def test_rejects_unknown_mutation_and_misplaced_generator():
         run_smc(gen(0), log_prior, log_like, torch.zeros((4, 2)), mutation="nope")
     with pytest.raises(ValueError, match="generator"):
         run_smc(gen(0), log_prior, log_like, torch.zeros((4, 2), device="meta"))
+
+
+@pytest.mark.parametrize("chunk", [None, 1, 3])
+def test_the_ladder_reads_beta_once_a_stage_and_counts_its_stages(chunk):
+    """β is read on the host once a stage, after it (``utils.metrics.to_host``,
+    so ``host_syncs`` counts each read), by either driver; ``smc_stages``
+    counts the stages, and the ladder runs in the recorder's span ``smc``."""
+    from flgp_tpu_torch.utils import metrics
+
+    def sharp_like(x):
+        return -0.5 * torch.sum((x - MU) ** 2, dim=-1) / 0.05**2
+
+    x0 = torch.randn((128, 2), generator=gen(0), dtype=F64)
+    kw = dict(n_mutation_steps=2, mutation="rwm", step_size=0.5)
+    before = metrics.COUNTS.copy()
+    with metrics.recording() as rec:
+        if chunk is None:
+            res = run_smc(gen(1), log_prior, sharp_like, x0, **kw)
+        else:
+            res = run_smc_chunked(gen(1), log_prior, sharp_like, x0, stages_per_dispatch=chunk,
+                                  **kw)
+    got = metrics.COUNTS - before
+    assert res.n_stages > 3
+    assert got["host_syncs"] == got["smc_stages"] == res.n_stages
+    assert [s.name for s in rec.spans] == ["smc"]
